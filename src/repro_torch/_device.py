@@ -1,0 +1,56 @@
+"""Device and backend resolution shared by the port's entry points."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+# kernel backends of the two knobs (gate_backend, matmul_backend):
+#   "cuda"  the hand-written Hopper kernel (default for CUDA tensors)
+#   "ref"   the plain PyTorch version (default for CPU tensors; on the
+#           card only when asked for by name)
+BACKENDS: Tuple[str, ...] = ("cuda", "ref")
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``cuda`` unless the caller names another device; raises when CUDA
+    is asked for (or implied) and missing — never a silent CPU run."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device=\"cpu\" to run "
+                "the port on the CPU")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} asked for, but CUDA is not "
+                           "available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use cuda or cpu")
+    return dev
+
+
+def validate_backend(name: Optional[str], knob: str) -> Optional[str]:
+    """Check a backend name (None keeps the per-device default)."""
+    if name is not None and name not in BACKENDS:
+        raise ValueError(f"unknown {knob} {name!r}; expected one of "
+                         f"{BACKENDS}")
+    return name
+
+
+def resolve_backend(name: Optional[str], tensor: torch.Tensor,
+                    knob: str) -> str:
+    """The backend one call runs: ``name``, else ``"cuda"`` for a CUDA
+    tensor and ``"ref"`` for a CPU tensor.  ``"cuda"`` with a CPU tensor
+    raises."""
+    validate_backend(name, knob)
+    if name is None:
+        return "cuda" if tensor.is_cuda else "ref"
+    if name == "cuda" and not tensor.is_cuda:
+        raise ValueError(f"{knob}=\"cuda\" runs the Hopper kernel and "
+                         f"needs CUDA tensors; got a {tensor.device} "
+                         "tensor")
+    return name

@@ -1,0 +1,118 @@
+"""Data Engine state: the switch's SRAM tables as tensors.
+
+Port of ``repro/core/data_engine/state.py`` (single pipe): the Flow Info
+Table keyed by a truncated 5-tuple hash, the per-flow feature rings, the
+token bucket and the windowed statistics (§4.1-4.3), all integers.
+
+Fields that are uint32 in the reference (``hash``, the threefry key
+``rng_key``) hold the same values in int64 here: PyTorch's uint32 has
+partial op coverage, and int64 masked with ``& 0xFFFFFFFF`` wraps
+exactly as uint32 does.  Everything else keeps the reference's int32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.core.probability import LUTConfig, build_lut, token_rate
+
+I32 = torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    n_slots_log2: int = 12          # flow table size = 2^k
+    ring_depth: int = 8             # F1..F8 (§4.3); current pkt is F9
+    feat_dim: int = 2               # (pkt_len, inter-packet delay)
+    fpga_hz: float = 75e6           # model engine service rate (Fig. 6)
+    link_bw_bytes: float = 12.5e9   # 100 Gbps switch<->FPGA channel
+    feat_bytes: int = 64            # W: mirrored packet payload
+    queue_len: int = 64             # bucket cap <= queue length (§4.2)
+    window_us: int = 1_000_000      # T_w statistics window
+    lut: LUTConfig = dataclasses.field(default_factory=LUTConfig)
+    # fused admission backend: "cuda" (Hopper kernel) | "ref" (plain
+    # PyTorch); None runs the kernel on CUDA tensors, "ref" on CPU ones
+    gate_backend: Optional[str] = None
+
+    @property
+    def n_slots(self) -> int:
+        return 1 << self.n_slots_log2
+
+    @property
+    def token_rate_per_us(self) -> float:
+        return token_rate(self.fpga_hz, self.link_bw_bytes,
+                          self.feat_bytes) / 1e6
+
+    @property
+    def cost_us(self) -> int:
+        """Token cost per grant = 1/V in us (integer, >=1)."""
+        return max(1, int(round(1.0 / self.token_rate_per_us)))
+
+    @property
+    def bucket_cap_us(self) -> int:
+        return self.queue_len * self.cost_us
+
+
+def init_state(cfg: EngineConfig, n_est: float = 1000.0,
+               q_est_pps: float = 1e6, device=None
+               ) -> Dict[str, torch.Tensor]:
+    """Fresh switch state + a control-plane LUT for (n_est, q_est)."""
+    n = cfg.n_slots
+    lut = build_lut(n=n_est, q=q_est_pps / 1e6, v=cfg.token_rate_per_us,
+                    cfg=cfg.lut)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=I32, device=device)
+
+    return {
+        # Flow Info Table (§4.1)
+        "hash": torch.zeros((n,), dtype=torch.int64, device=device),
+        "bklog_n": torch.zeros((n,), dtype=I32, device=device),
+        "bklog_t": torch.zeros((n,), dtype=I32, device=device),
+        "cls": torch.full((n,), -1, dtype=I32, device=device),
+        "buff_idx": torch.zeros((n,), dtype=I32, device=device),
+        "pkt_cnt": torch.zeros((n,), dtype=I32, device=device),
+        "last_ts": torch.zeros((n,), dtype=I32, device=device),
+        # Buffer Manager rings (§4.3)
+        "ring": torch.zeros((n, cfg.ring_depth, cfg.feat_dim), dtype=I32,
+                            device=device),
+        # Rate Limiter (§4.2)
+        "bucket": scalar(cfg.bucket_cap_us),
+        "t_last": scalar(0),
+        "lut": torch.as_tensor(lut, dtype=I32).to(device),
+        # windowed statistics (control plane resets each T_w)
+        "flow_cnt": scalar(0),
+        "win_pkt_cnt": scalar(0),
+        "win_start": scalar(0),
+        # threefry key of the probabilistic selection
+        "rng_key": prng.PRNGKey(0, device=device),
+        # telemetry
+        "granted": scalar(0),
+        "denied_prob": scalar(0),
+        "denied_tokens": scalar(0),
+        "collisions": scalar(0),
+    }
+
+
+def hash_five_tuple(src_ip: torch.Tensor, dst_ip: torch.Tensor,
+                    src_port: torch.Tensor, dst_port: torch.Tensor,
+                    proto: torch.Tensor) -> torch.Tensor:
+    """32-bit integer mix of the 5-tuple (stand-in for the switch CRC).
+
+    Inputs hold uint32 values in int64; returns int64 values in
+    [1, 2^32), bit-identical to the reference's uint32 hash."""
+    m = prng.mul_u32
+    h = m(src_ip, 0x9E3779B1)
+    h = h ^ m(dst_ip, 0x85EBCA77)
+    h = h ^ m(src_port, 0xC2B2AE3D)
+    h = h ^ m(dst_port, 0x27D4EB2F)
+    h = h ^ m(proto, 0x165667B1)
+    h = h ^ (h >> 15)
+    h = m(h, 0x2545F491)
+    h = h ^ (h >> 13)
+    # hash value 0 is reserved for "empty slot"
+    return torch.clamp_min(h, 1)

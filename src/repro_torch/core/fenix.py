@@ -1,0 +1,262 @@
+"""FENIX end-to-end system: switch (Data Engine) + FPGA (Model Engine).
+
+Port of ``repro/core/fenix.py``, single-pipe device driver: each packet
+chunk goes through the delay-line delivery, the Data Engine (flow table,
+fused admission gate, feature rings), the Vector I/O enqueue, the
+Model-Engine service budget and dequeue, INT8 inference over the fixed
+``serve_lanes`` lanes, the delay-line push and, at each T_w boundary,
+the control-plane LUT rebuild — all as tensors on one device.
+
+The reference's ``lax.scan`` becomes a Python loop over chunks and its
+``"_cp"`` ``lax.cond`` a Python ``if`` on the chunk index, which the host
+knows without asking the device.  Nothing inside the loop reads a value
+back: stats are summed on the device and read once at the end, so a
+replay makes zero host round trips (``host_syncs`` stays 0).  On CUDA the
+loop runs under ``torch.cuda.set_sync_debug_mode("error")``, so any
+operation that would synchronise with the host raises instead.
+
+The other drivers (host, exact, pipes, farm) and capture-path and
+``TraceSpec`` traces are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item; nor are the switch
+decision tree (``tree=``) and oracle payloads (``oracle_windows=``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device, validate_backend
+from repro_torch.core.data_engine import engine as de
+from repro_torch.core.data_engine import rate_limiter as rl
+from repro_torch.core.data_engine.state import EngineConfig, init_state
+from repro_torch.core.model_engine import delay_line as dl
+from repro_torch.core.model_engine import serving
+from repro_torch.core.model_engine import vector_io as vio
+from repro_torch.core.model_engine.inference import EngineModel
+
+I32 = torch.int32
+
+# packet-stream fields consumed by the data plane, with their dtypes on
+# the device (the five-tuple is uint32 in the stream: held in int64)
+PKT_KEYS = ("src_ip", "dst_ip", "src_port", "dst_port", "proto",
+            "ts_us", "pkt_len")
+_PKT_DTYPES = {"src_ip": np.int64, "dst_ip": np.int64,
+               "src_port": np.int64, "dst_port": np.int64,
+               "proto": np.int64, "ts_us": np.int32, "pkt_len": np.int32}
+
+DRIVER_NAMES = ("host", "device", "pipes", "farm")
+_NOT_PORTED = {
+    "host": "the host/exact driver is the next slice (ROADMAP.md, "
+            "'Modules to port')",
+    "pipes": "the multi-pipe driver is a later slice (ROADMAP.md, "
+             "'Modules to port')",
+    "farm": "the engine farm is a later slice (ROADMAP.md, 'Modules to "
+            "port')",
+}
+DEPTH_BUCKETS = 16                 # engine-farm queue-depth histogram width
+
+
+@dataclasses.dataclass
+class FenixConfig:
+    engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
+    io: vio.IOConfig = dataclasses.field(default_factory=vio.IOConfig)
+    batch_size: int = 512            # packets per data-engine step
+    loop_latency_us: int = 3         # switch->FPGA->switch (Fig. 11)
+    control_plane_every: int = 8     # LUT refresh cadence (batches)
+    # "auto" resolves as the reference does: farm if num_engines>1, else
+    # pipes if num_pipes>1, else host if exact=True, else device.  Only
+    # "device" is ported.
+    driver: str = "auto"
+    exact: bool = False
+    num_pipes: int = 1
+    num_engines: int = 1
+    # fused-admission backend for the whole data plane: "cuda" | "ref";
+    # None keeps engine.gate_backend
+    gate_backend: Optional[str] = None
+    # serving model: "bylen" or an int8_* name (served from model_dir)
+    model: str = "bylen"
+    model_dir: Optional[str] = None
+    # int8-GEMM backend of the serving model: "cuda" | "ref"
+    matmul_backend: Optional[str] = None
+
+    def __post_init__(self):
+        if self.driver == "auto":
+            self.driver = ("farm" if self.num_engines > 1 else
+                           "pipes" if self.num_pipes > 1 else
+                           "host" if self.exact else "device")
+        if self.driver not in DRIVER_NAMES:
+            raise ValueError(
+                f"unknown driver {self.driver!r}; pick one of "
+                f"{('auto',) + DRIVER_NAMES}")
+        if self.num_engines > 1 and self.driver != "farm":
+            raise ValueError(
+                f"num_engines={self.num_engines} needs the engine-farm "
+                f"driver, not driver={self.driver!r}")
+        if self.num_pipes > 1 and self.driver not in ("pipes", "farm"):
+            raise ValueError(
+                f"num_pipes={self.num_pipes} needs a sharded driver, not "
+                f"driver={self.driver!r}")
+        if self.exact and self.driver != "host":
+            raise ValueError("exact=True runs only on driver=\"host\"")
+        validate_backend(self.gate_backend, "gate_backend")
+        validate_backend(self.matmul_backend, "matmul_backend")
+
+
+def _make_single_step(ecfg: EngineConfig, iocfg: vio.IOConfig,
+                      loop_latency_us: int, model):
+    """One chunk of the single-pipe device driver: delivery, the Data
+    Engine, enqueue, the full-budget service epilogue (dequeue,
+    inference, delay-line push) and, when ``cp``, the control-plane
+    rebuild — where the host oracle applies it, between batches."""
+
+    def step_fn(carry, chunk: Dict[str, torch.Tensor], cp: bool):
+        state, queues, dline = carry
+        ts = chunk["ts_us"]
+        now = ts[-1]
+        state, dline = dl.deliver(state, dline, now, ecfg.n_slots)
+        state, out = de.process_batch_fast(state, chunk, ecfg)
+        queues = vio.enqueue_device(queues, iocfg, out["granted"],
+                                    out["slot"], out["hash"],
+                                    out["payload"])
+        verdict = out["verdict"]
+        budget = vio.step_budget(ts[0], now, ecfg.token_rate_per_us,
+                                 iocfg.queue_len)
+        queues, s2, h2, f2, cnt = vio.dequeue_device(queues, iocfg, budget)
+        cls = model.infer(f2)
+        dline = dl.push(dline, now + loop_latency_us, s2, h2, cls, cnt)
+        if cp:
+            state = rl.control_plane_update(state, ecfg)
+        stats = torch.stack([out["granted"].sum(dtype=I32), cnt,
+                             (verdict >= 0).sum(dtype=I32),
+                             torch.zeros_like(cnt)])       # no switch tree
+        return (state, queues, dline), verdict, stats
+
+    return step_fn
+
+
+@contextlib.contextmanager
+def _no_host_sync(device: torch.device):
+    """On CUDA, make any operation that synchronises with the host raise
+    (``torch.cuda.set_sync_debug_mode("error")``) for the block."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+class FenixSystem:
+    """Stateful co-simulation wrapper (single-pipe device driver).
+
+    ``device``: where the replay runs; ``None`` means ``cuda`` and raises
+    on a host without it.  ``model``: a serving model object
+    (``EngineModel`` or ``ByLenModel``); ``None`` builds ``cfg.model``.
+    """
+
+    def __init__(self, cfg: FenixConfig, model=None, *, device=None,
+                 n_est: float = 1000.0, q_est_pps: float = 1e6):
+        self.device = resolve_device(device)
+        if cfg.driver != "device":
+            raise NotImplementedError(
+                f"driver={cfg.driver!r} is not ported yet: "
+                f"{_NOT_PORTED[cfg.driver]}")
+        if cfg.gate_backend is not None:
+            cfg = dataclasses.replace(
+                cfg, engine=dataclasses.replace(
+                    cfg.engine, gate_backend=cfg.gate_backend))
+        validate_backend(cfg.engine.gate_backend, "gate_backend")
+        if model is None:
+            model = serving.build_model(cfg.model,
+                                        matmul_backend=cfg.matmul_backend,
+                                        model_dir=cfg.model_dir,
+                                        device=self.device)
+        elif cfg.matmul_backend is not None:
+            if not isinstance(model, EngineModel):
+                raise ValueError(
+                    "matmul_backend applies to quantized EngineModels; "
+                    f"got {type(model).__name__}")
+            model = model.with_backend(cfg.matmul_backend)
+        if isinstance(model, EngineModel):
+            model = model.to(self.device)
+        self.cfg = cfg
+        self.model = model
+        self.n_est = n_est
+        self.q_est_pps = q_est_pps
+        self._step = _make_single_step(cfg.engine, cfg.io,
+                                       cfg.loop_latency_us, model)
+        self.reset()
+
+    def reset(self) -> None:
+        """Fresh run state (tables, queues, delay line, stats)."""
+        cfg = self.cfg
+        self.state = init_state(cfg.engine, n_est=self.n_est,
+                                q_est_pps=self.q_est_pps,
+                                device=self.device)
+        self.queues = vio.init_queues(cfg.io, device=self.device)
+        self._dl = dl.init(cfg.io.queue_len, device=self.device)
+        self.stats = {"packets": 0, "granted": 0, "inferences": 0,
+                      "classified_pkts": 0, "tree_pkts": 0, "dropped_q": 0,
+                      "dropped_inflight": 0,
+                      "served_per_engine": [0] * cfg.num_engines,
+                      "dropped_eq": 0,
+                      "engine_q_depth_hist": [[0] * DEPTH_BUCKETS
+                                              for _ in
+                                              range(cfg.num_engines)]}
+        # host-driven control-plane round trips: 0 on the device driver
+        self.host_syncs = 0
+
+    def run_trace(self, trace: Dict[str, np.ndarray]
+                  ) -> Dict[str, np.ndarray]:
+        """Replay a packet-stream dict (``synthetic_traffic.packet_stream``
+        layout); returns {"verdict": [n] int32} in arrival order."""
+        if not isinstance(trace, dict):
+            raise NotImplementedError(
+                "run_trace takes a packet-stream dict; capture paths and "
+                "TraceSpec streaming are not ported yet (ROADMAP.md, "
+                "'Modules to port')")
+        return self._run_trace_device(trace)
+
+    def _run_trace_device(self, stream: Dict[str, np.ndarray]
+                          ) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        n = len(stream["ts_us"])
+        B, cpe = cfg.batch_size, cfg.control_plane_every
+        arrs = {k: torch.from_numpy(np.ascontiguousarray(
+                    np.asarray(stream[k]).astype(_PKT_DTYPES[k])))
+                .to(self.device) for k in PKT_KEYS}
+        n_chunks = n // B
+        n_batches = n_chunks + (1 if n_chunks * B < n else 0)
+        carry = (self.state, self.queues, self._dl)
+        verd_parts: List[torch.Tensor] = []
+        stat_sum = torch.zeros(4, dtype=torch.int64, device=self.device)
+        with _no_host_sync(self.device):
+            for i in range(n_batches):
+                lo, hi = i * B, min((i + 1) * B, n)
+                chunk = {k: v[lo:hi] for k, v in arrs.items()}
+                carry, vd, st = self._step(carry, chunk,
+                                           (i + 1) % cpe == 0)
+                verd_parts.append(vd)
+                stat_sum += st
+        self.state, self.queues, self._dl = carry
+        stat = stat_sum.cpu().numpy()
+        self.stats["packets"] += n
+        self.stats["granted"] += int(stat[0])
+        self.stats["inferences"] += int(stat[1])
+        self.stats["classified_pkts"] += int(stat[2])
+        self.stats["tree_pkts"] += int(stat[3])
+        self.stats["dropped_q"] = int(self.queues["dropped"])
+        self.stats["dropped_inflight"] = int(self._dl["dropped"])
+        self.stats["served_per_engine"][0] += int(stat[1])
+        self.stats["engine_q_depth_hist"][0][0] += n_batches
+        verdicts = (torch.cat(verd_parts).cpu().numpy().astype(np.int32)
+                    if verd_parts else np.full(n, -1, np.int32))
+        return {"verdict": verdicts}

@@ -1,0 +1,144 @@
+"""Vector I/O Processor (§5.1): the flow-identifier FIFO between the
+switch and the Model Engine, as device-resident ring state.
+
+Port of the single-pipe device ops of ``repro/core/model_engine/
+vector_io.py``: ``IOConfig``, ``init_queues``, ``ring_append``,
+``ring_pop``, ``enqueue_device``, ``dequeue_device``, ``service_budget``
+and ``step_budget``.  Dequeue returns fixed-shape lanes (``serve_lanes``)
+plus a count tensor, so no shape depends on a device value and the
+replay never reads one back to the host.
+
+The reference scatters with ``mode="drop"`` and gathers with
+``mode="fill"``; PyTorch has neither, so appends scatter into a copy of
+the field with one spare row at index ``cap`` (the drop target), and
+pops clamp the index and zero the lanes past the count.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+I32 = torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class IOConfig:
+    queue_len: int = 1024
+    feat_len: int = 9
+    feat_dim: int = 2
+    # static per-step dequeue lane count; None means queue_len, which
+    # keeps the device dequeue bit-identical to the host loop
+    serve_max: Optional[int] = None
+
+    @property
+    def serve_lanes(self) -> int:
+        return self.queue_len if self.serve_max is None else self.serve_max
+
+
+def init_queues(cfg: IOConfig, device=None) -> Dict[str, torch.Tensor]:
+    def scalar():
+        return torch.zeros((), dtype=I32, device=device)
+
+    return {
+        "id_q_slot": torch.zeros((cfg.queue_len,), dtype=I32, device=device),
+        # uint32 flow hashes, held in int64
+        "id_q_hash": torch.zeros((cfg.queue_len,), dtype=torch.int64,
+                                 device=device),
+        "feat_q": torch.zeros((cfg.queue_len, cfg.feat_len, cfg.feat_dim),
+                              dtype=I32, device=device),
+        "head": scalar(), "tail": scalar(), "dropped": scalar(),
+    }
+
+
+def ring_append(fields: Dict[str, torch.Tensor],
+                values: Dict[str, torch.Tensor], head: torch.Tensor,
+                tail: torch.Tensor, dropped: torch.Tensor, cap: int,
+                valid: torch.Tensor
+                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
+                           torch.Tensor]:
+    """Masked append of ``values`` lanes into ring ``fields``: valid lanes
+    pack in lane order, lanes that would overflow count into
+    ``dropped``.  Returns (fields', tail', dropped')."""
+    rank = torch.cumsum(valid.to(I32), 0, dtype=I32)
+    fits = valid & (tail + rank - head <= cap)
+    pos = torch.where(fits, torch.remainder(tail + rank - 1, cap),
+                      cap).long()
+    out = {}
+    for k, f in fields.items():
+        buf = torch.cat([f, f[:1]])            # spare row `cap` takes drops
+        buf[pos] = values[k].to(f.dtype)
+        out[k] = buf[:cap]
+    n_in = fits.sum(dtype=I32)
+    n_dropped = (dropped + valid.sum(dtype=I32) - n_in).to(I32)
+    return out, (tail + n_in).to(I32), n_dropped
+
+
+def ring_pop(fields: Dict[str, torch.Tensor], head: torch.Tensor,
+             tail: torch.Tensor, cap: int, budget: torch.Tensor, lanes: int
+             ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
+                        torch.Tensor]:
+    """Pop min(budget, occupancy, lanes) entries in FIFO order: returns
+    ([lanes]-shaped values, zero past the count; head'; count)."""
+    take = torch.minimum(torch.minimum(budget.to(I32), tail - head),
+                         torch.full_like(head, lanes))
+    lane = torch.arange(lanes, dtype=I32, device=head.device)
+    live = lane < take
+    idx = torch.remainder(head + lane, cap).long()
+    vals = {}
+    for k, f in fields.items():
+        v = f[idx]
+        mask = live.reshape((lanes,) + (1,) * (v.dim() - 1))
+        vals[k] = torch.where(mask, v, torch.zeros((), dtype=v.dtype,
+                                                   device=v.device))
+    return vals, (head + take).to(I32), take
+
+
+def service_budget(span_us: torch.Tensor, rate_per_us: float, cap: int
+                   ) -> torch.Tensor:
+    """Model-Engine inferences servable in ``span_us``:
+    clip(floor(float32(span) * float32(rate)), 1, cap), as the
+    reference's float32 formula."""
+    rate = torch.full((), float(np.float32(rate_per_us)),
+                      dtype=torch.float32, device=span_us.device)
+    b = torch.floor(span_us.to(torch.float32) * rate)
+    return torch.clamp(b, 1, cap).to(I32)
+
+
+def step_budget(ts_first: torch.Tensor, ts_last: torch.Tensor,
+                rate_per_us: float, cap: int) -> torch.Tensor:
+    """Service budget of one step spanning [ts_first, ts_last]."""
+    span = torch.clamp_min(ts_last.to(I32) - ts_first.to(I32), 1)
+    return service_budget(span, rate_per_us, cap)
+
+
+def enqueue_device(q: Dict, cfg: IOConfig, valid: torch.Tensor,
+                   slots: torch.Tensor, hashes: torch.Tensor,
+                   feats: torch.Tensor) -> Dict:
+    """Masked vectorized enqueue with the host loop's FIFO/drop
+    semantics."""
+    fields = {k: q[k] for k in ("id_q_slot", "id_q_hash", "feat_q")}
+    values = {"id_q_slot": slots, "id_q_hash": hashes, "feat_q": feats}
+    out = dict(q)
+    fields, out["tail"], out["dropped"] = ring_append(
+        fields, values, q["head"], q["tail"], q["dropped"],
+        cfg.queue_len, valid)
+    out.update(fields)
+    return out
+
+
+def dequeue_device(q: Dict, cfg: IOConfig, budget: torch.Tensor
+                   ) -> Tuple[Dict, torch.Tensor, torch.Tensor,
+                              torch.Tensor, torch.Tensor]:
+    """Pop min(budget, occupancy, serve_lanes) entries in FIFO order:
+    (q', slots, hashes, feats, count), lanes past count zero-filled."""
+    vals, head, take = ring_pop(
+        {k: q[k] for k in ("id_q_slot", "id_q_hash", "feat_q")},
+        q["head"], q["tail"], cfg.queue_len, budget, cfg.serve_lanes)
+    out = dict(q)
+    out["head"] = head
+    return (out, vals["id_q_slot"], vals["id_q_hash"], vals["feat_q"],
+            take)

@@ -1,0 +1,171 @@
+"""Class-conditioned synthetic network traffic (ISCXVPN2016 / USTC-TFC
+analogues), numpy only.
+
+The port's own copy of ``make_flows`` and ``packet_stream`` from
+``repro/data/synthetic_traffic.py``, so a trace can be made on a machine
+without the reference's dependencies.  Given the same arguments both
+produce the same packets.  Each class is a parametric flow generator
+over packet lengths and inter-packet delays; class imbalance follows the
+paper's Table 1.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+ISCX_CLASSES = ("chat", "email", "file", "p2p", "stream", "voip", "web")
+ISCX_RATIO = (11, 4, 13, 10, 18, 128, 1)
+
+USTC_CLASSES = ("cridex", "ftp", "geodo", "htbot", "neris", "nsis-ay",
+                "warcraft", "zeus", "virut", "weibo", "shifu", "smb")
+USTC_RATIO = (92, 10, 4, 14, 17, 23, 105, 1, 16, 132, 27, 1)
+
+
+@dataclasses.dataclass
+class ClassProfile:
+    len_mean: float
+    len_std: float
+    len_bimodal: float      # probability of an MTU-sized packet
+    ipd_log_mu: float       # log10 microseconds
+    ipd_log_sigma: float
+    burstiness: float       # prob of continuing a burst (tiny IPD)
+    flow_len_mean: int
+
+
+def _profiles(task: str) -> List[ClassProfile]:
+    if task == "iscx":
+        return [
+            ClassProfile(120, 60, 0.02, 5.2, 0.7, 0.10, 60),    # chat
+            ClassProfile(420, 180, 0.10, 4.6, 0.8, 0.25, 40),   # email
+            ClassProfile(1250, 220, 0.55, 3.2, 0.6, 0.70, 220),  # file
+            ClassProfile(1050, 320, 0.45, 3.5, 0.9, 0.55, 180),  # p2p
+            ClassProfile(1330, 120, 0.70, 3.9, 0.4, 0.60, 300),  # stream
+            ClassProfile(172, 24, 0.00, 4.3, 0.15, 0.05, 400),  # voip
+            ClassProfile(640, 420, 0.25, 4.0, 1.1, 0.40, 50),   # web
+        ]
+    # ustc malware/benign mix: each family gets a distinct temporal
+    # signature (beacon cadence, transfer bursts, chatty C2, bulk SMB...)
+    base = [
+        ClassProfile(140, 30, 0.02, 5.6, 0.25, 0.05, 80),   # cridex: slow beacon
+        ClassProfile(1350, 150, 0.65, 3.0, 0.5, 0.75, 150),  # ftp: bulk
+        ClassProfile(420, 60, 0.05, 4.9, 0.35, 0.12, 60),   # geodo: med beacon
+        ClassProfile(250, 180, 0.20, 3.6, 1.3, 0.45, 100),  # htbot: erratic
+        ClassProfile(90, 25, 0.01, 4.1, 0.9, 0.30, 90),     # neris: tiny spam
+        ClassProfile(700, 120, 0.30, 4.4, 0.5, 0.25, 110),  # nsis-ay
+        ClassProfile(190, 40, 0.00, 4.35, 0.12, 0.05, 300),  # warcraft: game tick
+        ClassProfile(520, 90, 0.08, 5.1, 0.4, 0.10, 85),    # zeus: fat beacon
+        ClassProfile(330, 250, 0.35, 3.3, 1.1, 0.60, 95),   # virut: bursty mix
+        ClassProfile(980, 280, 0.45, 3.8, 0.8, 0.50, 70),   # weibo: media
+        ClassProfile(620, 70, 0.12, 4.65, 0.2, 0.08, 75),   # shifu: regular mid
+        ClassProfile(1180, 220, 0.55, 3.45, 0.4, 0.65, 130),  # smb: bulk lan
+    ]
+    return base
+
+
+def task_meta(task: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    if task == "iscx":
+        return ISCX_CLASSES, ISCX_RATIO
+    if task == "ustc":
+        return USTC_CLASSES, USTC_RATIO
+    raise ValueError(task)
+
+
+@dataclasses.dataclass
+class Flow:
+    label: int
+    five_tuple: Tuple[int, int, int, int, int]
+    start_us: int
+    pkt_len: np.ndarray       # [n] int32
+    ipd_us: np.ndarray        # [n] int32 (ipd[0] = 0)
+
+    @property
+    def ts_us(self) -> np.ndarray:
+        return (self.start_us + np.cumsum(self.ipd_us)).astype(np.int64)
+
+
+def make_flows(task: str, n_flows: int, seed: int = 0,
+               duration_s: float = 60.0,
+               min_per_class: int = 0) -> List[Flow]:
+    """min_per_class stratifies rare classes (the paper's 100k-flow corpora
+    have >=200 flows even for ratio-1 classes; small synthetic runs need the
+    floor to make macro-F1 measurable)."""
+    rng = np.random.default_rng(seed)
+    classes, ratio = task_meta(task)
+    profs = _profiles(task)
+    probs = np.asarray(ratio, np.float64) / sum(ratio)
+    labels = rng.choice(len(classes), size=n_flows, p=probs)
+    if min_per_class:
+        counts = np.bincount(labels, minlength=len(classes))
+        fix = []
+        for c in range(len(classes)):
+            fix += [c] * max(min_per_class - counts[c], 0)
+        if fix:
+            idx = rng.choice(n_flows, len(fix), replace=False)
+            labels[idx] = np.asarray(fix)
+    flows: List[Flow] = []
+    for i, lab in enumerate(labels):
+        p = profs[lab]
+        n = max(10, int(rng.gamma(3.0, p.flow_len_mean / 3.0)))
+        n = min(n, 2000)
+        # per-flow jitter: shift the whole flow's signature
+        lm = p.len_mean * rng.uniform(0.8, 1.25)
+        im = p.ipd_log_mu + rng.normal(0, 0.25)
+        mtu = rng.random(n) < p.len_bimodal
+        lens = np.where(
+            mtu, 1500 - rng.integers(0, 60, n),
+            np.clip(rng.normal(lm, p.len_std, n), 40, 1500))
+        in_burst = rng.random(n) < p.burstiness
+        ipd = np.where(
+            in_burst,
+            rng.integers(20, 400, n),
+            (10.0 ** rng.normal(im, p.ipd_log_sigma, n))).astype(np.int64)
+        ipd = np.clip(ipd, 10, 5_000_000)
+        ipd[0] = 0
+        start = int(rng.uniform(0, duration_s * 1e6 * 0.5))
+        ft = (int(rng.integers(1, 2**31)), int(rng.integers(1, 2**31)),
+              int(rng.integers(1024, 65535)), int(rng.integers(1, 1024)),
+              6 if rng.random() < 0.8 else 17)
+        flows.append(Flow(int(lab), ft, start,
+                          lens.astype(np.int32), ipd.astype(np.int32)))
+    return flows
+
+
+def packet_stream(flows: List[Flow], limit: Optional[int] = None
+                  ) -> Dict[str, np.ndarray]:
+    """Interleave flows into one time-ordered packet stream (Data Engine)."""
+    recs = []
+    for fi, f in enumerate(flows):
+        ts = f.ts_us
+        for j in range(len(f.pkt_len)):
+            recs.append((ts[j], fi, f.pkt_len[j]))
+    recs.sort()
+    if limit:
+        recs = recs[:limit]
+    n = len(recs)
+    out = {
+        "ts_us": np.empty(n, np.int32), "pkt_len": np.empty(n, np.int32),
+        "src_ip": np.empty(n, np.uint32), "dst_ip": np.empty(n, np.uint32),
+        "src_port": np.empty(n, np.uint32),
+        "dst_port": np.empty(n, np.uint32),
+        "proto": np.empty(n, np.uint32),
+        "flow_idx": np.empty(n, np.int32),
+        "flow_pos": np.empty(n, np.int32),
+        "label": np.empty(n, np.int32),
+    }
+    pos_ctr: Dict[int, int] = {}
+    for i, (ts, fi, ln) in enumerate(recs):
+        f = flows[fi]
+        out["ts_us"][i] = ts % (2**31 - 1)
+        out["pkt_len"][i] = ln
+        out["src_ip"][i], out["dst_ip"][i] = f.five_tuple[0], f.five_tuple[1]
+        out["src_port"][i], out["dst_port"][i] = (f.five_tuple[2],
+                                                  f.five_tuple[3])
+        out["proto"][i] = f.five_tuple[4]
+        out["flow_idx"][i] = fi
+        out["flow_pos"][i] = pos_ctr.get(fi, 0)
+        pos_ctr[fi] = out["flow_pos"][i] + 1
+        out["label"][i] = f.label
+    return out

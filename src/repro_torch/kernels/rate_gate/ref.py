@@ -1,0 +1,50 @@
+"""Plain PyTorch versions of the Rate-Limiter gate (§4.2, Algorithm 1).
+
+Port of ``repro/kernels/rate_gate/ref.py``.  ``fused_admission_ref`` is
+the numerics contract of the fused admission kernel
+(``kernel.fused_gate``): selection, the prefix-sum token-bucket credit
+check and the bucket-level update in the reference's integer op order.
+It runs on any device; the CPU tests and ``chip_smoke.py``'s comparison
+use it.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+I32 = torch.int32
+
+
+def lut_prob(lut: torch.Tensor, t_i: torch.Tensor, c_i: torch.Tensor,
+             t_shift: int, c_shift: int) -> torch.Tensor:
+    """Shared binning + gather: the switch's shift/clip/SRAM read."""
+    tb, cb = lut.shape
+    ti = torch.clamp(t_i >> t_shift, 0, tb - 1).long()
+    ci = torch.clamp(c_i >> c_shift, 0, cb - 1).long()
+    return lut[ti, ci]
+
+
+def rate_gate_ref(t_i, c_i, lut, rand16, t_shift: int, c_shift: int
+                  ) -> torch.Tensor:
+    """t_i/c_i/rand16 [N] int32; lut [TB,CB] int32 -> selected [N] bool."""
+    return rand16 < lut_prob(lut, t_i, c_i, t_shift, c_shift)
+
+
+def fused_admission_ref(t_i: torch.Tensor, c_i: torch.Tensor,
+                        ts: torch.Tensor, lut: torch.Tensor,
+                        rand16: torch.Tensor, burst0: torch.Tensor,
+                        t_ref: torch.Tensor, t_shift: int, c_shift: int,
+                        cost_us: int, bucket_cap_us: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(granted [N] bool, bucket_new 0-d int32); see the reference."""
+    selected = rate_gate_ref(t_i, c_i, lut, rand16, t_shift, c_shift)
+    credit = burst0 + torch.clamp_min(ts - t_ref, 0)
+    spend = torch.cumsum(torch.where(selected, cost_us, 0).to(I32), 0,
+                         dtype=I32)
+    granted = selected & (spend <= credit)
+    bucket_new = torch.clamp(
+        credit[-1] - granted.sum(dtype=I32) * cost_us, 0, bucket_cap_us
+    ).to(I32)
+    return granted, bucket_new

@@ -1,0 +1,195 @@
+"""The port's replay of the conformance trace is bit-identical to the
+reference's device AND host drivers (verdicts, stats dict, host_syncs,
+final LUT, bucket and flow table), for ByLenModel and for int8_cnn_tiny
+with weights carried across; plus the port's import and device guards.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from _torch_parity import assert_same  # noqa: E402
+from repro.configs.fenix_models import fenix_cnn_tiny  # noqa: E402
+from repro.core.fenix import FenixConfig as JFenixConfig  # noqa: E402
+from repro.core.fenix import FenixSystem as JFenixSystem  # noqa: E402
+from repro.core.model_engine.inference import (  # noqa: E402
+    ByLenModel as JByLenModel, EngineModel as JEngineModel)
+from repro.data.synthetic_traffic import (make_flows,  # noqa: E402
+                                          packet_stream, windows_from_flows)
+from repro.models import traffic as jtraffic  # noqa: E402
+from repro.quant.quantize import quantize_traffic  # noqa: E402
+from repro_torch.configs.fenix_models import (  # noqa: E402
+    fenix_cnn_tiny as t_fenix_cnn_tiny)
+from repro_torch.core.fenix import FenixConfig, FenixSystem  # noqa: E402
+from repro_torch.core.model_engine.inference import (  # noqa: E402
+    ByLenModel, EngineModel)
+from repro_torch.core.model_engine.serving import (  # noqa: E402
+    qparams_from_numpy)
+from repro_torch.data import synthetic_traffic as t_traffic  # noqa: E402
+
+BATCH, CPE, LIMIT = 256, 3, 1800
+ROOT = Path(__file__).resolve().parent.parent
+TABLE_KEYS = ("lut", "bucket", "t_last", "hash", "cls", "bklog_n",
+              "bklog_t", "buff_idx", "last_ts", "ring", "rng_key",
+              "flow_cnt", "win_pkt_cnt", "win_start", "granted")
+
+
+@pytest.fixture(scope="module")
+def trace():
+    return packet_stream(make_flows("iscx", 40, seed=7), limit=LIMIT)
+
+
+@pytest.fixture(scope="module")
+def tiny_int8():
+    """int8_cnn_tiny: JAX init + quantize (untrained), and the same
+    weights carried into the port."""
+    cfg = fenix_cnn_tiny()
+    x, _, _ = windows_from_flows(make_flows("iscx", 60, seed=3))
+    qp = quantize_traffic(jtraffic.init(cfg, seed=0), cfg,
+                          jnp.asarray(x[:256]))
+    port = EngineModel(t_fenix_cnn_tiny(),
+                       qparams_from_numpy(jax.tree.map(np.asarray, qp),
+                                          "cpu"))
+    return JEngineModel(cfg, qp), port
+
+
+_cache = {}
+
+
+def _reference(trace, driver, model_name, jmodel):
+    key = (driver, model_name)
+    if key not in _cache:
+        sys_ = JFenixSystem(JFenixConfig(batch_size=BATCH,
+                                         control_plane_every=CPE,
+                                         driver=driver), jmodel)
+        out = sys_.run_trace(dict(trace))
+        _cache[key] = (np.asarray(out["verdict"]), sys_.stats,
+                       sys_.host_syncs, sys_.state)
+    return _cache[key]
+
+
+@pytest.mark.parametrize("driver", ["device", "host"])
+@pytest.mark.parametrize("model_name", ["bylen", "int8_cnn_tiny"])
+def test_replay_matches_reference(trace, tiny_int8, driver, model_name):
+    jmodel, tmodel = ((JByLenModel(), ByLenModel())
+                      if model_name == "bylen" else tiny_int8)
+    v_ref, s_ref, syncs_ref, st_ref = _reference(trace, driver, model_name,
+                                                 jmodel)
+    port = FenixSystem(FenixConfig(batch_size=BATCH,
+                                   control_plane_every=CPE), tmodel,
+                       device="cpu")
+    v = port.run_trace(dict(trace))["verdict"]
+    assert v.dtype == np.int32 and v.shape == (LIMIT,)
+    assert np.array_equal(v, v_ref)
+    assert port.stats == s_ref
+    assert port.host_syncs == 0
+    assert syncs_ref == (0 if driver == "device" else LIMIT // (BATCH * CPE))
+    for k in TABLE_KEYS:
+        assert_same(st_ref[k], port.state[k], k)
+    assert s_ref["inferences"] > 0 and int((v >= 0).sum()) > 0
+
+
+def test_replay_with_binding_bucket_matches_reference(trace):
+    """A slow Model Engine: the token bucket denies grants and the
+    Vector-I/O ring fills, on both sides alike."""
+    from repro.core.data_engine.state import EngineConfig as JEngineConfig
+    from repro.core.model_engine.vector_io import IOConfig as JIOConfig
+    from repro_torch.core.data_engine.state import EngineConfig
+    from repro_torch.core.model_engine.vector_io import IOConfig
+
+    ref = JFenixSystem(JFenixConfig(
+        engine=JEngineConfig(fpga_hz=2e4), io=JIOConfig(queue_len=64),
+        batch_size=200, control_plane_every=2, driver="device"),
+        JByLenModel(), n_est=50, q_est_pps=2e4)
+    v_ref = np.asarray(ref.run_trace(dict(trace))["verdict"])
+    port = FenixSystem(FenixConfig(
+        engine=EngineConfig(fpga_hz=2e4), io=IOConfig(queue_len=64),
+        batch_size=200, control_plane_every=2), ByLenModel(),
+        device="cpu", n_est=50, q_est_pps=2e4)
+    v = port.run_trace(dict(trace))["verdict"]
+    assert np.array_equal(v, v_ref)
+    assert port.stats == ref.stats
+    assert 0 < ref.stats["granted"] < LIMIT
+    for k in TABLE_KEYS:
+        assert_same(ref.state[k], port.state[k], k)
+
+
+def test_port_traffic_generator_matches_reference(trace):
+    port = t_traffic.packet_stream(t_traffic.make_flows("iscx", 40, seed=7),
+                                   limit=LIMIT)
+    assert sorted(port) == sorted(trace)
+    for k in trace:
+        assert port[k].dtype == trace[k].dtype
+        assert np.array_equal(port[k], trace[k]), k
+
+
+def _port_modules():
+    pkg = ROOT / "src" / "repro_torch"
+    return sorted(".".join(p.relative_to(ROOT / "src").with_suffix("")
+                           .parts).removesuffix(".__init__")
+                  for p in pkg.rglob("*.py"))
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = ("import sys, importlib\n"
+            f"for m in {_port_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(bad)\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_sources_name_neither_jax_nor_repro():
+    pat = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
+                     r"(\.|\s))", re.M)
+    files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FenixSystem(FenixConfig(), ByLenModel())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FenixSystem(FenixConfig(), ByLenModel(), device="cuda")
+
+
+def test_gate_backend_cuda_on_cpu_tensors_raises(trace):
+    sys_ = FenixSystem(FenixConfig(batch_size=BATCH, gate_backend="cuda"),
+                       ByLenModel(), device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        sys_.run_trace(dict(trace))
+
+
+def test_unported_paths_raise(tiny_int8):
+    for kw in (dict(driver="host"), dict(exact=True),
+               dict(driver="pipes", num_pipes=2),
+               dict(driver="farm", num_engines=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            FenixSystem(FenixConfig(**kw), ByLenModel(), device="cpu")
+    sys_ = FenixSystem(FenixConfig(), ByLenModel(), device="cpu")
+    with pytest.raises(NotImplementedError, match="TraceSpec"):
+        sys_.run_trace("capture.pcap")
+    with pytest.raises(ValueError, match="unknown gate_backend"):
+        FenixConfig(gate_backend="pallas")
+    with pytest.raises(ValueError, match="EngineModel"):
+        FenixSystem(FenixConfig(matmul_backend="ref"), ByLenModel(),
+                    device="cpu")

@@ -1,0 +1,123 @@
+"""The port's hand-written Hopper kernels against their plain PyTorch
+versions, on the card.  Needs an NVIDIA GPU (marker ``gpu``); skips with
+a reason elsewhere.  Imports neither JAX nor ``repro``, so it runs on a
+machine that has only the port's dependencies:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_on_card.py -q
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from _torch_parity import assert_same, cuda_device  # noqa: E402,F401
+from repro_torch.configs.fenix_models import fenix_cnn_tiny  # noqa: E402
+from repro_torch.core.fenix import FenixConfig, FenixSystem  # noqa: E402
+from repro_torch.core.model_engine.inference import (  # noqa: E402
+    EngineModel)
+from repro_torch.data.synthetic_traffic import (  # noqa: E402
+    make_flows, packet_stream)
+from repro_torch.kernels.int8_matmul import ops as mm_ops  # noqa: E402
+from repro_torch.kernels.int8_matmul.kernel import int8_gemm  # noqa: E402
+from repro_torch.kernels.rate_gate.kernel import fused_gate  # noqa: E402
+from repro_torch.kernels.rate_gate.ops import fused_admission  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+def _gate_case(rng, n, dev):
+    lut = rng.integers(0, 1 << 16, (64, 32)).astype(np.int32)
+    lut[rng.random((64, 32)) < 0.2] = 0
+    ts = np.sort(rng.integers(10_000, 10_000 + 3 * n, n))
+    arrs = dict(t_i=rng.integers(-50, 70_000, n),
+                c_i=rng.integers(-3, 40, n), ts=ts,
+                rand16=rng.integers(0, 1 << 16, n), lut=lut,
+                bucket=rng.integers(0, 300),
+                t_last=0 if rng.random() < 0.3 else ts[0] - 7)
+    return {k: torch.from_numpy(np.asarray(v, np.int32)).to(dev)
+            for k, v in arrs.items()}
+
+
+@pytest.mark.parametrize("n", [1, 255, 1000, 4096, 8192])
+def test_fused_gate_kernel_matches_plain(n, cuda_device):
+    rng = np.random.default_rng(n)
+    before = fused_gate.launches
+    for _ in range(4):
+        c = _gate_case(rng, n, cuda_device)
+        res = {}
+        for backend in ("ref", "cuda"):
+            res[backend] = fused_admission(
+                c["t_i"], c["c_i"], c["ts"], c["lut"], c["bucket"],
+                c["t_last"], rand16=c["rand16"], cost_us=3,
+                bucket_cap_us=150, backend=backend)
+        torch.cuda.synchronize()
+        assert_same(res["ref"], res["cuda"], f"n={n}")
+    assert fused_gate.launches == before + 4
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (5, 33, 7), (130, 70, 129),
+                                   (9216, 96, 64), (1024, 256, 7),
+                                   (77, 512, 300)])
+def test_int8_gemm_kernel_matches_plain(shape, cuda_device):
+    rng = np.random.default_rng(sum(shape))
+    m, k, n = shape
+    a, b = (torch.from_numpy(rng.integers(-128, 128, s, dtype=np.int8)
+                             ).to(cuda_device) for s in ((m, k), (k, n)))
+    bias = torch.from_numpy(rng.integers(-40_000, 40_000, n,
+                                         dtype=np.int32)).to(cuda_device)
+    before = int8_gemm.launches
+    for shift in (None, 0, 1, 9):
+        for bb in (None, bias):
+            ref = mm_ops.int8_matmul(a, b, bb, shift, backend="ref")
+            got = mm_ops.int8_matmul(a, b, bb, shift, backend="cuda")
+            torch.cuda.synchronize()
+            assert_same(ref, got, f"{shape} shift={shift}")
+    assert int8_gemm.launches == before + 8
+
+
+def _tiny_model(seed=0):
+    """Random int8 weights in quantize_traffic's layout (tiny CNN)."""
+    cfg = fenix_cnn_tiny()
+    rng = np.random.default_rng(seed)
+    e, ch, fc = cfg.embed_dim, cfg.conv_filters[0], cfg.fc_dims[0]
+
+    def w8(*shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape,
+                                             dtype=np.int8))
+
+    def b32(n):
+        return torch.from_numpy(rng.integers(-500, 500, n, dtype=np.int32))
+
+    qp = {"embed_len/table": w8(cfg.len_buckets, e),
+          "embed_ipd/table": w8(cfg.ipd_buckets, e),
+          "conv0/w": w8(cfg.conv_kernel, 2 * e, ch), "conv0/b": b32(ch),
+          "conv0/shift": 9, "pool/mult": round((1 << 15) / cfg.seq_len),
+          "fc0/w": w8(ch, fc), "fc0/b": b32(fc), "fc0/shift": 8,
+          "head/w": w8(fc, cfg.num_classes), "head/b": b32(cfg.num_classes),
+          "head/shift": 0, "cfg_shifts": {}}
+    return EngineModel(cfg, qp)
+
+
+def test_replay_with_kernels_matches_plain_and_cpu(cuda_device):
+    """The slice on the card through both kernels gives the verdicts and
+    stats of the plain backends on the card and of the CPU run."""
+    stream = packet_stream(make_flows("iscx", 40, seed=7), limit=1800)
+    runs = {}
+    for name, kw, dev in (("cpu", {}, "cpu"),
+                          ("ref", dict(gate_backend="ref",
+                                       matmul_backend="ref"), cuda_device),
+                          ("cuda", {}, cuda_device)):
+        gates, gemms = fused_gate.launches, int8_gemm.launches
+        sys_ = FenixSystem(FenixConfig(batch_size=256,
+                                       control_plane_every=3, **kw),
+                           _tiny_model(), device=dev)
+        runs[name] = (sys_.run_trace(dict(stream))["verdict"], sys_.stats)
+        assert sys_.host_syncs == 0
+        launched = (fused_gate.launches - gates, int8_gemm.launches - gemms)
+        assert launched == ((8, 8 * 3) if name == "cuda" else (0, 0)), name
+    for name in ("ref", "cuda"):
+        assert np.array_equal(runs[name][0], runs["cpu"][0]), name
+        assert runs[name][1] == runs["cpu"][1], name
+    assert runs["cpu"][1]["inferences"] > 0

