@@ -7,27 +7,42 @@ Phases, in order; any failure exits non-zero and no phase catches one:
 1. Environment: torch and CUDA versions, the card's name and power
    limit, and the build of every hand-written kernel from this
    checkout's sources (one nvcc per source, all at once, one library).
-2. Kernels against their plain PyTorch versions on the card: the fused
-   admission gate at several batch sizes (random LUTs, bucket states,
-   ragged batches) and the INT8 GEMM at the serving path's six shapes
-   plus ragged ones, with and without bias, shift in {None, 0, 7}.  The
+2. Kernels against their plain PyTorch versions on the card, each timed
+   beside its plain version and its bound: the fused admission gate on
+   given draws (``fused_gate``) and drawing its own threefry bits from a
+   key (``fused_gate_prng``) at several batch sizes (random LUTs, keys,
+   bucket states, ragged batches); the selection-only gate on given and
+   on seeded draws (``rate_gate``, ``rate_gate_prng``); and the INT8 GEMM
+   at the serving path's six shapes plus ragged ones, with and without
+   bias, shift in {None, 0, 7}, beside ``torch._int_mm``.  The
    tolerance is exact equality (max |diff| = 0): every output is an
-   integer.  Each kernel is timed beside its plain version and, for the
-   GEMM, beside ``torch._int_mm``.
-3. The slice: a ~2^18-packet synthetic ISCX trace replayed by
-   ``FenixSystem`` on the single-pipe device driver, serving the
-   full-width INT8 FENIX-CNN (conv 64/128/256, FC 512/256, embed 16,
-   seq 9) with random int8 weights made from ``--seed`` (or a reference
-   checkpoint from ``--model-dir``).  The replay's chunk loop runs under
-   ``torch.cuda.set_sync_debug_mode("error")``.  The same replay with
-   ``gate_backend="ref", matmul_backend="ref"`` on the card must give
-   identical verdicts and stats, and a prefix replayed on the CPU must
-   agree with the card.  One more replay runs under torch.profiler: the
-   device's busy time and idle share, the top kernels, the host ops.
-4. The ``kernels`` JSON line, then the last line:
+   integer.
+3. The selection-only gate's path: a kernel sweep through the public op
+   ``rate_gate`` over LUTs built for a range of flow counts and rates,
+   on given draws and on seeded draws, each selection rate held to the
+   LUT's expectation within 0.05 (the repo's own property check).
+4. The slice: a ~2^18-packet synthetic ISCX trace replayed by
+   ``FenixSystem``, serving the full-width INT8 FENIX-CNN (conv
+   64/128/256, FC 512/256, embed 16, seq 9) with random int8 weights
+   made from ``--seed`` (or a reference checkpoint from
+   ``--model-dir``), on the device driver with each gate kernel
+   (``gate_backend="cuda"`` and ``"cuda_prng"``, loop under
+   ``torch.cuda.set_sync_debug_mode("error")``) and with the plain
+   backends, in turns; verdicts and stats must be identical.  Then the
+   port's host driver (fast) on the card must give the device driver's
+   verdicts and stats; a replay with a switch decision tree (fit with
+   ``fit_tree`` on the trace's windows) must give the same on the device
+   and host drivers, with packets answered by the tree; the exact
+   per-packet host driver over a prefix must give the same on the card
+   and on the CPU, as must the device driver over a prefix.  Two more
+   replays (one per gate kernel) run under torch.profiler: the device's
+   busy time and idle share, launches per chunk, the top kernels.
+5. The ``kernels`` JSON line, then the last line:
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
-It imports the port (``src/repro_torch``) and never JAX or ``repro``.
+Launch counts are set to 0 just before each path is driven and read
+just after.  It imports the port (``src/repro_torch``) and never JAX or
+``repro``.
 """
 
 from __future__ import annotations
@@ -52,7 +67,14 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 SCALAR_OPS_PER_S = 67e12          # non-tensor-core 32-bit rate
-GATE_OPS_PER_LANE = 12            # shifts, clamps, gather, compares, scan
+SELECT_OPS_PER_LANE = 9           # shifts, clamps, LUT index, compare
+GATE_OPS_PER_LANE = 12            # the selection, plus scan and credit
+# one threefry2x32 draw: 20 rounds of (add, two shifts, or, xor), five
+# key injections of three adds, the two initial adds, the final xor and
+# mask
+THREEFRY_OPS = 20 * 5 + 5 * 3 + 2 + 2
+LUT_BYTES = 64 * 32 * 4
+KEY_BYTES = 2 * 8
 
 
 def parse_args():
@@ -160,59 +182,159 @@ def _gate_case(rng, n, dev, cost, cap):
             for k, v in arrs.items()}
 
 
-def _gate_bound_ms(n):
-    byts = n * (4 * 4 + 1) + 64 * 32 * 4 + 2 * 4 + 4
-    return max(byts / HBM_BYTES_PER_S,
-               n * GATE_OPS_PER_LANE / SCALAR_OPS_PER_S) * 1e3
+def _bound_ms(byts, ops):
+    """(bound in ms, what bounds it): the larger of the bytes over HBM
+    bandwidth and the 32-bit operations over the scalar rate."""
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def _gate_bound(n, draw):
+    """Fused gate: t_i, c_i, ts (and rand16 unless drawn) in, one byte a
+    lane out; the LUT, the registers and the key once."""
+    lanes_in = 3 if draw else 4
+    byts = n * (4 * lanes_in + 1) + LUT_BYTES + 2 * 4 + 4 \
+        + (KEY_BYTES if draw else 0)
+    ops = n * GATE_OPS_PER_LANE + (THREEFRY_OPS * (n + 1) if draw else 0)
+    return _bound_ms(byts, ops)
+
+
+def _select_bound(n, draw):
+    """Selection-only gate: t_i, c_i (and rand16 unless drawn) in, one
+    byte a lane out; the LUT and the key once."""
+    lanes_in = 2 if draw else 3
+    byts = n * (4 * lanes_in + 1) + LUT_BYTES + (KEY_BYTES if draw else 0)
+    ops = n * SELECT_OPS_PER_LANE + (THREEFRY_OPS * (n + 1) if draw else 0)
+    return _bound_ms(byts, ops)
+
+
+def _key(rng):
+    """A random threefry key on the card: two uint32 words in int64."""
+    return torch.from_numpy(rng.integers(0, 2**32, 2, dtype=np.int64)
+                            ).cuda()
+
+
+def _timed(name, n, kern, plain, bound, by, worst, launches):
+    ms, plain_ms = device_ms(kern), device_ms(plain)
+    print(f"{name} n={n}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms "
+          f"(device time, graph replay); eager per call "
+          f"{host_ms(kern):.5f} / {host_ms(plain):.5f} ms; bound "
+          f"{bound:.7f} ms ({by}); no library call; launches so far "
+          f"{launches()}")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
 def phase_gate(rng):
-    from repro_torch.kernels.rate_gate.kernel import fused_gate
+    """Both fused admission kernels against their plain versions; returns
+    {"fused_gate": row, "fused_gate_prng": row} at n=4096."""
+    from repro_torch.kernels.rate_gate import ref
+    from repro_torch.kernels.rate_gate.kernel import (fused_gate,
+                                                      fused_gate_prng)
     from repro_torch.kernels.rate_gate.ops import fused_admission
-    from repro_torch.kernels.rate_gate.ref import fused_admission_ref
 
     cost, cap = 2, 128
-    worst = 0
+    worst = {"fused_gate": 0, "fused_gate_prng": 0}
     for n in (1, 256, 1000, 4059, 4096, 8192):
         for trial in range(8):
             c = _gate_case(rng, n, "cuda", cost, cap)
-            res = [fused_admission(
-                c["t_i"], c["c_i"], c["ts"], c["lut"], c["bucket"],
-                c["t_last"], rand16=c["rand16"], cost_us=cost,
-                bucket_cap_us=cap, backend=backend)
-                for backend in ("ref", "cuda")]
-            worst = max(worst, max_abs_diff(res[0][0], res[1][0]),
-                        max_abs_diff(res[0][1], res[1][1]))
-        print(f"fused_gate n={n}: max|diff|={worst} "
-              f"granted={int(res[1][0].sum())}/{n}")
-    require(worst == 0, f"fused_gate vs plain max|diff| {worst}")
+            key = _key(rng)
+            kw = dict(cost_us=cost, bucket_cap_us=cap)
+            args = (c["t_i"], c["c_i"], c["ts"], c["lut"], c["bucket"],
+                    c["t_last"])
+            plain = fused_admission(*args, rand16=c["rand16"],
+                                    backend="ref", **kw)
+            got = fused_admission(*args, rand16=c["rand16"],
+                                  backend="cuda", **kw)
+            worst["fused_gate"] = max(worst["fused_gate"],
+                                      max_abs_diff(plain[0], got[0]),
+                                      max_abs_diff(plain[1], got[1]))
+            plain = fused_admission(*args, key=key, backend="ref", **kw)
+            got = fused_admission(*args, key=key, backend="cuda_prng", **kw)
+            worst["fused_gate_prng"] = max(worst["fused_gate_prng"],
+                                           max_abs_diff(plain[0], got[0]),
+                                           max_abs_diff(plain[1], got[1]))
+        print(f"fused gates n={n}: max|diff| {worst} "
+              f"granted={int(got[0].sum())}/{n}")
+    for name, w in worst.items():
+        require(w == 0, f"{name} vs plain max|diff| {w}")
     out = {}
     for n in (256, 4096, 8192):
         c = _gate_case(rng, n, "cuda", cost, cap)
+        key = _key(rng)
         t_ref = torch.where(c["t_last"] == 0, c["ts"][0], c["t_last"])
         burst0 = torch.clamp_max(c["bucket"], cap)
         scal = torch.stack([burst0, t_ref])
         kw = dict(t_shift=10, c_shift=0, cost_us=cost, bucket_cap_us=cap)
+        lanes = (c["t_i"], c["c_i"], c["ts"])
+        rows = {
+            "fused_gate": _timed(
+                "fused_gate", n,
+                lambda: fused_gate(*lanes, c["rand16"], c["lut"], scal, **kw),
+                lambda: ref.fused_admission_ref(
+                    *lanes, c["lut"], c["rand16"], burst0, t_ref, 10, 0,
+                    cost, cap),
+                *_gate_bound(n, False), worst["fused_gate"],
+                lambda: fused_gate.launches),
+            "fused_gate_prng": _timed(
+                "fused_gate_prng", n,
+                lambda: fused_gate_prng(*lanes, key, c["lut"], scal,
+                                        prob_bits=16, **kw),
+                lambda: ref.fused_admission_prng_ref(
+                    *lanes, c["lut"], key, burst0, t_ref, 10, 0, cost, cap,
+                    16),
+                *_gate_bound(n, True), worst["fused_gate_prng"],
+                lambda: fused_gate_prng.launches)}
+        out[n] = rows
+    return out[4096]
 
-        def kern():
-            return fused_gate(c["t_i"], c["c_i"], c["ts"], c["rand16"],
-                              c["lut"], scal, **kw)
 
-        def plain():
-            return fused_admission_ref(c["t_i"], c["c_i"], c["ts"],
-                                       c["lut"], c["rand16"], burst0, t_ref,
-                                       10, 0, cost, cap)
+def phase_select(rng):
+    """Both selection-only kernels against their plain versions; returns
+    {"rate_gate": row, "rate_gate_prng": row} at n=4096."""
+    from repro_torch.kernels.rate_gate import ref
+    from repro_torch.kernels.rate_gate.kernel import rate_gate as kernel
+    from repro_torch.kernels.rate_gate.kernel import rate_gate_prng
+    from repro_torch.kernels.rate_gate.ops import rate_gate
 
-        ms, plain_ms = device_ms(kern), device_ms(plain)
-        bound = _gate_bound_ms(n)
-        print(f"fused_gate n={n}: kernel {ms:.5f} ms, plain {plain_ms:.5f} "
-              f"ms (device time, graph replay); eager per call "
-              f"{host_ms(kern):.5f} / {host_ms(plain):.5f} ms; bound "
-              f"{bound:.6f} ms (bytes); no library call; launches so far "
-              f"{fused_gate.launches}")
-        out[n] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": bound, "bound_by": "bytes",
-                  "library_ms": None}
+    worst = {"rate_gate": 0, "rate_gate_prng": 0}
+    for n in (1, 255, 1000, 4096, 8192, 1 << 20):
+        for trial in range(4):
+            c = _gate_case(rng, n, "cuda", 2, 128)
+            seed = int(rng.integers(0, 2**31))
+            lanes = (c["t_i"], c["c_i"], c["lut"])
+            worst["rate_gate"] = max(worst["rate_gate"], max_abs_diff(
+                rate_gate(*lanes, rand16=c["rand16"], backend="ref"),
+                rate_gate(*lanes, rand16=c["rand16"], backend="cuda")))
+            worst["rate_gate_prng"] = max(worst["rate_gate_prng"],
+                                          max_abs_diff(
+                rate_gate(*lanes, seed=seed, backend="ref"),
+                rate_gate(*lanes, seed=seed, backend="cuda_prng")))
+        print(f"selection gates n={n}: max|diff| {worst}")
+    for name, w in worst.items():
+        require(w == 0, f"{name} vs plain max|diff| {w}")
+    out = {}
+    for n in (4096, 1 << 20):
+        c = _gate_case(rng, n, "cuda", 2, 128)
+        key = _key(rng)
+        lanes = (c["t_i"], c["c_i"])
+        out[n] = {
+            "rate_gate": _timed(
+                "rate_gate", n,
+                lambda: kernel(*lanes, c["rand16"], c["lut"], t_shift=10,
+                               c_shift=0),
+                lambda: ref.rate_gate_ref(*lanes, c["lut"], c["rand16"], 10,
+                                          0),
+                *_select_bound(n, False), worst["rate_gate"],
+                lambda: kernel.launches),
+            "rate_gate_prng": _timed(
+                "rate_gate_prng", n,
+                lambda: rate_gate_prng(*lanes, key, c["lut"], t_shift=10,
+                                       c_shift=0, prob_bits=16),
+                lambda: ref.rate_gate_prng_ref(*lanes, c["lut"], key, 10, 0,
+                                               16),
+                *_select_bound(n, True), worst["rate_gate_prng"],
+                lambda: rate_gate_prng.launches)}
     return out[4096]
 
 
@@ -297,6 +419,49 @@ def phase_gemm(rng):
 
 # -- phase 3 ----------------------------------------------------------------
 
+def phase_select_sweep(rng):
+    """The selection-only gate's path: a sweep through the public op
+    ``rate_gate`` (default backend on the card, and ``"cuda_prng"`` on
+    seeded draws) over LUTs for a range of flow counts and rates, each
+    selection rate within 0.05 of the LUT's expectation.  Returns the
+    launches of the two kernels in the sweep."""
+    from repro_torch.core.probability import LUTConfig, build_lut
+    from repro_torch.kernels.rate_gate.kernel import rate_gate as kernel
+    from repro_torch.kernels.rate_gate.kernel import rate_gate_prng
+    from repro_torch.kernels.rate_gate.ops import rate_gate
+
+    lcfg, n = LUTConfig(), 4096
+    cases = [(int(f), float(v), int(s)) for f, v, s in zip(
+        rng.integers(10, 2000, 12), rng.uniform(0.01, 0.2, 12),
+        rng.integers(0, 2**31, 12))]
+    kernel.launches = rate_gate_prng.launches = 0
+    worst = 0.0
+    for n_flows, v, seed in cases:
+        lut_np = build_lut(n=float(n_flows), q=1.0, v=v, cfg=lcfg)
+        t = rng.integers(0, 1 << 16, n).astype(np.int32)
+        c = rng.integers(0, 32, n).astype(np.int32)
+        ti = np.clip(t >> lcfg.t_shift, 0, lcfg.t_bins - 1)
+        ci = np.clip(c >> lcfg.c_shift, 0, lcfg.c_bins - 1)
+        expect = lut_np[ti, ci].sum() / float(1 << 16) / n
+        lut, t, c = (torch.from_numpy(a).cuda() for a in (lut_np, t, c))
+        r16 = torch.from_numpy(rng.integers(0, 1 << 16, n).astype(
+            np.int32)).cuda()
+        for sel in (rate_gate(t, c, lut, rand16=r16),
+                    rate_gate(t, c, lut, seed=seed, backend="cuda_prng")):
+            worst = max(worst, abs(float(sel.float().mean()) - expect))
+    launches = {"rate_gate": kernel.launches,
+                "rate_gate_prng": rate_gate_prng.launches}
+    print(f"rate_gate sweep: {len(cases)} LUTs x {n} lanes, worst |rate - "
+          f"expected| {worst:.4f} (limit 0.05); launches {launches}")
+    require(worst < 0.05, f"selection rate off by {worst}")
+    require(launches == {"rate_gate": len(cases),
+                         "rate_gate_prng": len(cases)},
+            f"sweep launches {launches}")
+    return launches
+
+
+# -- phase 4 ----------------------------------------------------------------
+
 def _calib_windows(flows, n_win, win):
     out = []
     for f in flows:
@@ -371,12 +536,12 @@ def seeded_qparams(mcfg, seed, calib):
     return qp
 
 
-def replay(model, stream, device, batch, cpe, **backends):
+def replay(model, stream, device, batch, cpe, tree=None, **cfg_kw):
     from repro_torch.core.fenix import FenixConfig, FenixSystem
 
     sys_ = FenixSystem(FenixConfig(model="int8_cnn", batch_size=batch,
-                                   control_plane_every=cpe, **backends),
-                       model, device=device)
+                                   control_plane_every=cpe, **cfg_kw),
+                       model, tree=tree, device=device)
     if device != "cpu":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -384,13 +549,41 @@ def replay(model, stream, device, batch, cpe, **backends):
     return out["verdict"], sys_, time.perf_counter() - t0
 
 
+def _counts():
+    from repro_torch.kernels.int8_matmul.kernel import int8_gemm
+    from repro_torch.kernels.rate_gate.kernel import (fused_gate,
+                                                      fused_gate_prng)
+
+    return {"fused_gate": fused_gate, "fused_gate_prng": fused_gate_prng,
+            "int8_gemm": int8_gemm}
+
+
+def counted_replay(*args, **kw):
+    """A replay with every kernel count set to 0 just before it; returns
+    (verdicts, system, seconds, launches in this replay)."""
+    counts = _counts()
+    for k in counts.values():
+        k.launches = 0
+    v, sys_, sec = replay(*args, **kw)
+    return v, sys_, sec, {name: k.launches for name, k in counts.items()}
+
+
+def same_run(a, b, what):
+    """Identical verdicts and stats of two (verdicts, system) runs."""
+    require(np.array_equal(a[0], b[0]), f"{what}: verdicts differ")
+    require(a[1].stats == b[1].stats,
+            f"{what}: stats differ: {a[1].stats} vs {b[1].stats}")
+
+
 def phase_slice(args):
     from repro_torch.configs.fenix_models import fenix_cnn
+    from repro_torch.core.data_engine.decision_tree import (fit_tree,
+                                                            tree_arrays)
     from repro_torch.core.model_engine import serving
     from repro_torch.core.model_engine.inference import EngineModel
-    from repro_torch.data.synthetic_traffic import make_flows, packet_stream
-    from repro_torch.kernels.int8_matmul.kernel import int8_gemm
-    from repro_torch.kernels.rate_gate.kernel import fused_gate
+    from repro_torch.data.synthetic_traffic import (make_flows,
+                                                    packet_stream,
+                                                    windows_from_flows)
 
     batch, cpe = 4096, 8
     t0 = time.perf_counter()
@@ -409,41 +602,48 @@ def phase_slice(args):
           f"embed={mcfg.embed_dim} seq={mcfg.seq_len} "
           f"shifts={qp['cfg_shifts']}")
     model = EngineModel(mcfg, serving.qparams_from_numpy(qp, "cuda"))
-
-    # warm-up on a short prefix (cuBLAS, allocator), then the counted run
-    warm = {k: v[:3 * batch] for k, v in stream.items()}
-    replay(model, warm, "cuda", batch, cpe)
-    fused_gate.launches = 0
-    int8_gemm.launches = 0
-    v_k, sys_k, sec_k = replay(model, stream, "cuda", batch, cpe)
-    launches = {"fused_gate": fused_gate.launches,
-                "int8_gemm": int8_gemm.launches}
-    plain = dict(gate_backend="ref", matmul_backend="ref")
-    v_r, sys_r, sec_r = replay(model, stream, "cuda", batch, cpe, **plain)
-    require(fused_gate.launches == launches["fused_gate"]
-            and int8_gemm.launches == launches["int8_gemm"],
-            "the plain-backend replay launched a kernel")
-    # timing in turns (kernels, plain, kernels, plain) on the same card
-    sec_k2 = replay(model, stream, "cuda", batch, cpe)[2]
-    sec_r2 = replay(model, stream, "cuda", batch, cpe, **plain)[2]
     chunks = -(-n // batch)
+    base = (model, stream, "cuda", batch, cpe)
+
+    # warm-up on a short prefix (cuBLAS, allocator), then the counted runs
+    warm = {k: v[:3 * batch] for k, v in stream.items()}
+    for gate in ("cuda", "cuda_prng"):
+        replay(model, warm, "cuda", batch, cpe, gate_backend=gate)
+    v_k, sys_k, sec_k, launches = counted_replay(*base)
+    require(launches == {"fused_gate": chunks, "fused_gate_prng": 0,
+                         "int8_gemm": 6 * chunks},
+            f"launches {launches} for {chunks} chunks (gate \"cuda\")")
+    v_p, sys_p, sec_p, launches_p = counted_replay(*base,
+                                                   gate_backend="cuda_prng")
+    require(launches_p == {"fused_gate": 0, "fused_gate_prng": chunks,
+                           "int8_gemm": 6 * chunks},
+            f"launches {launches_p} for {chunks} chunks (gate "
+            "\"cuda_prng\")")
+    launches["fused_gate_prng"] = launches_p["fused_gate_prng"]
+    plain = dict(gate_backend="ref", matmul_backend="ref")
+    v_r, sys_r, sec_r, launches_r = counted_replay(*base, **plain)
+    require(not any(launches_r.values()),
+            f"the plain-backend replay launched kernels: {launches_r}")
+    # timing in turns on the same card
+    sec_p2 = replay(*base, gate_backend="cuda_prng")[2]
+    sec_r2 = replay(*base, **plain)[2]
+    sec_k2 = replay(*base)[2]
     stats = sys_k.stats
-    print(f"replay (kernels): {n} packets in {sec_k:.4f} s, {sec_k2:.4f} s "
-          f"= {n / sec_k:.1f}, {n / sec_k2:.1f} packets/s; inferences "
+    print(f"replay (gate cuda): {n} packets in {sec_k:.4f} s, {sec_k2:.4f} "
+          f"s = {n / sec_k:.1f}, {n / sec_k2:.1f} packets/s; inferences "
           f"{stats['inferences']}, granted {stats['granted']}, classified "
           f"{stats['classified_pkts']}, host_syncs {sys_k.host_syncs} (loop "
           "under sync debug mode 'error')")
+    print(f"replay (gate cuda_prng): {sec_p:.4f} s, {sec_p2:.4f} s = "
+          f"{n / sec_p:.1f}, {n / sec_p2:.1f} packets/s")
     print(f"replay (plain backends on the card): {sec_r:.4f} s, "
           f"{sec_r2:.4f} s = {n / sec_r:.1f}, {n / sec_r2:.1f} packets/s")
-    print(f"launches on the main path: fused_gate {launches['fused_gate']} "
-          f"(chunks {chunks}), int8_gemm {launches['int8_gemm']} "
-          f"(6 x chunks = {6 * chunks})")
-    require(launches == {"fused_gate": chunks, "int8_gemm": 6 * chunks},
-            f"launches {launches} for {chunks} chunks")
-    require(sys_k.host_syncs == 0, "host syncs in the replay")
-    require(np.array_equal(v_k, v_r), "kernel and plain verdicts differ")
-    require(sys_k.stats == sys_r.stats,
-            f"stats differ: {sys_k.stats} vs {sys_r.stats}")
+    print(f"launches on the main path: {launches} (chunks {chunks}, "
+          f"6 x chunks = {6 * chunks})")
+    require(sys_k.host_syncs == 0 and sys_p.host_syncs == 0,
+            "host syncs in the replay")
+    same_run((v_k, sys_k), (v_r, sys_r), "gate cuda vs plain")
+    same_run((v_p, sys_p), (v_k, sys_k), "gate cuda_prng vs cuda")
     require(v_k.shape == (n,) and v_k.dtype == np.int32,
             f"verdicts {v_k.shape} {v_k.dtype}")
     require(v_k.min() >= -1 and v_k.max() < mcfg.num_classes,
@@ -452,28 +652,69 @@ def phase_slice(args):
             "the replay served no inference")
     print(f"verdict classes: {np.bincount(v_k + 1).tolist()} (index 0 = "
           "unclassified)")
-    # the card against the port's CPU run on a prefix
+
+    # the host driver (fast) on the card: the device driver's oracle
+    v_h, sys_h, sec_h = replay(*base, driver="host")
+    same_run((v_h, sys_h), (v_k, sys_k), "host driver vs device driver")
+    require(sys_h.host_syncs == chunks // cpe,
+            f"host driver control-plane calls {sys_h.host_syncs}")
+    print(f"host driver (fast) on the card: {sec_h:.4f} s = "
+          f"{n / sec_h:.1f} packets/s, {sys_h.host_syncs} control-plane "
+          "round trips; verdicts and stats == device driver")
+
+    # the switch decision tree, fit on the trace's windows
+    x, y, _ = windows_from_flows(flows)
+    tree = tree_arrays(fit_tree(x[:, -1, :], y, depth=4,
+                                num_classes=mcfg.num_classes), "cuda")
+    v_td, sys_td, sec_td = replay(*base, tree=tree)
+    v_th, sys_th, sec_th = replay(*base, tree=tree, driver="host")
+    same_run((v_th, sys_th), (v_td, sys_td), "tree: host vs device")
+    require(sys_td.stats["tree_pkts"] > 0, "the tree answered no packet")
+    require(sys_td.host_syncs == 0, "host syncs in the tree replay")
+    print(f"tree replay: device {sec_td:.4f} s, host {sec_th:.4f} s; "
+          f"tree_pkts {sys_td.stats['tree_pkts']}, classified "
+          f"{sys_td.stats['classified_pkts']}/{n}; host == device")
+
+    # the card against the port's CPU runs on prefixes: the exact
+    # per-packet host driver, and the device driver
+    ex_n, ex_b, ex_cpe = 3072, 256, 2
+    ex = {k: v[:ex_n] for k, v in stream.items()}
     pre = {k: v[:4 * batch] for k, v in stream.items()}
-    v_cpu, sys_cpu, _ = replay(model.to("cpu"), pre, "cpu", batch, cpe)
-    model.to("cuda")
+    v_eg, sys_eg, sec_eg = replay(model, ex, "cuda", ex_b, ex_cpe,
+                                  driver="host", exact=True)
     v_gpu, sys_gpu, _ = replay(model, pre, "cuda", batch, cpe)
-    require(np.array_equal(v_cpu, v_gpu) and sys_cpu.stats == sys_gpu.stats,
-            "card and CPU differ on the prefix")
+    model.to("cpu")
+    v_ec, sys_ec, sec_ec = replay(model, ex, "cpu", ex_b, ex_cpe,
+                                  driver="host", exact=True)
+    v_cpu, sys_cpu, _ = replay(model, pre, "cpu", batch, cpe)
+    model.to("cuda")
+    same_run((v_eg, sys_eg), (v_ec, sys_ec), "exact prefix: card vs CPU")
+    for k in ("hash", "cls", "ring", "bucket", "lut", "rng_key",
+              "denied_prob", "denied_tokens", "collisions"):
+        require(torch.equal(sys_eg.state[k].cpu(), sys_ec.state[k]),
+                f"exact prefix: state {k} differs")
+    require(sys_eg.stats["inferences"] > 0, "the exact prefix served none")
+    print(f"exact host driver, prefix of {ex_n} packets (batch {ex_b}): "
+          f"card {sec_eg:.4f} s ({ex_n / sec_eg:.1f} packets/s), CPU "
+          f"{sec_ec:.4f} s; card == CPU (verdicts, stats, tables)")
+    same_run((v_gpu, sys_gpu), (v_cpu, sys_cpu), "prefix: card vs CPU")
     print(f"prefix of {4 * batch} packets: card == CPU (verdicts, stats)")
-    profile_replay(model, stream, batch, cpe, chunks)
+    for gate in ("cuda", "cuda_prng"):
+        profile_replay(model, stream, batch, cpe, chunks, gate)
     return launches, n / sec_k
 
 
-def profile_replay(model, stream, batch, cpe, chunks):
-    """One kernel replay under torch.profiler: device busy time and idle
-    share (profiler overhead included), the top device kernels and the
-    host ops by count."""
+def profile_replay(model, stream, batch, cpe, chunks, gate):
+    """One replay under torch.profiler: device busy time and idle share
+    (profiler overhead included), launches per chunk, the top device
+    kernels and the host ops by count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
-        sec = replay(model, stream, "cuda", batch, cpe)[2]
+        sec = replay(model, stream, "cuda", batch, cpe,
+                     gate_backend=gate)[2]
     avgs = prof.key_averages()
 
     def dev_us(a):
@@ -483,18 +724,34 @@ def profile_replay(model, stream, batch, cpe, chunks):
     kern = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
                   key=dev_us, reverse=True)
     busy = sum(dev_us(a) for a in kern) / 1e6
-    print(f"profile: replay {sec:.4f} s under the profiler, device busy "
-          f"{busy:.4f} s, idle share {1 - busy / sec:.3f}")
+    host = sorted((a for a in avgs if a.device_type == DeviceType.CPU),
+                  key=lambda a: a.count, reverse=True)
+    n_launch = sum(a.count for a in host if a.key == "cudaLaunchKernel")
+    n_ops = sum(a.count for a in host if a.key.startswith("aten::"))
+    print(f"profile (gate {gate}): replay {sec:.4f} s under the profiler, "
+          f"device busy {busy:.4f} s, idle share {1 - busy / sec:.3f}; "
+          f"{n_launch} cudaLaunchKernel = {n_launch / chunks:.1f} per "
+          f"chunk; {n_ops} aten ops = {n_ops / chunks:.0f} per chunk")
     for a in kern[:8]:
         print(f"  device {dev_us(a) / 1e3:9.3f} ms  x{a.count:6d}  "
               f"{a.key[:90]}")
-    host = sorted((a for a in avgs if a.device_type == DeviceType.CPU),
-                  key=lambda a: a.count, reverse=True)
-    n_ops = sum(a.count for a in host if a.key.startswith("aten::"))
-    print(f"  host: {n_ops} aten ops = {n_ops / chunks:.0f} per chunk")
     for a in host[:10]:
         print(f"  host x{a.count:6d}  self cpu "
               f"{a.self_cpu_time_total / 1e3:9.3f} ms  {a.key[:60]}")
+
+
+KERNEL_ROWS = (
+    ("fused_gate", "src/repro_torch/csrc/fused_gate.cu",
+     "src/repro/kernels/rate_gate/kernel.py:191"),
+    ("fused_gate_prng", "src/repro_torch/csrc/fused_gate.cu",
+     "src/repro/kernels/rate_gate/kernel.py:171"),
+    ("rate_gate", "src/repro_torch/csrc/rate_gate.cu",
+     "src/repro/kernels/rate_gate/kernel.py:78"),
+    ("rate_gate_prng", "src/repro_torch/csrc/rate_gate.cu",
+     "src/repro/kernels/rate_gate/kernel.py:58"),
+    ("int8_gemm", "src/repro_torch/csrc/int8_gemm.cu",
+     "src/repro/kernels/int8_matmul/kernel.py:61"),
+)
 
 
 def main():
@@ -507,19 +764,14 @@ def main():
 
     phase_environment()
     rng = np.random.default_rng(args.seed)
-    gate = phase_gate(rng)
-    gemm = phase_gemm(rng)
-    launches, pps = phase_slice(args)
-    kernels = [
-        {"name": "fused_gate", "route": "cuda",
-         "source": "src/repro_torch/csrc/fused_gate.cu",
-         "replaces": "src/repro/kernels/rate_gate/kernel.py:191",
-         "launches": launches["fused_gate"], **gate},
-        {"name": "int8_gemm", "route": "cuda",
-         "source": "src/repro_torch/csrc/int8_gemm.cu",
-         "replaces": "src/repro/kernels/int8_matmul/kernel.py:61",
-         "launches": launches["int8_gemm"], **gemm},
-    ]
+    rows = {**phase_gate(rng), **phase_select(rng),
+            "int8_gemm": phase_gemm(rng)}
+    launches = phase_select_sweep(rng)
+    slice_launches, _ = phase_slice(args)
+    launches.update(slice_launches)
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": tpu, "launches": launches[name], **rows[name]}
+               for name, src, tpu in KERNEL_ROWS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

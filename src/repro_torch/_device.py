@@ -2,17 +2,24 @@
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device, None]
 
 # kernel backends of the two knobs (gate_backend, matmul_backend):
-#   "cuda"  the hand-written Hopper kernel (default for CUDA tensors)
-#   "ref"   the plain PyTorch version (default for CPU tensors; on the
-#           card only when asked for by name)
-BACKENDS: Tuple[str, ...] = ("cuda", "ref")
+#   "cuda"       the hand-written Hopper kernel (default for CUDA tensors)
+#   "cuda_prng"  gate only: the admission kernel that draws its own
+#                threefry bits on the card (the counterpart of the
+#                reference's on-core-PRNG "pallas_tpu")
+#   "ref"        the plain PyTorch version (default for CPU tensors; on
+#                the card only when asked for by name)
+BACKENDS: Dict[str, Tuple[str, ...]] = {
+    "gate_backend": ("cuda", "cuda_prng", "ref"),
+    "matmul_backend": ("cuda", "ref"),
+}
+_KERNEL_BACKENDS = ("cuda", "cuda_prng")
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -34,23 +41,24 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def validate_backend(name: Optional[str], knob: str) -> Optional[str]:
-    """Check a backend name (None keeps the per-device default)."""
-    if name is not None and name not in BACKENDS:
+    """Check a backend name of ``knob`` (None keeps the per-device
+    default)."""
+    if name is not None and name not in BACKENDS[knob]:
         raise ValueError(f"unknown {knob} {name!r}; expected one of "
-                         f"{BACKENDS}")
+                         f"{BACKENDS[knob]}")
     return name
 
 
 def resolve_backend(name: Optional[str], tensor: torch.Tensor,
                     knob: str) -> str:
     """The backend one call runs: ``name``, else ``"cuda"`` for a CUDA
-    tensor and ``"ref"`` for a CPU tensor.  ``"cuda"`` with a CPU tensor
-    raises."""
+    tensor and ``"ref"`` for a CPU tensor.  A kernel backend (``"cuda"``,
+    ``"cuda_prng"``) with a CPU tensor raises."""
     validate_backend(name, knob)
     if name is None:
         return "cuda" if tensor.is_cuda else "ref"
-    if name == "cuda" and not tensor.is_cuda:
-        raise ValueError(f"{knob}=\"cuda\" runs the Hopper kernel and "
+    if name in _KERNEL_BACKENDS and not tensor.is_cuda:
+        raise ValueError(f"{knob}={name!r} runs a Hopper kernel and "
                          f"needs CUDA tensors; got a {tensor.device} "
                          "tensor")
     return name

@@ -1,9 +1,12 @@
-"""The Data Engine's vectorized fast path (§4): one packet batch through
-flow tracking, the fused admission gate and the feature rings.
+"""The fused Data Engine (§4): one packet batch through flow tracking,
+the Rate Limiter and the feature rings.
 
-Port of ``process_batch_fast`` from ``repro/core/data_engine/engine.py``,
-with ``_first_occurrence`` and the sort/segment ``_running_count``.  The
-exact per-packet scan ``process_batch`` is not ported yet (ROADMAP).
+Port of ``repro/core/data_engine/engine.py``: ``process_batch`` is the
+exact per-packet scan (the reference's ``lax.scan`` over ``_packet_step``
+becomes a Python loop over the batch, several hundred small tensor ops
+a packet, most of them the rate limiter's threefry draws), and
+``process_batch_fast`` the vectorized fast path with
+``_first_occurrence`` and the sort/segment ``_running_count``.
 
 The reference writes the flow table with ``.at[slot].set`` where a batch
 may hold several packets of one slot; XLA on the CPU lets the last write
@@ -15,15 +18,64 @@ same value and the result is the same on every device.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch._device import resolve_backend
 from repro_torch.core import prng
+from repro_torch.core.data_engine import buffer_manager as bm
+from repro_torch.core.data_engine import flow_tracker as ft
 from repro_torch.core.data_engine import rate_limiter as rl
-from repro_torch.core.data_engine.state import EngineConfig, hash_five_tuple
+from repro_torch.core.data_engine.decision_tree import predict
+from repro_torch.core.data_engine.state import (EngineConfig, get_at,
+                                                hash_five_tuple)
 
 I32 = torch.int32
+
+
+def _packet_step(state: Dict, pkt: Dict, cfg: EngineConfig,
+                 tree: Optional[Dict] = None, tree_depth: int = 4
+                 ) -> Tuple[Dict, Dict]:
+    """One packet (0-d tensors) through Flow Tracker -> Rate Limiter ->
+    Buffer Manager."""
+    ts = pkt["ts_us"].to(I32)
+    slot, h, is_new, collision = ft.lookup(state, cfg, pkt)
+    state = ft.on_packet(state, cfg, slot, h, is_new, collision, ts)
+    feat = bm.extract_feature(state, cfg, slot, pkt, is_new)
+    # rate limiter decides whether this flow ships features now
+    state, granted = rl.step(state, cfg, slot, ts)
+    # mirror packet payload (F1..F8 + current F9), valid when granted
+    payload = bm.assemble(state, cfg, slot, feat)
+    state = bm.push(state, cfg, slot, feat, ts)
+    # preliminary per-packet verdict (§4.1): stored class else switch tree
+    stored_cls = get_at(state["cls"], slot)
+    pre = (predict(tree, feat[None], tree_depth)[0] if tree is not None
+           else -1)
+    verdict = torch.where(stored_cls >= 0, stored_cls, pre)
+    out = {"granted": granted, "slot": slot.to(I32), "hash": h,
+           "payload": payload, "verdict": verdict, "is_new": is_new}
+    return state, out
+
+
+def process_batch(state: Dict, packets: Dict, cfg: EngineConfig,
+                  tree: Optional[Dict] = None, tree_depth: int = 4
+                  ) -> Tuple[Dict, Dict]:
+    """Scan a packet batch through the pipeline one packet at a time
+    (exact semantics: the shared token bucket and the rings see every
+    packet in order).
+
+    ``packets``: [n] tensors as for :func:`process_batch_fast`.  Returns
+    (state', outputs stacked to [n, ...]), equal to the reference's leaf
+    for leaf.
+    """
+    outs = []
+    for i in range(packets["ts_us"].shape[0]):
+        state, out = _packet_step(state, {k: v[i] for k, v in
+                                          packets.items()},
+                                  cfg, tree=tree, tree_depth=tree_depth)
+        outs.append(out)
+    return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 def _first_occurrence(slot: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -82,8 +134,14 @@ def process_batch_fast(state: Dict, packets: Dict, cfg: EngineConfig
     t_i = torch.clamp_min(ts - state["bklog_t"][slot], 0)
     c_i = torch.clamp_min(state["bklog_n"][slot], 0) + run
     key, sub = prng.split(state["rng_key"])
-    rand = prng.randint(sub, n, 0, 1 << cfg.lut.prob_bits)
-    granted, bucket_new = rl.admit_batch(state, cfg, t_i, c_i, ts, rand)
+    if resolve_backend(cfg.gate_backend, ts, "gate_backend") == "cuda_prng":
+        # the kernel draws randint(sub, (n,), ...) itself
+        granted, bucket_new = rl.admit_batch(state, cfg, t_i, c_i, ts,
+                                             key=sub)
+    else:
+        rand = prng.randint(sub, n, 0, 1 << cfg.lut.prob_bits)
+        granted, bucket_new = rl.admit_batch(state, cfg, t_i, c_i, ts,
+                                             rand16=rand)
     s = dict(state)
     s["rng_key"] = key
     s["bucket"] = bucket_new

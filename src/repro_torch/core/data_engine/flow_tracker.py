@@ -1,18 +1,59 @@
-"""Flow Tracker (§4.1): windowed flow counting and verdict write-back.
+"""Flow Tracker (§4.1): flow table lookup/update, windowed flow counting
+and verdict write-back.
 
-Port of the parts of ``repro/core/data_engine/flow_tracker.py`` that the
-device driver uses: ``window_reset`` and ``apply_inference_result``.
-The per-packet ``lookup``/``on_packet`` pair belongs to the exact host
-scan and is not ported yet (ROADMAP, next slices).
+Port of ``repro/core/data_engine/flow_tracker.py``: ``lookup``,
+``on_packet``, ``window_reset`` and ``apply_inference_result``.  The
+per-packet pair works on 0-d tensors and writes the table out of place
+(``state.set_at``), as the reference's ``.at[slot].set`` does.
+Collision policy: a packet whose slot holds a different hash evicts the
+resident flow (initializes the entry).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core.data_engine.state import (EngineConfig, get_at,
+                                                hash_five_tuple, set_at)
+
 I32 = torch.int32
+
+
+def lookup(state: Dict, cfg: EngineConfig, pkt: Dict) -> Tuple:
+    """One packet's (slot, h, is_new, is_collision): 0-d tensors, slot
+    int64, h int64 holding the uint32 hash."""
+    h = hash_five_tuple(pkt["src_ip"], pkt["dst_ip"], pkt["src_port"],
+                        pkt["dst_port"], pkt["proto"])
+    slot = h & (cfg.n_slots - 1)
+    stored = get_at(state["hash"], slot)
+    empty = stored == 0
+    collision = (~empty) & (stored != h)
+    is_new = empty | collision
+    return slot, h, is_new, collision
+
+
+def on_packet(state: Dict, cfg: EngineConfig, slot, h, is_new, collision,
+              ts) -> Dict:
+    """Init-or-update the flow entry; maintain window flow counting."""
+    s = dict(state)
+
+    def update(k, if_new, else_):
+        s[k] = set_at(state[k], slot, torch.where(is_new, if_new, else_))
+
+    # (re)initialize on new flow / collision eviction
+    s["hash"] = set_at(state["hash"], slot, h)
+    update("bklog_n", 0, get_at(state["bklog_n"], slot) + 1)
+    update("bklog_t", ts, get_at(state["bklog_t"], slot))
+    update("cls", -1, get_at(state["cls"], slot))
+    update("pkt_cnt", 1, get_at(state["pkt_cnt"], slot) + 1)
+    update("buff_idx", 0, get_at(state["buff_idx"], slot))
+    # window statistics: count flows whose first packet lands in this T_w
+    s["flow_cnt"] = state["flow_cnt"] + is_new.to(I32)
+    s["win_pkt_cnt"] = state["win_pkt_cnt"] + 1
+    s["collisions"] = state["collisions"] + collision.to(I32)
+    return s
 
 
 def window_reset(state: Dict, now: torch.Tensor) -> Dict:
@@ -30,9 +71,8 @@ def apply_inference_result(state: Dict, slot: torch.Tensor,
     """A Model-Engine verdict returns to the switch (§5.1): write ``cls``
     if the slot still belongs to the same flow (0-d tensors)."""
     s = dict(state)
-    still_owner = state["hash"][slot] == h
-    cls_new = state["cls"].clone()
-    cls_new[slot] = torch.where(still_owner, cls.to(I32),
-                                state["cls"][slot])
-    s["cls"] = cls_new
+    still_owner = get_at(state["hash"], slot) == h
+    s["cls"] = set_at(state["cls"], slot,
+                      torch.where(still_owner, cls.to(I32),
+                                  get_at(state["cls"], slot)))
     return s

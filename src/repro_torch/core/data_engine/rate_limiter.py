@@ -1,33 +1,79 @@
-"""Rate Limiter (§4.2): probabilistic token bucket, batch form.
+"""Rate Limiter (§4.2): probabilistic token bucket, Algorithm 1.
 
-Port of ``admit_batch`` and ``control_plane_update`` from
-``repro/core/data_engine/rate_limiter.py``.  The per-packet ``step`` of
-the exact host scan is not ported yet (ROADMAP, next slices).
+Port of ``step``, ``admit_batch`` and ``control_plane_update`` from
+``repro/core/data_engine/rate_limiter.py``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.data_engine import flow_tracker as ft
-from repro_torch.core.data_engine.state import EngineConfig
+from repro_torch.core.data_engine.state import EngineConfig, get_at, set_at
 from repro_torch.core.probability import build_lut_torch
 from repro_torch.kernels.rate_gate.ops import fused_admission
+from repro_torch.kernels.rate_gate.ref import lut_prob
+
+I32 = torch.int32
+
+
+def step(state: Dict, cfg: EngineConfig, slot: torch.Tensor,
+         ts: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
+    """Algorithm 1 for one packet (0-d ``slot``, int32 ``ts``).  Returns
+    (state', granted 0-d bool)."""
+    s = dict(state)
+    # lines 1-5: refill by elapsed gap
+    first = state["t_last"] == 0
+    gap = torch.where(first, 0, ts - state["t_last"])
+    s["t_last"] = ts.to(I32)
+    bucket = torch.clamp_max(state["bucket"] + gap, cfg.bucket_cap_us)
+    # line 6: rand + LUT probability on (T_i, C_i).  The reference draws
+    # randint(sub, ()), which is lane 0 of randint(sub, (n,))
+    key, sub = prng.split(state["rng_key"])
+    s["rng_key"] = key
+    rand = prng.randint(sub, 1, 0, 1 << cfg.lut.prob_bits)[0]
+    bklog_n, bklog_t = get_at(state["bklog_n"], slot), \
+        get_at(state["bklog_t"], slot)
+    t_i = torch.clamp_min(ts - bklog_t, 0)
+    c_i = torch.clamp_min(bklog_n, 0)
+    selected = rand < lut_prob(state["lut"], t_i.reshape(1),
+                               c_i.reshape(1), cfg.lut.t_shift,
+                               cfg.lut.c_shift)[0]
+    # lines 8-12: consume if selected and enough tokens
+    has_tokens = bucket >= cfg.cost_us
+    granted = selected & has_tokens
+    s["bucket"] = torch.where(granted, bucket - cfg.cost_us, bucket).to(I32)
+    # telemetry + per-flow backlog reset on grant
+    s["granted"] = state["granted"] + granted.to(I32)
+    s["denied_prob"] = state["denied_prob"] + (~selected).to(I32)
+    s["denied_tokens"] = state["denied_tokens"] \
+        + (selected & ~has_tokens).to(I32)
+    s["bklog_n"] = set_at(state["bklog_n"], slot,
+                          torch.where(granted, 0, bklog_n))
+    s["bklog_t"] = set_at(state["bklog_t"], slot,
+                          torch.where(granted, ts, bklog_t))
+    return s, granted
 
 
 def admit_batch(state: Dict, cfg: EngineConfig, t_i: torch.Tensor,
-                c_i: torch.Tensor, ts: torch.Tensor, rand16: torch.Tensor
+                c_i: torch.Tensor, ts: torch.Tensor,
+                rand16: Optional[torch.Tensor] = None,
+                key: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Vectorized Algorithm 1 for one packet batch: ONE fused call
-    against the state's LUT and bucket registers.  Returns (granted [n]
+    against the state's LUT and bucket registers, on the draws
+    ``rand16`` or, for ``gate_backend="cuda_prng"``, on those the kernel
+    makes from the chunk's threefry subkey ``key``.  Returns (granted [n]
     bool, bucket_new 0-d int32)."""
     return fused_admission(
         t_i, c_i, ts, state["lut"], state["bucket"], state["t_last"],
-        rand16=rand16, cost_us=cfg.cost_us,
+        rand16=rand16, key=key, cost_us=cfg.cost_us,
         bucket_cap_us=cfg.bucket_cap_us, t_shift=cfg.lut.t_shift,
-        c_shift=cfg.lut.c_shift, backend=cfg.gate_backend)
+        c_shift=cfg.lut.c_shift, prob_bits=cfg.lut.prob_bits,
+        backend=cfg.gate_backend)
 
 
 def control_plane_update(state: Dict, cfg: EngineConfig) -> Dict:

@@ -13,7 +13,7 @@ exactly as uint32 does.  Everything else keeps the reference's int32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -34,8 +34,9 @@ class EngineConfig:
     queue_len: int = 64             # bucket cap <= queue length (§4.2)
     window_us: int = 1_000_000      # T_w statistics window
     lut: LUTConfig = dataclasses.field(default_factory=LUTConfig)
-    # fused admission backend: "cuda" (Hopper kernel) | "ref" (plain
-    # PyTorch); None runs the kernel on CUDA tensors, "ref" on CPU ones
+    # fused admission backend: "cuda" (Hopper kernel) | "cuda_prng" (the
+    # kernel drawing its own bits) | "ref" (plain PyTorch); None runs the
+    # kernel on CUDA tensors, "ref" on CPU ones
     gate_backend: Optional[str] = None
 
     @property
@@ -116,3 +117,23 @@ def hash_five_tuple(src_ip: torch.Tensor, dst_ip: torch.Tensor,
     h = h ^ (h >> 13)
     # hash value 0 is reserved for "empty slot"
     return torch.clamp_min(h, 1)
+
+
+Index = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
+def get_at(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``table[index]`` for a 0-d index tensor.  PyTorch reads a 0-d
+    tensor index back to the host (a sync on CUDA); a one-lane
+    ``index_select`` does not."""
+    return table.index_select(0, index.reshape(1).long())[0]
+
+
+def set_at(table: torch.Tensor, index: Index, value: torch.Tensor
+           ) -> torch.Tensor:
+    """``table.at[index].set(value)`` for 0-d index tensors (one, or a
+    tuple for the leading dims): a copy with one entry written, with no
+    host read."""
+    idx = index if isinstance(index, tuple) else (index,)
+    return table.index_put(tuple(i.reshape(1).long() for i in idx),
+                           value.to(table.dtype).unsqueeze(0))

@@ -1,31 +1,38 @@
 """FENIX end-to-end system: switch (Data Engine) + FPGA (Model Engine).
 
-Port of ``repro/core/fenix.py``, single-pipe device driver: each packet
-chunk goes through the delay-line delivery, the Data Engine (flow table,
-fused admission gate, feature rings), the Vector I/O enqueue, the
-Model-Engine service budget and dequeue, INT8 inference over the fixed
-``serve_lanes`` lanes, the delay-line push and, at each T_w boundary,
-the control-plane LUT rebuild — all as tensors on one device.
+Port of ``repro/core/fenix.py``, single pipe, with its two drivers:
 
-The reference's ``lax.scan`` becomes a Python loop over chunks and its
-``"_cp"`` ``lax.cond`` a Python ``if`` on the chunk index, which the host
-knows without asking the device.  Nothing inside the loop reads a value
-back: stats are summed on the device and read once at the end, so a
-replay makes zero host round trips (``host_syncs`` stays 0).  On CUDA the
-loop runs under ``torch.cuda.set_sync_debug_mode("error")``, so any
-operation that would synchronise with the host raises instead.
+* **device** (``driver="auto"``'s default): each packet chunk goes
+  through the delay-line delivery, the Data Engine (flow table, fused
+  admission gate, feature rings), the optional switch decision tree, the
+  Vector I/O enqueue, the Model-Engine service budget and dequeue, INT8
+  inference over the fixed ``serve_lanes`` lanes, the delay-line push
+  and, at each T_w boundary, the control-plane LUT rebuild — all as
+  tensors on one device.  The reference's ``lax.scan`` becomes a Python
+  loop over chunks and its ``"_cp"`` ``lax.cond`` a Python ``if`` on the
+  chunk index, which the host knows without asking the device.  Nothing
+  inside the loop reads a value back: stats are summed on the device and
+  read once at the end, so a replay makes zero host round trips
+  (``host_syncs`` stays 0).  On CUDA the loop runs under
+  ``torch.cuda.set_sync_debug_mode("error")``, so any operation that
+  would synchronise with the host raises instead.
+* **host** (``driver="host"``; ``exact=True`` for the per-packet scan
+  admission): the batch-at-a-time ``step`` loop with a Python list of
+  in-flight results and the control plane called from the host each
+  window — the oracle the device driver is held against.  It reads each
+  batch's grants, slots, hashes and payloads back by design; its tensors
+  live on the same device as the device driver's.
 
-The other drivers (host, exact, pipes, farm) and capture-path and
-``TraceSpec`` traces are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item; nor are the switch
-decision tree (``tree=``) and oracle payloads (``oracle_windows=``).
+The multi-pipe and engine-farm drivers, capture-path and ``TraceSpec``
+traces, and oracle payloads (``oracle_windows=``) are not ported yet and
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +40,7 @@ import torch
 from repro_torch._device import resolve_device, validate_backend
 from repro_torch.core.data_engine import engine as de
 from repro_torch.core.data_engine import rate_limiter as rl
+from repro_torch.core.data_engine.decision_tree import predict
 from repro_torch.core.data_engine.state import EngineConfig, init_state
 from repro_torch.core.model_engine import delay_line as dl
 from repro_torch.core.model_engine import serving
@@ -51,8 +59,6 @@ _PKT_DTYPES = {"src_ip": np.int64, "dst_ip": np.int64,
 
 DRIVER_NAMES = ("host", "device", "pipes", "farm")
 _NOT_PORTED = {
-    "host": "the host/exact driver is the next slice (ROADMAP.md, "
-            "'Modules to port')",
     "pipes": "the multi-pipe driver is a later slice (ROADMAP.md, "
              "'Modules to port')",
     "farm": "the engine farm is a later slice (ROADMAP.md, 'Modules to "
@@ -69,14 +75,14 @@ class FenixConfig:
     loop_latency_us: int = 3         # switch->FPGA->switch (Fig. 11)
     control_plane_every: int = 8     # LUT refresh cadence (batches)
     # "auto" resolves as the reference does: farm if num_engines>1, else
-    # pipes if num_pipes>1, else host if exact=True, else device.  Only
-    # "device" is ported.
+    # pipes if num_pipes>1, else host if exact=True, else device.  "host"
+    # and "device" are ported.
     driver: str = "auto"
     exact: bool = False
     num_pipes: int = 1
     num_engines: int = 1
-    # fused-admission backend for the whole data plane: "cuda" | "ref";
-    # None keeps engine.gate_backend
+    # fused-admission backend for the whole data plane: "cuda" |
+    # "cuda_prng" | "ref"; None keeps engine.gate_backend
     gate_backend: Optional[str] = None
     # serving model: "bylen" or an int8_* name (served from model_dir)
     model: str = "bylen"
@@ -107,12 +113,25 @@ class FenixConfig:
         validate_backend(self.matmul_backend, "matmul_backend")
 
 
+def _tree_fill(verdict: torch.Tensor, pkt_len: torch.Tensor, tree: Dict,
+               depth: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packets of unclassified flows take the switch tree's class on
+    (pkt_len, 0): returns (verdict', packets the tree answered)."""
+    feats_now = torch.stack([pkt_len.to(I32), torch.zeros_like(pkt_len,
+                                                               dtype=I32)],
+                            dim=-1)
+    pre = predict(tree, feats_now, depth)
+    return torch.where(verdict >= 0, verdict, pre), (verdict < 0)
+
+
 def _make_single_step(ecfg: EngineConfig, iocfg: vio.IOConfig,
-                      loop_latency_us: int, model):
+                      loop_latency_us: int, model, tree: Optional[Dict],
+                      depth: int):
     """One chunk of the single-pipe device driver: delivery, the Data
-    Engine, enqueue, the full-budget service epilogue (dequeue,
-    inference, delay-line push) and, when ``cp``, the control-plane
-    rebuild — where the host oracle applies it, between batches."""
+    Engine, the switch-tree fill, enqueue, the full-budget service
+    epilogue (dequeue, inference, delay-line push) and, when ``cp``, the
+    control-plane rebuild — where the host oracle applies it, between
+    batches."""
 
     def step_fn(carry, chunk: Dict[str, torch.Tensor], cp: bool):
         state, queues, dline = carry
@@ -124,6 +143,11 @@ def _make_single_step(ecfg: EngineConfig, iocfg: vio.IOConfig,
                                     out["slot"], out["hash"],
                                     out["payload"])
         verdict = out["verdict"]
+        n_tree = torch.zeros((), dtype=I32, device=ts.device)
+        if tree is not None:
+            verdict, by_tree = _tree_fill(verdict, chunk["pkt_len"], tree,
+                                          depth)
+            n_tree = by_tree.sum(dtype=I32)
         budget = vio.step_budget(ts[0], now, ecfg.token_rate_per_us,
                                  iocfg.queue_len)
         queues, s2, h2, f2, cnt = vio.dequeue_device(queues, iocfg, budget)
@@ -132,8 +156,7 @@ def _make_single_step(ecfg: EngineConfig, iocfg: vio.IOConfig,
         if cp:
             state = rl.control_plane_update(state, ecfg)
         stats = torch.stack([out["granted"].sum(dtype=I32), cnt,
-                             (verdict >= 0).sum(dtype=I32),
-                             torch.zeros_like(cnt)])       # no switch tree
+                             (verdict >= 0).sum(dtype=I32), n_tree])
         return (state, queues, dline), verdict, stats
 
     return step_fn
@@ -155,20 +178,29 @@ def _no_host_sync(device: torch.device):
 
 
 class FenixSystem:
-    """Stateful co-simulation wrapper (single-pipe device driver).
+    """Stateful co-simulation wrapper (single pipe, host or device
+    driver).
 
-    ``device``: where the replay runs; ``None`` means ``cuda`` and raises
-    on a host without it.  ``model``: a serving model object
+    ``device``: where the run's tensors live; ``None`` means ``cuda`` and
+    raises on a host without it.  ``model``: a serving model object
     (``EngineModel`` or ``ByLenModel``); ``None`` builds ``cfg.model``.
+    ``tree``: switch decision-tree arrays (``decision_tree.tree_arrays``)
+    for packets of flows without a verdict, walked ``tree_depth`` levels.
     """
 
-    def __init__(self, cfg: FenixConfig, model=None, *, device=None,
-                 n_est: float = 1000.0, q_est_pps: float = 1e6):
+    def __init__(self, cfg: FenixConfig, model=None,
+                 tree: Optional[Dict] = None, tree_depth: int = 4, *,
+                 device=None, oracle_windows=None, n_est: float = 1000.0,
+                 q_est_pps: float = 1e6):
         self.device = resolve_device(device)
-        if cfg.driver != "device":
+        if cfg.driver not in ("host", "device"):
             raise NotImplementedError(
                 f"driver={cfg.driver!r} is not ported yet: "
                 f"{_NOT_PORTED[cfg.driver]}")
+        if oracle_windows is not None:
+            raise NotImplementedError(
+                "oracle_windows= (oracle payloads) is not ported yet "
+                "(ROADMAP.md, 'Modules to port')")
         if cfg.gate_backend is not None:
             cfg = dataclasses.replace(
                 cfg, engine=dataclasses.replace(
@@ -189,10 +221,14 @@ class FenixSystem:
             model = model.to(self.device)
         self.cfg = cfg
         self.model = model
+        self.tree = (None if tree is None else
+                     {k: v.to(self.device) for k, v in tree.items()})
+        self.tree_depth = tree_depth
         self.n_est = n_est
         self.q_est_pps = q_est_pps
         self._step = _make_single_step(cfg.engine, cfg.io,
-                                       cfg.loop_latency_us, model)
+                                       cfg.loop_latency_us, model,
+                                       self.tree, tree_depth)
         self.reset()
 
     def reset(self) -> None:
@@ -202,7 +238,6 @@ class FenixSystem:
                                 q_est_pps=self.q_est_pps,
                                 device=self.device)
         self.queues = vio.init_queues(cfg.io, device=self.device)
-        self._dl = dl.init(cfg.io.queue_len, device=self.device)
         self.stats = {"packets": 0, "granted": 0, "inferences": 0,
                       "classified_pkts": 0, "tree_pkts": 0, "dropped_q": 0,
                       "dropped_inflight": 0,
@@ -211,28 +246,150 @@ class FenixSystem:
                       "engine_q_depth_hist": [[0] * DEPTH_BUCKETS
                                               for _ in
                                               range(cfg.num_engines)]}
-        # host-driven control-plane round trips: 0 on the device driver
+        # host-driven control-plane round trips: 0 on the device driver,
+        # one per T_w rollover of the host loop
         self.host_syncs = 0
+        # in-flight inference results, host view: (deliver_ts, slot, h,
+        # cls) — and its twin, the device-resident delay line
+        self._inflight: List[Tuple[int, int, int, int]] = []
+        self._dl = dl.init(cfg.io.queue_len, device=self.device)
+        self._dl_dirty = False
 
+    # -- one simulation step (host driver) ---------------------------------
+    def step(self, packets: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Process one packet batch; returns per-packet verdicts + masks
+        (numpy: verdict int32, granted bool, slot int32)."""
+        cfg = self.cfg
+        self._sync_inflight_to_host()
+        n = len(packets["ts_us"])
+        batch = self._to_device(packets)
+        now = int(packets["ts_us"][-1])
+        # deliver finished inferences whose latency elapsed
+        self._deliver(now)
+        if not cfg.exact:
+            self.state, out = de.process_batch_fast(self.state, batch,
+                                                    cfg.engine)
+        else:
+            self.state, out = de.process_batch(self.state, batch, cfg.engine,
+                                               tree=self.tree,
+                                               tree_depth=self.tree_depth)
+        granted = out["granted"].cpu().numpy()
+        slot = out["slot"].cpu().numpy()
+        self.queues = vio.enqueue_batch(
+            self.queues, cfg.io, slot[granted],
+            out["hash"].cpu().numpy()[granted],
+            out["payload"].cpu().numpy()[granted])
+        # the Model Engine serves a batch bounded by its service rate V
+        # (vio.step_budget, the device driver's own formula)
+        budget = int(vio.step_budget(
+            torch.tensor(int(packets["ts_us"][0]), dtype=I32),
+            torch.tensor(now, dtype=I32), cfg.engine.token_rate_per_us,
+            cfg.io.queue_len))
+        self.queues, s2, h2, f2 = vio.dequeue_batch(self.queues, cfg.io,
+                                                    budget)
+        if len(s2):
+            cls = self.model.infer(
+                torch.from_numpy(f2).to(self.device)).cpu().numpy()
+            self._inflight.extend(
+                (now + cfg.loop_latency_us, int(a), int(b), int(c))
+                for a, b, c in zip(s2, h2, cls))
+            self.stats["inferences"] += len(s2)
+            self.stats["served_per_engine"][0] += len(s2)
+        # verdicts: flow-table class (post-delivery) else switch tree
+        verdict = out["verdict"]
+        if self.tree is not None and not cfg.exact:
+            verdict, by_tree = _tree_fill(verdict, batch["pkt_len"],
+                                          self.tree, self.tree_depth)
+            self.stats["tree_pkts"] += int(by_tree.sum())
+        verdict = verdict.cpu().numpy()
+        self.stats["packets"] += n
+        self.stats["granted"] += int(granted.sum())
+        self.stats["classified_pkts"] += int(np.sum(verdict >= 0))
+        self.stats["dropped_q"] = int(self.queues["dropped"])
+        # one depth sample per batch round; no engine queues on this path
+        self.stats["engine_q_depth_hist"][0][0] += 1
+        return {"verdict": verdict, "granted": granted, "slot": slot}
+
+    def _to_device(self, packets: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(
+                    np.asarray(packets[k]).astype(_PKT_DTYPES[k])))
+                .to(self.device) for k in PKT_KEYS}
+
+    def _deliver(self, now: int) -> None:
+        """Write every in-flight result due by ``now`` to the flow table,
+        in list order (``dl.write_results``: the last due result of a
+        slot that still holds its hash wins)."""
+        due = [r for r in self._inflight if r[0] <= now]
+        self._inflight = [r for r in self._inflight if r[0] > now]
+        if due:
+            cols = torch.tensor([r[1:] for r in due], dtype=torch.int64,
+                                device=self.device)
+            self.state = dl.write_results(
+                self.state, cols[:, 0], cols[:, 1], cols[:, 2],
+                torch.ones(len(due), dtype=torch.bool, device=self.device),
+                self.cfg.engine.n_slots)
+
+    def control_plane(self) -> None:
+        """T_w rollover driven from the host loop: LUT refresh from the
+        observed (N, Q) window counters + window reset — the same
+        ``rl.control_plane_update`` the device driver runs in its loop.
+        Each call counts one host round trip in ``host_syncs``."""
+        self.host_syncs += 1
+        self.state = rl.control_plane_update(self.state, self.cfg.engine)
+
+    # -- in-flight state interop (host list <-> device delay line) ---------
+    def _sync_inflight_to_host(self) -> None:
+        if self._dl_dirty:
+            self._inflight = dl.to_list(self._dl) + self._inflight
+            self._dl = dl.init(self.cfg.io.queue_len, device=self.device)
+            self._dl_dirty = False
+
+    def _sync_inflight_to_device(self) -> None:
+        if self._inflight:
+            t, slot, h, cls = (torch.tensor(c, device=self.device)
+                               for c in zip(*self._inflight))
+            self._dl = dl.push(self._dl, t, slot.to(I32), h, cls.to(I32),
+                               torch.tensor(len(self._inflight), dtype=I32,
+                                            device=self.device))
+        self._inflight = []
+        self._dl_dirty = True
+
+    # -- full-trace drivers -------------------------------------------------
     def run_trace(self, trace: Dict[str, np.ndarray]
                   ) -> Dict[str, np.ndarray]:
         """Replay a packet-stream dict (``synthetic_traffic.packet_stream``
-        layout); returns {"verdict": [n] int32} in arrival order."""
+        layout) on the configured driver; returns {"verdict": [n] int32}
+        in arrival order."""
         if not isinstance(trace, dict):
             raise NotImplementedError(
                 "run_trace takes a packet-stream dict; capture paths and "
                 "TraceSpec streaming are not ported yet (ROADMAP.md, "
                 "'Modules to port')")
+        if self.cfg.driver == "host":
+            return self._run_trace_host(trace)
         return self._run_trace_device(trace)
+
+    def _run_trace_host(self, stream: Dict[str, np.ndarray]
+                        ) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        n = len(stream["ts_us"])
+        verdicts = np.full(n, -1, np.int32)
+        for i, start in enumerate(range(0, n, cfg.batch_size)):
+            sl = slice(start, min(start + cfg.batch_size, n))
+            out = self.step({k: v[sl] for k, v in stream.items()})
+            verdicts[sl] = out["verdict"]
+            if (i + 1) % cfg.control_plane_every == 0:
+                self.control_plane()
+        return {"verdict": verdicts}
 
     def _run_trace_device(self, stream: Dict[str, np.ndarray]
                           ) -> Dict[str, np.ndarray]:
         cfg = self.cfg
         n = len(stream["ts_us"])
         B, cpe = cfg.batch_size, cfg.control_plane_every
-        arrs = {k: torch.from_numpy(np.ascontiguousarray(
-                    np.asarray(stream[k]).astype(_PKT_DTYPES[k])))
-                .to(self.device) for k in PKT_KEYS}
+        arrs = self._to_device(stream)
+        self._sync_inflight_to_device()
         n_chunks = n // B
         n_batches = n_chunks + (1 if n_chunks * B < n else 0)
         carry = (self.state, self.queues, self._dl)
@@ -247,6 +404,7 @@ class FenixSystem:
                 verd_parts.append(vd)
                 stat_sum += st
         self.state, self.queues, self._dl = carry
+        self._dl_dirty = True
         stat = stat_sum.cpu().numpy()
         self.stats["packets"] += n
         self.stats["granted"] += int(stat[0])

@@ -1,12 +1,14 @@
 """Vector I/O Processor (§5.1): the flow-identifier FIFO between the
 switch and the Model Engine, as device-resident ring state.
 
-Port of the single-pipe device ops of ``repro/core/model_engine/
-vector_io.py``: ``IOConfig``, ``init_queues``, ``ring_append``,
-``ring_pop``, ``enqueue_device``, ``dequeue_device``, ``service_budget``
-and ``step_budget``.  Dequeue returns fixed-shape lanes (``serve_lanes``)
-plus a count tensor, so no shape depends on a device value and the
-replay never reads one back to the host.
+Port of the single-pipe ops of ``repro/core/model_engine/vector_io.py``:
+``IOConfig``, ``init_queues``, the host pair ``enqueue_batch`` /
+``dequeue_batch`` (numpy, for the step-by-step host driver), and the
+device ops ``ring_append``, ``ring_pop``, ``enqueue_device``,
+``dequeue_device``, ``service_budget`` and ``step_budget``.  Device
+dequeue returns fixed-shape lanes (``serve_lanes``) plus a count tensor,
+so no shape depends on a device value and the device replay never reads
+one back to the host.
 
 The reference scatters with ``mode="drop"`` and gathers with
 ``mode="fill"``; PyTorch has neither, so appends scatter into a copy of
@@ -52,6 +54,46 @@ def init_queues(cfg: IOConfig, device=None) -> Dict[str, torch.Tensor]:
                               dtype=I32, device=device),
         "head": scalar(), "tail": scalar(), "dropped": scalar(),
     }
+
+
+def enqueue_batch(q: Dict, cfg: IOConfig, slots: np.ndarray,
+                  hashes: np.ndarray, feats: np.ndarray) -> Dict:
+    """Host-side co-sim: append granted mirror packets in order; drop on
+    overflow.  Reads the queue back, writes it to the same device."""
+    head, tail = int(q["head"]), int(q["tail"])
+    cap = cfg.queue_len
+    out = {k: v.cpu().numpy().copy() for k, v in q.items()}
+    dropped = int(q["dropped"])
+    for i in range(len(slots)):
+        if tail - head >= cap:
+            dropped += 1
+            continue
+        pos = tail % cap
+        out["id_q_slot"][pos] = slots[i]
+        out["id_q_hash"][pos] = hashes[i]
+        out["feat_q"][pos] = feats[i]
+        tail += 1
+    out["head"], out["tail"], out["dropped"] = (
+        np.int32(v) for v in (head, tail, dropped))
+    dev = q["head"].device
+    return {k: torch.from_numpy(np.asarray(v)).to(dev)
+            for k, v in out.items()}
+
+
+def dequeue_batch(q: Dict, cfg: IOConfig, n: int
+                  ) -> Tuple[Dict, np.ndarray, np.ndarray, np.ndarray]:
+    """Pop up to n entries in FIFO order (the ordering invariant of
+    §5.1): (q', slots, hashes, feats) with numpy lanes."""
+    head, tail = int(q["head"]), int(q["tail"])
+    take = min(n, tail - head)
+    idx = (head + np.arange(take)) % cfg.queue_len
+    slots = q["id_q_slot"].cpu().numpy()[idx]
+    hashes = q["id_q_hash"].cpu().numpy()[idx]
+    feats = q["feat_q"].cpu().numpy()[idx]
+    out = dict(q)
+    out["head"] = torch.tensor(head + take, dtype=I32,
+                               device=q["head"].device)
+    return out, slots, hashes, feats
 
 
 def ring_append(fields: Dict[str, torch.Tensor],

@@ -75,6 +75,13 @@ def random_bits32(key: torch.Tensor, n: int) -> torch.Tensor:
     return b1 ^ b2
 
 
+def randint_multiplier(span: int) -> int:
+    """2^32 % span as ``randint`` computes it, in wrapping uint32:
+    ((2^16 % span)^2 mod 2^32) % span.  It is 0 for every power-of-two
+    span, and then only the bits of ``split(key)[1]`` reach the draw."""
+    return ((((1 << 16) % span) ** 2) & M32) % span
+
+
 def randint(key: torch.Tensor, n: int, minval: int, maxval: int
             ) -> torch.Tensor:
     """``jax.random.randint(key, (n,), minval, maxval, jnp.int32)`` for
@@ -82,9 +89,7 @@ def randint(key: torch.Tensor, n: int, minval: int, maxval: int
     if not (-2**31 <= minval < 2**31 and -2**31 <= maxval < 2**31):
         raise ValueError("randint bounds must be int32")
     span = (maxval - minval) & M32 if maxval > minval else 1
-    # 2^32 % span as jax computes it, in wrapping uint32:
-    # ((2^16 % span)^2 mod 2^32) % span
-    multiplier = ((((1 << 16) % span) ** 2) & M32) % span
+    multiplier = randint_multiplier(span)
     k1, k2 = split(key)
     lower = random_bits32(k2, n)
     offset = lower % span

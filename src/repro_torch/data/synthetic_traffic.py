@@ -1,9 +1,10 @@
 """Class-conditioned synthetic network traffic (ISCXVPN2016 / USTC-TFC
 analogues), numpy only.
 
-The port's own copy of ``make_flows`` and ``packet_stream`` from
-``repro/data/synthetic_traffic.py``, so a trace can be made on a machine
-without the reference's dependencies.  Given the same arguments both
+The port's own copy of ``make_flows``, ``packet_stream``, ``ring_window``
+and ``windows_from_flows`` from ``repro/data/synthetic_traffic.py``, so a
+trace and its training windows can be made on a machine without the
+reference's dependencies.  Given the same arguments both
 produce the same packets.  Each class is a parametric flow generator
 over packet lengths and inter-packet delays; class imbalance follows the
 paper's Table 1.
@@ -169,3 +170,38 @@ def packet_stream(flows: List[Flow], limit: Optional[int] = None
         pos_ctr[fi] = out["flow_pos"][i] + 1
         out["label"][i] = f.label
     return out
+
+
+def ring_window(feats: np.ndarray, end: int, win: int) -> np.ndarray:
+    """Window ENDING at packet `end` inclusive, front-padded with zeros —
+    exactly what the switch ring buffer holds when packet `end` arrives."""
+    lo = max(0, end + 1 - win)
+    w = feats[lo:end + 1]
+    if len(w) < win:
+        w = np.concatenate([np.zeros((win - len(w), feats.shape[1]),
+                                     feats.dtype), w])
+    return w
+
+
+def windows_from_flows(flows: List[Flow], win: int = 9,
+                       stride: int = 4, max_windows_per_flow: int = 16,
+                       seed: int = 0
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Ring-aligned sliding windows (paper §6): (payload [N, win, 2],
+    label [N], flow index [N]).  Windows end at sampled packet positions
+    and are front-padded, as the Buffer Manager holds them."""
+    rng = np.random.default_rng(seed)
+    ps, ls, fs = [], [], []
+    for fi, f in enumerate(flows):
+        feats = np.stack([f.pkt_len, f.ipd_us], axis=-1)   # [n,2]
+        n = len(f.pkt_len)
+        ends = list(range(1, n, stride))
+        if len(ends) > max_windows_per_flow:
+            ends = list(rng.choice(ends, max_windows_per_flow,
+                                   replace=False))
+        for e in ends:
+            ps.append(ring_window(feats, e, win))
+            ls.append(f.label)
+            fs.append(fi)
+    return (np.stack(ps).astype(np.int32), np.asarray(ls, np.int32),
+            np.asarray(fs, np.int32))

@@ -6,8 +6,8 @@ is compiled (seconds per source, against minutes through
 ``torch.utils.cpp_extension``).  The library is built at first use from
 the checkout's own sources into ``src/repro_torch/_build/`` (listed in
 ``.gitignore``): one ``nvcc -c`` per source, all started together, then
-one link.  Its name carries a digest of the sources and flags, so an
-edited source is never served from a stale build.
+one link.  Its name carries a digest of the sources, the shared headers
+and the flags, so an edited file is never served from a stale build.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ from typing import Dict, List, Sequence, Tuple
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("fused_gate.cu", "int8_gemm.cu")
+SOURCES = ("fused_gate.cu", "rate_gate.cu", "int8_gemm.cu")
+HEADERS = ("gate_common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -51,7 +52,7 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(CFLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"libfenix_kernels-{h.hexdigest()[:16]}.so"
 

@@ -1,8 +1,18 @@
-"""Wrapper of the hand-written fused admission kernel
-(``csrc/fused_gate.cu``), which replaces the TPU kernel
-``repro/kernels/rate_gate/kernel.py::fused_gate_pallas`` (rand-input
-variant).  The plain version of the same function is
-``ref.fused_admission_ref``.
+"""Wrappers of the hand-written Rate-Limiter gate kernels, which replace
+the TPU kernels of ``repro/kernels/rate_gate/kernel.py``:
+
+* :data:`fused_gate` and :data:`fused_gate_prng` (``csrc/fused_gate.cu``)
+  replace ``fused_gate_pallas``, rand-input and on-core-PRNG variants;
+  plain versions ``ref.fused_admission_ref`` and
+  ``ref.fused_admission_prng_ref``;
+* :data:`rate_gate` and :data:`rate_gate_prng` (``csrc/rate_gate.cu``)
+  replace ``rate_gate_pallas``, both variants; plain versions
+  ``ref.rate_gate_ref`` and ``ref.rate_gate_prng_ref``.
+
+The drawing variants take a threefry key as a [2] int64 tensor on the
+card (``core.prng``'s layout) and read it there, so a call inside the
+replay loop never waits for the host.  Each wrapper counts its launches
+in ``launches``.
 """
 
 from __future__ import annotations
@@ -12,76 +22,186 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.kernels import _build
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_VP] * 8 + [_I] * 7 + [_VP]
+LUT_BYTES_MAX = 48 * 1024          # static shared memory of one CTA
 
 
-def _lib():
-    return _build.function("fused_gate_launch", _ARGTYPES)
-
-
-def _check_lane(x: torch.Tensor, name: str, n: int) -> None:
+def _check_lane(x: torch.Tensor, name: str, n: int, kernel: str) -> None:
     if x.dtype != torch.int32 or x.shape != (n,) or not x.is_contiguous():
-        raise ValueError(f"fused_gate: {name} must be a contiguous [n] "
-                         f"int32 tensor, got {x.dtype} {tuple(x.shape)}")
+        raise ValueError(f"{kernel}: {name} must be a contiguous [n] int32 "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
 
 
-class _FusedGate:
+def _check_prob_bits(prob_bits: int, kernel: str) -> None:
+    # the kernel draws only randint's lower bits: valid when the span's
+    # multiplier of the higher bits is 0, as for every power of two
+    if not 1 <= prob_bits <= 31 \
+            or prng.randint_multiplier(1 << prob_bits) != 0:
+        raise ValueError(f"{kernel}: prob_bits must be in [1, 31]")
+
+
+class _GateKernel:
     """Callable kernel wrapper; ``launches`` counts kernel launches."""
+
+    name = ""
+    symbol = ""
+    argtypes: Tuple = ()
 
     def __init__(self):
         self.launches = 0
+
+    def _check(self, lanes, lut: torch.Tensor, key=None, scal=None
+               ) -> int:
+        """Common checks: one CUDA device, contiguous [n] int32 ``lanes``
+        (name, tensor) with n >= 1, a 2-D int32 LUT that fits in shared
+        memory, and the ``key``/``scal`` operand where the kernel takes
+        one.  Returns n."""
+        n = lanes[0][1].shape[0]
+        tensors = [x for _, x in lanes] + [lut] + [
+            x for x in (key, scal) if x is not None]
+        if any(not x.is_cuda or x.device != tensors[0].device
+               for x in tensors):
+            raise ValueError(f"{self.name} runs on CUDA tensors of one "
+                             "device")
+        if n < 1:
+            raise ValueError(f"{self.name} needs at least one lane")
+        for name, x in lanes:
+            _check_lane(x, name, n, self.name)
+        if lut.dtype != torch.int32 or lut.dim() != 2 \
+                or not lut.is_contiguous():
+            raise ValueError(f"{self.name}: lut must be a contiguous 2-D "
+                             "int32 tensor")
+        if lut.numel() * 4 > LUT_BYTES_MAX:
+            raise ValueError(f"{self.name}: the LUT must fit in 48 KB of "
+                             "shared memory")
+        if key is not None and (key.dtype != torch.int64
+                                or key.shape != (2,)
+                                or not key.is_contiguous()):
+            raise ValueError(f"{self.name}: key must be a contiguous [2] "
+                             "int64 threefry key (uint32 words)")
+        if scal is not None and (scal.dtype != torch.int32
+                                 or scal.shape != (2,)
+                                 or not scal.is_contiguous()):
+            raise ValueError(f"{self.name}: scal must be a contiguous [2] "
+                             "int32 tensor (burst0, t_ref)")
+        return n
+
+    def _launch(self, *args) -> None:
+        fn = _build.function(self.symbol, self.argtypes)
+        _build.check(fn(*args), self.name)
+        self.launches += 1
+
+
+class _FusedGate(_GateKernel):
+    """Fused admission of one batch on the card, rand-input variant."""
+
+    name, symbol = "fused_gate", "fused_gate_launch"
+    argtypes = (_VP,) * 8 + (_I,) * 7 + (_VP,)
 
     def __call__(self, t_i: torch.Tensor, c_i: torch.Tensor,
                  ts: torch.Tensor, rand16: torch.Tensor, lut: torch.Tensor,
                  scal: torch.Tensor, *, t_shift: int, c_shift: int,
                  cost_us: int, bucket_cap_us: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Fused admission of one batch on the card.
-
-        t_i, c_i, ts, rand16  [n] int32 (n >= 1; no padding needed)
-        lut                   [TB, CB] int32
-        scal                  [2] int32 on the device: (burst0, t_ref)
-
-        Returns (granted [n] bool, bucket_new 0-d int32), both on the
-        device; nothing is read back to the host.
-        """
-        n = t_i.shape[0]
-        tensors = (t_i, c_i, ts, rand16, lut, scal)
-        if any(not x.is_cuda or x.device != t_i.device for x in tensors):
-            raise ValueError("fused_gate runs on CUDA tensors of one "
-                             "device")
-        if n < 1:
-            raise ValueError("fused_gate needs a batch of at least one "
-                             "packet")
-        for x, name in ((t_i, "t_i"), (c_i, "c_i"), (ts, "ts"),
-                        (rand16, "rand16")):
-            _check_lane(x, name, n)
-        if lut.dtype != torch.int32 or lut.dim() != 2 \
-                or not lut.is_contiguous():
-            raise ValueError("fused_gate: lut must be a contiguous 2-D "
-                             "int32 tensor")
-        if lut.numel() * 4 > 48 * 1024:
-            raise ValueError("fused_gate: the LUT must fit in 48 KB of "
-                             "shared memory")
-        if scal.dtype != torch.int32 or scal.shape != (2,) \
-                or not scal.is_contiguous():
-            raise ValueError("fused_gate: scal must be a contiguous [2] "
-                             "int32 tensor (burst0, t_ref)")
-        fn = _lib()
-        granted = torch.empty((n,), dtype=torch.bool, device=t_i.device)
-        bucket = torch.empty((1,), dtype=torch.int32, device=t_i.device)
+        """t_i, c_i, ts, rand16 [n] int32 (n >= 1; no padding needed);
+        lut [TB, CB] int32; scal [2] int32 on the device: (burst0,
+        t_ref).  Returns (granted [n] bool, bucket_new 0-d int32), both
+        on the device; nothing is read back to the host."""
+        n = self._check([("t_i", t_i), ("c_i", c_i), ("ts", ts),
+                         ("rand16", rand16)], lut, scal=scal)
+        granted, bucket = _gate_outputs(n, t_i.device)
         tb, cb = lut.shape
-        stream = torch.cuda.current_stream(t_i.device).cuda_stream
-        status = fn(t_i.data_ptr(), c_i.data_ptr(), ts.data_ptr(),
-                    rand16.data_ptr(), lut.data_ptr(), scal.data_ptr(),
-                    granted.data_ptr(), bucket.data_ptr(), n, tb, cb,
-                    t_shift, c_shift, cost_us, bucket_cap_us, stream)
-        _build.check(status, "fused_gate")
-        self.launches += 1
+        self._launch(t_i.data_ptr(), c_i.data_ptr(), ts.data_ptr(),
+                     rand16.data_ptr(), lut.data_ptr(), scal.data_ptr(),
+                     granted.data_ptr(), bucket.data_ptr(), n, tb, cb,
+                     t_shift, c_shift, cost_us, bucket_cap_us,
+                     _stream(t_i))
         return granted, bucket[0]
 
 
+class _FusedGatePrng(_GateKernel):
+    """Fused admission of one batch on the card, drawing its own bits
+    from the chunk's threefry subkey ``key``."""
+
+    name, symbol = "fused_gate_prng", "fused_gate_prng_launch"
+    argtypes = (_VP,) * 8 + (_I,) * 8 + (_VP,)
+
+    def __call__(self, t_i: torch.Tensor, c_i: torch.Tensor,
+                 ts: torch.Tensor, key: torch.Tensor, lut: torch.Tensor,
+                 scal: torch.Tensor, *, t_shift: int, c_shift: int,
+                 prob_bits: int, cost_us: int, bucket_cap_us: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """As :data:`fused_gate`, with ``rand16`` replaced by the draws
+        ``prng.randint(key, n, 0, 2^prob_bits)`` made in the kernel."""
+        n = self._check([("t_i", t_i), ("c_i", c_i), ("ts", ts)], lut,
+                        key=key, scal=scal)
+        _check_prob_bits(prob_bits, self.name)
+        granted, bucket = _gate_outputs(n, t_i.device)
+        tb, cb = lut.shape
+        self._launch(t_i.data_ptr(), c_i.data_ptr(), ts.data_ptr(),
+                     key.data_ptr(), lut.data_ptr(), scal.data_ptr(),
+                     granted.data_ptr(), bucket.data_ptr(), n, tb, cb,
+                     t_shift, c_shift, prob_bits, cost_us, bucket_cap_us,
+                     _stream(t_i))
+        return granted, bucket[0]
+
+
+class _RateGate(_GateKernel):
+    """Selection-only gate on the card, rand-input variant."""
+
+    name, symbol = "rate_gate", "rate_gate_launch"
+    argtypes = (_VP,) * 5 + (_I,) * 5 + (_VP,)
+
+    def __call__(self, t_i: torch.Tensor, c_i: torch.Tensor,
+                 rand16: torch.Tensor, lut: torch.Tensor, *, t_shift: int,
+                 c_shift: int) -> torch.Tensor:
+        """t_i, c_i, rand16 [n] int32; lut [TB, CB] int32 -> selected
+        [n] bool on the device."""
+        n = self._check([("t_i", t_i), ("c_i", c_i), ("rand16", rand16)],
+                        lut)
+        out = torch.empty((n,), dtype=torch.bool, device=t_i.device)
+        tb, cb = lut.shape
+        self._launch(t_i.data_ptr(), c_i.data_ptr(), rand16.data_ptr(),
+                     lut.data_ptr(), out.data_ptr(), n, tb, cb, t_shift,
+                     c_shift, _stream(t_i))
+        return out
+
+
+class _RateGatePrng(_GateKernel):
+    """Selection-only gate on the card, drawing its own bits from
+    ``key``."""
+
+    name, symbol = "rate_gate_prng", "rate_gate_prng_launch"
+    argtypes = (_VP,) * 5 + (_I,) * 6 + (_VP,)
+
+    def __call__(self, t_i: torch.Tensor, c_i: torch.Tensor,
+                 key: torch.Tensor, lut: torch.Tensor, *, t_shift: int,
+                 c_shift: int, prob_bits: int) -> torch.Tensor:
+        """As :data:`rate_gate`, with ``rand16`` replaced by the draws
+        ``prng.randint(key, n, 0, 2^prob_bits)`` made in the kernel."""
+        n = self._check([("t_i", t_i), ("c_i", c_i)], lut, key=key)
+        _check_prob_bits(prob_bits, self.name)
+        out = torch.empty((n,), dtype=torch.bool, device=t_i.device)
+        tb, cb = lut.shape
+        self._launch(t_i.data_ptr(), c_i.data_ptr(), key.data_ptr(),
+                     lut.data_ptr(), out.data_ptr(), n, tb, cb, t_shift,
+                     c_shift, prob_bits, _stream(t_i))
+        return out
+
+
+def _gate_outputs(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.empty((n,), dtype=torch.bool, device=device),
+            torch.empty((1,), dtype=torch.int32, device=device))
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 fused_gate = _FusedGate()
+fused_gate_prng = _FusedGatePrng()
+rate_gate = _RateGate()
+rate_gate_prng = _RateGatePrng()

@@ -3,9 +3,13 @@
 Port of ``repro/kernels/rate_gate/ref.py``.  ``fused_admission_ref`` is
 the numerics contract of the fused admission kernel
 (``kernel.fused_gate``): selection, the prefix-sum token-bucket credit
-check and the bucket-level update in the reference's integer op order.
-It runs on any device; the CPU tests and ``chip_smoke.py``'s comparison
-use it.
+check and the bucket-level update in the reference's integer op order;
+``rate_gate_ref`` is that of the selection-only kernel
+(``kernel.rate_gate``).  The ``*_prng_ref`` pair are the plain versions
+of the kernels that draw their own bits (``kernel.fused_gate_prng``,
+``kernel.rate_gate_prng``): the same functions fed
+``prng.randint(key, n, 0, 2^prob_bits)``.  All run on any device; the
+CPU tests and ``chip_smoke.py``'s comparison use them.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from repro_torch.core import prng
 
 I32 = torch.int32
 
@@ -48,3 +54,31 @@ def fused_admission_ref(t_i: torch.Tensor, c_i: torch.Tensor,
         credit[-1] - granted.sum(dtype=I32) * cost_us, 0, bucket_cap_us
     ).to(I32)
     return granted, bucket_new
+
+
+def draw_rand16(key: torch.Tensor, n: int, prob_bits: int) -> torch.Tensor:
+    """The gate's [n] int32 uniform draws in [0, 2^prob_bits) from a
+    threefry key: ``jax.random.randint(key, (n,), 0, 2^prob_bits)``."""
+    return prng.randint(key, n, 0, 1 << prob_bits)
+
+
+def rate_gate_prng_ref(t_i, c_i, lut, key, t_shift: int, c_shift: int,
+                       prob_bits: int) -> torch.Tensor:
+    """``rate_gate_ref`` on the draws of ``key``: selected [N] bool."""
+    return rate_gate_ref(t_i, c_i, lut,
+                         draw_rand16(key, t_i.shape[0], prob_bits),
+                         t_shift, c_shift)
+
+
+def fused_admission_prng_ref(t_i: torch.Tensor, c_i: torch.Tensor,
+                             ts: torch.Tensor, lut: torch.Tensor,
+                             key: torch.Tensor, burst0: torch.Tensor,
+                             t_ref: torch.Tensor, t_shift: int,
+                             c_shift: int, cost_us: int, bucket_cap_us: int,
+                             prob_bits: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_admission_ref`` on the draws of ``key``."""
+    return fused_admission_ref(t_i, c_i, ts, lut,
+                               draw_rand16(key, t_i.shape[0], prob_bits),
+                               burst0, t_ref, t_shift, c_shift, cost_us,
+                               bucket_cap_us)

@@ -1,8 +1,10 @@
 """The port's data plane and Model-Engine plumbing are bit-identical to
-the reference: hash_five_tuple, process_batch_fast (whole state dict,
-leaf by leaf, on batches whose slots repeat heavily), the control-plane
-update, the Vector-I/O ring ops, the delay line, and the numpy-only
-checkpoint reader."""
+the reference: hash_five_tuple, process_batch_fast and the exact scan
+process_batch (whole state dict, leaf by leaf, on batches whose slots
+repeat heavily), the per-packet stages (flow tracker, rate limiter,
+buffer manager), the switch decision tree, the control-plane update,
+the Vector-I/O ring ops (device and host), the delay line, and the
+numpy-only checkpoint reader."""
 
 import dataclasses
 
@@ -16,6 +18,8 @@ import numpy as np  # noqa: E402
 
 from _torch_parity import assert_same, to_numpy  # noqa: E402
 from repro.configs.fenix_models import fenix_cnn_tiny  # noqa: E402
+from repro.core.data_engine import buffer_manager as jbm  # noqa: E402
+from repro.core.data_engine import decision_tree as jdt  # noqa: E402
 from repro.core.data_engine import engine as jde  # noqa: E402
 from repro.core.data_engine import flow_tracker as jft  # noqa: E402
 from repro.core.data_engine import rate_limiter as jrl  # noqa: E402
@@ -27,6 +31,9 @@ from repro.data.synthetic_traffic import (make_flows,  # noqa: E402
                                           windows_from_flows)
 from repro.models import traffic as jtraffic  # noqa: E402
 from repro.quant.quantize import quantize_traffic  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
+from repro_torch.core.data_engine import buffer_manager as bm  # noqa: E402
+from repro_torch.core.data_engine import decision_tree as dt  # noqa: E402
 from repro_torch.core.data_engine import engine as de  # noqa: E402
 from repro_torch.core.data_engine import flow_tracker as ft  # noqa: E402
 from repro_torch.core.data_engine import rate_limiter as rl  # noqa: E402
@@ -34,6 +41,7 @@ from repro_torch.core.data_engine import state as tstate  # noqa: E402
 from repro_torch.core.model_engine import delay_line as dl  # noqa: E402
 from repro_torch.core.model_engine import serving  # noqa: E402
 from repro_torch.core.model_engine import vector_io as vio  # noqa: E402
+from repro_torch.data import synthetic_traffic as t_traffic  # noqa: E402
 
 FIVE = ("src_ip", "dst_ip", "src_port", "dst_port", "proto")
 
@@ -224,3 +232,204 @@ def test_load_quantized_reads_reference_checkpoint(tmp_path):
         serving.load_quantized(tmp_path / "missing")
     with pytest.raises(NotImplementedError, match="training"):
         serving.build_model("int8_cnn", device="cpu")
+
+
+def _packet(pk, i, conv):
+    return {k: conv(np.asarray(v[i])) for k, v in pk.items()}
+
+
+def _scalar(x):
+    return _t(np.asarray(x))
+
+
+@pytest.mark.parametrize("fpga_hz,queue_len", [(75e6, 64), (2e4, 2)])
+def test_per_packet_stages_match_jax(fpga_hz, queue_len):
+    """lookup, on_packet, extract_feature, rl.step, assemble and push —
+    each stage's outputs and the whole state after it — packet by
+    packet, with control-plane rollovers; the slow engine with a short
+    bucket makes the token bucket deny."""
+    jcfg = jstate.EngineConfig(n_slots_log2=5, fpga_hz=fpga_hz,
+                               queue_len=queue_len)
+    tcfg = tstate.EngineConfig(n_slots_log2=5, fpga_hz=fpga_hz,
+                               queue_len=queue_len)
+    js = jstate.init_state(jcfg, n_est=20, q_est_pps=5e4)
+    ts_ = tstate.init_state(tcfg, n_est=20, q_est_pps=5e4, device="cpu")
+    rng = np.random.default_rng(int(fpga_hz) % 1000)
+    granted = 0
+    for b, pk in enumerate(_batches(rng, 12, 40, 3, gap=40)):
+        for i in range(40):
+            jp, tp = _packet(pk, i, jnp.asarray), _packet(pk, i, _scalar)
+            where = f"batch {b} packet {i}"
+            jl = jft.lookup(js, jcfg, jp)
+            tl = ft.lookup(ts_, tcfg, tp)
+            assert_same(list(jl), list(tl), f"lookup {where}")
+            ts32 = jp["ts_us"].astype(jnp.int32)
+            js = jft.on_packet(js, jcfg, *jl, ts32)
+            ts_ = ft.on_packet(ts_, tcfg, *tl, tp["ts_us"])
+            assert_same(js, ts_, f"on_packet {where}")
+            jf = jbm.extract_feature(js, jcfg, jl[0], jp, jl[2])
+            tf = bm.extract_feature(ts_, tcfg, tl[0], tp, tl[2])
+            assert_same(jf, tf, f"feature {where}")
+            js, jg = jrl.step(js, jcfg, jl[0], ts32)
+            ts_, tg = rl.step(ts_, tcfg, tl[0], tp["ts_us"])
+            assert_same(jg, tg, f"granted {where}")
+            assert_same(js, ts_, f"rl.step {where}")
+            assert_same(jbm.assemble(js, jcfg, jl[0], jf),
+                        bm.assemble(ts_, tcfg, tl[0], tf),
+                        f"assemble {where}")
+            js = jbm.push(js, jcfg, jl[0], jf, ts32)
+            ts_ = bm.push(ts_, tcfg, tl[0], tf, tp["ts_us"])
+            assert_same(js, ts_, f"push {where}")
+            granted += int(jg)
+        js = jrl.control_plane_update(js, jcfg)
+        ts_ = rl.control_plane_update(ts_, tcfg)
+    assert 0 < granted
+    assert int(js["collisions"]) > 0
+    if fpga_hz < 1e6:
+        assert int(js["denied_tokens"]) > 0
+
+
+def test_scalar_draw_is_lane_zero_of_a_batch_draw():
+    """rl.step draws randint(sub, ()) in the reference and lane 0 of
+    randint(sub, (n,)) in the port: the same value for any key."""
+    import jax
+
+    rng = np.random.default_rng(11)
+    for seed in [0, 7] + list(rng.integers(0, 2**31, 6)):
+        key = jax.random.PRNGKey(int(seed))
+        for sub in jax.random.split(key, 3):
+            ref = int(jax.random.randint(sub, (), 0, 1 << 16, jnp.int32))
+            lane0 = int(jax.random.randint(sub, (5,), 0, 1 << 16,
+                                           jnp.int32)[0])
+            port = int(prng.randint(_t(np.asarray(sub)), 1, 0, 1 << 16)[0])
+            assert ref == lane0 == port, (seed, ref, lane0, port)
+    assert int(jax.random.randint(jax.random.PRNGKey(7), (), 0, 1 << 16,
+                                  jnp.int32)) == 36639
+
+
+@pytest.mark.parametrize("with_tree", [False, True])
+def test_process_batch_matches_jax(with_tree):
+    """The exact scan: whole state + every output, batch after batch."""
+    jcfg = jstate.EngineConfig(n_slots_log2=5, fpga_hz=5e5)
+    tcfg = tstate.EngineConfig(n_slots_log2=5, fpga_hz=5e5)
+    js = jstate.init_state(jcfg, n_est=20, q_est_pps=5e4)
+    ts_ = tstate.init_state(tcfg, n_est=20, q_est_pps=5e4, device="cpu")
+    rng = np.random.default_rng(3 + with_tree)
+    jtree = ttree = None
+    if with_tree:
+        x = rng.integers(0, 1500, (400, 2)).astype(np.int32)
+        y = (x[:, 0] // 300 + (x[:, 1] > 700)).astype(np.int32)
+        fit = jdt.fit_tree(x, y, depth=3, num_classes=7)
+        jtree, ttree = jdt.tree_arrays(fit), dt.tree_arrays(fit, "cpu")
+    for i, pk in enumerate(_batches(rng, 10, 48, 4, gap=20)):
+        js, jout = jde.process_batch(
+            js, {k: jnp.asarray(v) for k, v in pk.items()}, jcfg,
+            tree=jtree, tree_depth=3)
+        ts_, tout = de.process_batch(ts_, {k: _t(v) for k, v in pk.items()},
+                                     tcfg, tree=ttree, tree_depth=3)
+        assert_same(jout, tout, f"out {i}")
+        assert_same(js, ts_, f"state {i}")
+        assert tout["slot"].dtype == torch.int32
+        assert tout["verdict"].dtype == torch.int32
+        if i % 2 == 1:
+            js = jrl.control_plane_update(js, jcfg)
+            ts_ = rl.control_plane_update(ts_, tcfg)
+    if with_tree:
+        assert int((np.asarray(jout["verdict"]) >= 0).sum()) > 0
+
+
+def test_fit_tree_and_predict_match_jax():
+    """fit_tree (the port's copy) fits the reference's tree from the
+    same windows, and predict walks it to the same classes, at depths
+    3 and 4 and on batched and scalar features."""
+    flows = make_flows("iscx", 30, seed=4)
+    x, y, _ = windows_from_flows(flows)
+    tx, ty, tf = t_traffic.windows_from_flows(
+        t_traffic.make_flows("iscx", 30, seed=4))
+    assert np.array_equal(tx, x) and np.array_equal(ty, y)
+    feats = x[:, -1, :]
+    for depth in (3, 4):
+        ref = jdt.fit_tree(feats, y, depth=depth, num_classes=7)
+        port = dt.fit_tree(feats, y, depth=depth, num_classes=7)
+        for k in ("feature", "threshold", "leaf_class"):
+            assert np.array_equal(getattr(ref, k), getattr(port, k)), k
+        assert port.depth == ref.depth == depth
+        probe = np.concatenate([feats, x[:, 0, :], [[0, 0], [1 << 20,
+                                                             1 << 20]]])
+        jp = jdt.predict(jdt.tree_arrays(ref), jnp.asarray(probe), depth)
+        tp = dt.predict(dt.tree_arrays(ref, "cpu"), _t(probe), depth)
+        assert tp.dtype == torch.int32
+        assert_same(jp, tp, f"depth {depth}")
+        assert len(np.unique(np.asarray(jp))) > 1
+
+
+def test_vector_io_host_pair_matches_jax():
+    """enqueue_batch / dequeue_batch: FIFO order, wraparound and overflow
+    drops, against the reference's host pair."""
+    jcfg, tcfg = jvio.IOConfig(queue_len=16), vio.IOConfig(queue_len=16)
+    jq, tq = jvio.init_queues(jcfg), vio.init_queues(tcfg, device="cpu")
+    rng = np.random.default_rng(4)
+    for step in range(30):
+        v = _ring_values(rng, int(rng.integers(0, 14)))
+        jq = jvio.enqueue_batch(jq, jcfg, v["slots"], v["hashes"],
+                                v["feats"])
+        tq = vio.enqueue_batch(tq, tcfg, v["slots"], v["hashes"].astype(
+            np.int64), v["feats"])
+        assert_same(jq, tq, f"enqueue {step}")
+        assert tq["id_q_hash"].dtype == torch.int64
+        assert tq["head"].dtype == torch.int32 and tq["head"].shape == ()
+        n = int(rng.integers(0, 12))
+        jres = jvio.dequeue_batch(jq, jcfg, n)
+        tres = vio.dequeue_batch(tq, tcfg, n)
+        assert_same(list(jres), list(tres), f"dequeue {step}")
+        jq, tq = jres[0], tres[0]
+    assert int(jq["dropped"]) > 0
+
+
+def test_delay_line_to_list_matches_jax():
+    """to_list drains in ring order, across the ring's wraparound."""
+    cap = 10
+    rng = np.random.default_rng(6)
+    jline, tline = jdl.init(cap), dl.init(cap, device="cpu")
+    js = jstate.init_state(jstate.EngineConfig(n_slots_log2=4))
+    ts_ = _port_state(js)
+    for step in range(12):
+        n = 6
+        slots = rng.integers(0, 16, n).astype(np.int32)
+        hashes = rng.integers(1, 2**32, n, dtype=np.int64).astype(np.uint32)
+        cls = rng.integers(0, 7, n).astype(np.int32)
+        count, due = np.int32(rng.integers(0, n + 1)), np.int32(step)
+        jline = jdl.push(jline, jnp.asarray(due), jnp.asarray(slots),
+                         jnp.asarray(hashes), jnp.asarray(cls),
+                         jnp.asarray(count))
+        tline = dl.push(tline, _t(due), _t(slots), _t(hashes), _t(cls),
+                        _t(count))
+        assert dl.to_list(tline) == jdl.to_list(jline), step
+        js, jline = jdl.deliver(js, jline, jnp.asarray(step - 2, jnp.int32),
+                                16)
+        ts_, tline = dl.deliver(ts_, tline, _t(np.int32(step - 2)), 16)
+    assert len(jdl.to_list(jline)) > 0
+
+
+def test_write_results_is_apply_inference_result_in_order():
+    """The host driver's batched write-back equals the reference's
+    apply_inference_result run over the due results in list order."""
+    cfg = jstate.EngineConfig(n_slots_log2=4)
+    js = jstate.init_state(cfg)
+    rng = np.random.default_rng(9)
+    js["hash"] = jnp.asarray(rng.integers(1, 2**32, 16, dtype=np.int64
+                                          ).astype(np.uint32))
+    ts_ = _port_state(js)
+    for step in range(8):
+        n = int(rng.integers(1, 30))
+        slots = rng.integers(0, 16, n)
+        own = np.asarray(js["hash"])[slots].astype(np.int64)
+        hashes = np.where(rng.random(n) < 0.7, own, own ^ 1)
+        cls = rng.integers(0, 7, n)
+        for s_, h_, c_ in zip(slots, hashes, cls):
+            js = jft.apply_inference_result(
+                js, jnp.asarray(s_, jnp.int32), jnp.asarray(c_, jnp.int32),
+                jnp.asarray(h_, jnp.uint32))
+        ts_ = dl.write_results(ts_, _t(slots), _t(hashes), _t(cls),
+                               torch.ones(n, dtype=torch.bool), 16)
+        assert_same(js["cls"], ts_["cls"], f"step {step}")

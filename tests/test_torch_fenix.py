@@ -180,8 +180,7 @@ def test_gate_backend_cuda_on_cpu_tensors_raises(trace):
 
 
 def test_unported_paths_raise(tiny_int8):
-    for kw in (dict(driver="host"), dict(exact=True),
-               dict(driver="pipes", num_pipes=2),
+    for kw in (dict(driver="pipes", num_pipes=2),
                dict(driver="farm", num_engines=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FenixSystem(FenixConfig(**kw), ByLenModel(), device="cpu")
@@ -190,6 +189,8 @@ def test_unported_paths_raise(tiny_int8):
         sys_.run_trace("capture.pcap")
     with pytest.raises(ValueError, match="unknown gate_backend"):
         FenixConfig(gate_backend="pallas")
+    with pytest.raises(ValueError, match="unknown matmul_backend"):
+        FenixConfig(matmul_backend="cuda_prng")
     with pytest.raises(ValueError, match="EngineModel"):
         FenixSystem(FenixConfig(matmul_backend="ref"), ByLenModel(),
                     device="cpu")

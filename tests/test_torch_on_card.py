@@ -1,6 +1,6 @@
 """The port's hand-written Hopper kernels against their plain PyTorch
-versions, on the card.  Needs an NVIDIA GPU (marker ``gpu``); skips with
-a reason elsewhere.  Imports neither JAX nor ``repro``, so it runs on a
+versions, and the replay through them, on the card.  Needs an NVIDIA
+GPU (marker ``gpu``); skips with a reason elsewhere.  Imports neither JAX nor ``repro``, so it runs on a
 machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest tests/test_torch_on_card.py -q
@@ -21,8 +21,13 @@ from repro_torch.data.synthetic_traffic import (  # noqa: E402
     make_flows, packet_stream)
 from repro_torch.kernels.int8_matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.int8_matmul.kernel import int8_gemm  # noqa: E402
-from repro_torch.kernels.rate_gate.kernel import fused_gate  # noqa: E402
-from repro_torch.kernels.rate_gate.ops import fused_admission  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
+from repro_torch.kernels.rate_gate import ref as gate_ref  # noqa: E402
+from repro_torch.kernels.rate_gate.kernel import (  # noqa: E402
+    fused_gate, fused_gate_prng, rate_gate as rate_gate_kernel,
+    rate_gate_prng)
+from repro_torch.kernels.rate_gate.ops import (  # noqa: E402
+    fused_admission, rate_gate)
 
 pytestmark = pytest.mark.gpu
 
@@ -55,6 +60,55 @@ def test_fused_gate_kernel_matches_plain(n, cuda_device):
         torch.cuda.synchronize()
         assert_same(res["ref"], res["cuda"], f"n={n}")
     assert fused_gate.launches == before + 4
+
+
+def _key(rng, dev):
+    return torch.from_numpy(rng.integers(0, 2**32, 2, dtype=np.int64)
+                            ).to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 255, 1000, 4096, 8192])
+def test_fused_gate_prng_kernel_matches_plain(n, cuda_device):
+    """The drawing kernel against fused_admission_ref on the draws of
+    the same key."""
+    rng = np.random.default_rng(100 + n)
+    before = fused_gate_prng.launches
+    for _ in range(4):
+        c = _gate_case(rng, n, cuda_device)
+        key = _key(rng, cuda_device)
+        res = {}
+        for backend in ("ref", "cuda", "cuda_prng"):
+            res[backend] = fused_admission(
+                c["t_i"], c["c_i"], c["ts"], c["lut"], c["bucket"],
+                c["t_last"], key=key, cost_us=3, bucket_cap_us=150,
+                backend=backend)
+        torch.cuda.synchronize()
+        assert_same(res["ref"], res["cuda_prng"], f"n={n}")
+        assert_same(res["ref"], res["cuda"], f"n={n}")
+    assert fused_gate_prng.launches == before + 4
+
+
+@pytest.mark.parametrize("n", [1, 255, 1000, 4096, 100_000])
+def test_rate_gate_kernels_match_plain(n, cuda_device):
+    """Both selection-only kernels against their plain versions."""
+    rng = np.random.default_rng(200 + n)
+    before = (rate_gate_kernel.launches, rate_gate_prng.launches)
+    for trial in range(3):
+        c = _gate_case(rng, n, cuda_device)
+        plain = rate_gate(c["t_i"], c["c_i"], c["lut"], rand16=c["rand16"],
+                          backend="ref")
+        got = rate_gate(c["t_i"], c["c_i"], c["lut"], rand16=c["rand16"])
+        seed = int(rng.integers(0, 2**31))
+        plain_d = gate_ref.rate_gate_prng_ref(
+            c["t_i"], c["c_i"], c["lut"], prng.PRNGKey(seed, cuda_device),
+            10, 0, 16)
+        got_d = rate_gate(c["t_i"], c["c_i"], c["lut"], seed=seed,
+                          backend="cuda_prng")
+        torch.cuda.synchronize()
+        assert_same(plain, got, f"n={n}")
+        assert_same(plain_d, got_d, f"n={n} seed={seed}")
+    assert (rate_gate_kernel.launches, rate_gate_prng.launches) == (
+        before[0] + 3, before[1] + 3)
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (5, 33, 7), (130, 70, 129),
@@ -121,3 +175,23 @@ def test_replay_with_kernels_matches_plain_and_cpu(cuda_device):
         assert np.array_equal(runs[name][0], runs["cpu"][0]), name
         assert runs[name][1] == runs["cpu"][1], name
     assert runs["cpu"][1]["inferences"] > 0
+
+
+def test_cuda_prng_replay_matches_cuda_replay(cuda_device):
+    """The slice with the drawing gate kernel gives the verdicts and
+    stats of the rand-input kernel, one launch a chunk."""
+    stream = packet_stream(make_flows("iscx", 40, seed=7), limit=1800)
+    runs = {}
+    for backend in ("cuda", "cuda_prng"):
+        before = (fused_gate.launches, fused_gate_prng.launches)
+        sys_ = FenixSystem(FenixConfig(batch_size=256,
+                                       control_plane_every=3,
+                                       gate_backend=backend),
+                           _tiny_model(), device=cuda_device)
+        runs[backend] = (sys_.run_trace(dict(stream))["verdict"],
+                         sys_.stats)
+        launched = (fused_gate.launches - before[0],
+                    fused_gate_prng.launches - before[1])
+        assert launched == ((8, 0) if backend == "cuda" else (0, 8))
+    assert np.array_equal(runs["cuda"][0], runs["cuda_prng"][0])
+    assert runs["cuda"][1] == runs["cuda_prng"][1]

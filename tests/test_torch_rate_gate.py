@@ -1,12 +1,15 @@
-"""The port's fused admission gate and LUT rebuild are bit-identical to
-the reference: fused_admission against JAX's "ref" and interpreted
-"pallas" backends, build_lut_torch against build_lut_jnp, and (on a card)
-the Hopper kernel against its plain version."""
+"""The port's Rate-Limiter gates and LUT rebuild are bit-identical to the
+reference: fused_admission (on given draws and on the draws of a
+threefry key) against JAX's "ref" and interpreted "pallas" backends,
+the selection-only rate_gate (given draws, and seeded draws) against
+JAX's interpreted "pallas" backend, and build_lut_torch against
+build_lut_jnp.  The kernel backends refuse CPU tensors."""
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -14,11 +17,15 @@ from _torch_parity import assert_same  # noqa: E402
 from repro.core.probability import LUTConfig as JLUTConfig  # noqa: E402
 from repro.core.probability import build_lut_jnp  # noqa: E402
 from repro.kernels.rate_gate.ops import (  # noqa: E402
-    fused_admission as j_fused_admission)
+    fused_admission as j_fused_admission, rate_gate as j_rate_gate)
 from repro_torch.core.probability import (LUTConfig,  # noqa: E402
                                           build_lut_torch)
-from repro_torch.kernels.rate_gate.kernel import fused_gate  # noqa: E402
-from repro_torch.kernels.rate_gate.ops import fused_admission  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
+from repro_torch.kernels.rate_gate import ref as gate_ref  # noqa: E402
+from repro_torch.kernels.rate_gate.kernel import (  # noqa: E402
+    fused_gate, fused_gate_prng, rate_gate_prng)
+from repro_torch.kernels.rate_gate.ops import (  # noqa: E402
+    GATE_BACKENDS, fused_admission, rate_gate, validate_backend)
 
 COST, CAP = 5, 320
 
@@ -78,6 +85,108 @@ def test_fused_admission_cuda_backend_rejects_cpu_tensors():
         fused_gate(t["t_i"], t["c_i"], t["ts"], t["rand16"], t["lut"],
                    torch.zeros(2, dtype=torch.int32), t_shift=10,
                    c_shift=0, cost_us=COST, bucket_cap_us=CAP)
+
+
+RAGGED = [1, 7, 255, 256, 257, 1000]
+
+
+def _tensors(c):
+    return {k: torch.as_tensor(np.asarray(v)) for k, v in c.items()}
+
+
+@pytest.mark.parametrize("n", RAGGED)
+def test_rate_gate_matches_jax(n):
+    """Selection on given draws: the port's rate_gate (plain version)
+    against JAX's rate_gate(..., backend="pallas"), which pads to 256
+    lanes and runs the interpreted kernel."""
+    rng = np.random.default_rng(300 + n)
+    for trial in range(4):
+        c = _case(rng, n, False)
+        shifts = dict(t_shift=(10, 8)[trial % 2], c_shift=trial % 3)
+        ref = j_rate_gate(jnp.asarray(c["t_i"]), jnp.asarray(c["c_i"]),
+                          jnp.asarray(c["lut"]),
+                          rand16=jnp.asarray(c["rand16"]), backend="pallas",
+                          **shifts)
+        t = _tensors(c)
+        port = rate_gate(t["t_i"], t["c_i"], t["lut"], rand16=t["rand16"],
+                         **shifts)
+        assert port.dtype == torch.bool and port.shape == (n,)
+        assert_same(ref, port, f"n={n} trial={trial}")
+
+
+@pytest.mark.parametrize("n", RAGGED)
+def test_seeded_rate_gate_matches_jax(n):
+    """Seeded draws: the plain version of the drawing kernel against
+    JAX's rate_gate(seed=s, rand16=None, backend="pallas"), which draws
+    randint(PRNGKey(s), padded n) — the same lanes, whatever the pad."""
+    rng = np.random.default_rng(400 + n)
+    for seed in (0, 1, int(rng.integers(2, 2**31))):
+        c = _case(rng, n, False)
+        ref = j_rate_gate(jnp.asarray(c["t_i"]), jnp.asarray(c["c_i"]),
+                          jnp.asarray(c["lut"]), seed=jnp.asarray(seed),
+                          backend="pallas")
+        t = _tensors(c)
+        plain = gate_ref.rate_gate_prng_ref(t["t_i"], t["c_i"], t["lut"],
+                                            prng.PRNGKey(seed), 10, 0, 16)
+        via_op = rate_gate(t["t_i"], t["c_i"], t["lut"], seed=seed)
+        assert_same(ref, plain, f"n={n} seed={seed}")
+        assert_same(ref, via_op, f"n={n} seed={seed}")
+
+
+@pytest.mark.parametrize("n", RAGGED)
+def test_keyed_fused_admission_matches_jax(n):
+    """The plain version of the drawing fused kernel: fused admission on
+    the draws of a chunk's subkey, against JAX's fused_admission fed
+    rand16=jax.random.randint(sub, (n,), 0, 2^16)."""
+    rng = np.random.default_rng(500 + n)
+    for trial in range(4):
+        c = _case(rng, n, t_last_zero=trial % 3 == 0)
+        key = jax.random.split(jax.random.PRNGKey(int(rng.integers(
+            0, 2**31))))[1]
+        rand = jax.random.randint(key, (n,), 0, 1 << 16, jnp.int32)
+        jc = dict(c, rand16=np.asarray(rand))
+        g_ref, b_ref = _jax(jc, "pallas")
+        t = _tensors(c)
+        tkey = torch.as_tensor(np.asarray(key).astype(np.int64))
+        t_ref = torch.where(t["t_last"] == 0, t["ts"][0], t["t_last"])
+        burst0 = torch.clamp_max(t["bucket"], CAP)
+        plain = gate_ref.fused_admission_prng_ref(
+            t["t_i"], t["c_i"], t["ts"], t["lut"], tkey, burst0, t_ref, 10,
+            0, COST, CAP, 16)
+        via_op = fused_admission(t["t_i"], t["c_i"], t["ts"], t["lut"],
+                                 t["bucket"], t["t_last"], key=tkey,
+                                 cost_us=COST, bucket_cap_us=CAP)
+        for got in (plain, via_op):
+            assert_same(g_ref, got[0], f"granted n={n} trial={trial}")
+            assert_same(b_ref, got[1], f"bucket n={n} trial={trial}")
+
+
+def test_cuda_prng_backend_rejects_cpu_tensors():
+    c = _case(np.random.default_rng(1), 8, False)
+    t = _tensors(c)
+    key = prng.PRNGKey(3)
+    assert GATE_BACKENDS == ("cuda", "cuda_prng", "ref")
+    assert validate_backend("cuda_prng") == "cuda_prng"
+    with pytest.raises(ValueError, match="unknown gate_backend"):
+        validate_backend("pallas_tpu")
+    for backend in ("cuda", "cuda_prng"):
+        with pytest.raises(ValueError, match="CUDA"):
+            fused_admission(t["t_i"], t["c_i"], t["ts"], t["lut"],
+                            t["bucket"], t["t_last"], key=key, cost_us=COST,
+                            bucket_cap_us=CAP, backend=backend)
+        with pytest.raises(ValueError, match="CUDA"):
+            rate_gate(t["t_i"], t["c_i"], t["lut"], seed=3, backend=backend)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_gate_prng(t["t_i"], t["c_i"], t["ts"], key, t["lut"],
+                        torch.zeros(2, dtype=torch.int32), t_shift=10,
+                        c_shift=0, prob_bits=16, cost_us=COST,
+                        bucket_cap_us=CAP)
+    with pytest.raises(ValueError, match="CUDA"):
+        rate_gate_prng(t["t_i"], t["c_i"], key, t["lut"], t_shift=10,
+                       c_shift=0, prob_bits=16)
+    with pytest.raises(ValueError, match="one of rand16= and key="):
+        fused_admission(t["t_i"], t["c_i"], t["ts"], t["lut"], t["bucket"],
+                        t["t_last"], cost_us=COST, bucket_cap_us=CAP)
 
 
 def test_build_lut_torch_matches_jax():
