@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py [--seed S] [--packets N] [--model-dir DIR]
+                          [--prompt-len S] [--new-tokens N]
 
 Phases, in order; any failure exits non-zero and no phase catches one:
 
@@ -37,7 +38,30 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    and on the CPU, as must the device driver over a prefix.  Two more
    replays (one per gate kernel) run under torch.profiler: the device's
    busy time and idle share, launches per chunk, the top kernels.
-5. The ``kernels`` JSON line, then the last line:
+5. GQA decode attention (``decode_attention``) against its plain version
+   in float32 and bfloat16, head dims 16-256, groups 1, 4, 5, 8, ragged
+   lengths with 1, S and an empty row (which must give 0), at the
+   full-width Llama decode shape and at a long-context shape (B=32,
+   S=32768); tolerances, element by element, 1e-5 in float32 (the
+   reference's own) and one ulp of the plain output plus 1e-5 in
+   bfloat16, which a planted fault (every row one tile short) must
+   break.  Timed beside its plain version and
+   ``scaled_dot_product_attention`` (the library yardstick, never on the
+   path), each against its bytes bound.
+6. LM serving: ``ServingEngine.generate`` on the full-width
+   ``llama3.2-1b`` (16 layers, d_model 2048, 32/8 heads, vocab 128256)
+   with random bfloat16 weights from ``--seed``, batch 8, a
+   ``--prompt-len`` prompt and ``--new-tokens`` tokens, decode attention
+   on the kernel and the decode loop under sync-debug "error"; the
+   kernel's launches must equal layers x decode steps.  The same inputs
+   with ``attn_backend="ref"``, then the kernel's decode teacher-forced
+   on the "ref" tokens: float32 logits (a float32 copy of the model) must
+   agree within 1e-3 of their largest magnitude; bfloat16 differences and
+   greedy agreement are printed.  Then an int8-weight generate, gated
+   ``serve_requests`` through ``ServeGate``, the reduced model on the card
+   against the CPU, and the decode loop under torch.profiler (busy time,
+   idle share, launches per step).
+7. The ``kernels`` JSON line, then the last line:
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Launch counts are set to 0 just before each path is driven and read
@@ -67,6 +91,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 SCALAR_OPS_PER_S = 67e12          # non-tensor-core 32-bit rate
+BF16_OPS_PER_S = 989e12           # tensor-core bfloat16, dense
 SELECT_OPS_PER_LANE = 9           # shifts, clamps, LUT index, compare
 GATE_OPS_PER_LANE = 12            # the selection, plus scan and credit
 # one threefry2x32 draw: 20 rounds of (add, two shifts, or, xor), five
@@ -84,6 +109,8 @@ def parse_args():
     ap.add_argument("--model-dir", default=None,
                     help="serve a reference save_quantized checkpoint "
                          "instead of seeded random weights")
+    ap.add_argument("--prompt-len", type=int, default=4096)
+    ap.add_argument("--new-tokens", type=int, default=32)
     return ap.parse_args()
 
 
@@ -550,22 +577,30 @@ def replay(model, stream, device, batch, cpe, tree=None, **cfg_kw):
 
 
 def _counts():
+    from repro_torch.kernels.decode_attention.kernel import decode_attention
     from repro_torch.kernels.int8_matmul.kernel import int8_gemm
     from repro_torch.kernels.rate_gate.kernel import (fused_gate,
                                                       fused_gate_prng)
 
     return {"fused_gate": fused_gate, "fused_gate_prng": fused_gate_prng,
-            "int8_gemm": int8_gemm}
+            "int8_gemm": int8_gemm, "decode_attention": decode_attention}
+
+
+def zero_counts():
+    for k in _counts().values():
+        k.launches = 0
+
+
+def read_counts():
+    return {name: k.launches for name, k in _counts().items()}
 
 
 def counted_replay(*args, **kw):
     """A replay with every kernel count set to 0 just before it; returns
     (verdicts, system, seconds, launches in this replay)."""
-    counts = _counts()
-    for k in counts.values():
-        k.launches = 0
+    zero_counts()
     v, sys_, sec = replay(*args, **kw)
-    return v, sys_, sec, {name: k.launches for name, k in counts.items()}
+    return v, sys_, sec, read_counts()
 
 
 def same_run(a, b, what):
@@ -611,15 +646,16 @@ def phase_slice(args):
         replay(model, warm, "cuda", batch, cpe, gate_backend=gate)
     v_k, sys_k, sec_k, launches = counted_replay(*base)
     require(launches == {"fused_gate": chunks, "fused_gate_prng": 0,
-                         "int8_gemm": 6 * chunks},
+                         "int8_gemm": 6 * chunks, "decode_attention": 0},
             f"launches {launches} for {chunks} chunks (gate \"cuda\")")
     v_p, sys_p, sec_p, launches_p = counted_replay(*base,
                                                    gate_backend="cuda_prng")
     require(launches_p == {"fused_gate": 0, "fused_gate_prng": chunks,
-                           "int8_gemm": 6 * chunks},
+                           "int8_gemm": 6 * chunks, "decode_attention": 0},
             f"launches {launches_p} for {chunks} chunks (gate "
             "\"cuda_prng\")")
     launches["fused_gate_prng"] = launches_p["fused_gate_prng"]
+    del launches["decode_attention"]
     plain = dict(gate_backend="ref", matmul_backend="ref")
     v_r, sys_r, sec_r, launches_r = counted_replay(*base, **plain)
     require(not any(launches_r.values()),
@@ -740,6 +776,413 @@ def profile_replay(model, stream, batch, cpe, chunks, gate):
               f"{a.self_cpu_time_total / 1e3:9.3f} ms  {a.key[:60]}")
 
 
+# -- phase 5 ----------------------------------------------------------------
+
+# Tolerance of the kernel against its plain version, element by element:
+# 1e-5 in float32 (the reference's own bound); in bfloat16 one ulp of the
+# plain output (2^-7 |plain|: both round a float32 result that agrees to
+# ~1e-6 to bfloat16, so they differ by at most one step) plus 1e-5.  A
+# planted fault (the kernel fed lengths one 128-row tile short) must break it.
+ATTN_ULPS = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+ATTN_ATOL = 1e-5
+
+
+def _attn_inputs(rng, b, hkv, g, d, s, dtype, lens):
+    """q [b, hkv*g, d], k, v [b, s, hkv, d] standard normal, drawn on the
+    card from a generator seeded by ``rng``; lengths [b] int32."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(0, 2**63)))
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return (rnd(b, hkv * g, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d),
+            torch.from_numpy(np.asarray(lens, np.int32)).cuda())
+
+
+def _attn_err(q, k, v, lens, kernel_lens=None):
+    """(max |kernel - plain|, max of |kernel - plain| over its per-element
+    tolerance) over rows with keys; an empty row must be 0.  The kernel
+    reads ``kernel_lens`` (default ``lens``: a shorter one plants a fault)."""
+    from repro_torch.kernels.decode_attention import ops
+
+    got = ops.decode_attention(q, k, v, lens if kernel_lens is None
+                               else kernel_lens, backend="cuda")
+    want = ops.decode_attention(q, k, v, lens, backend="ref")
+    torch.cuda.synchronize()
+    keys = lens > 0
+    require(bool(torch.all(got[~keys] == 0)), "empty row gave non-zero")
+    require(bool(torch.isfinite(got).all()), "non-finite kernel output")
+    if not bool(keys.any()):
+        return 0.0, 0.0
+    want = want[keys].float()
+    diff = (got[keys].float() - want).abs()
+    tol = ATTN_ULPS[v.dtype] * want.abs() + ATTN_ATOL
+    return float(diff.max()), float((diff / tol).max())
+
+
+def _attn_bound(q, k, lens):
+    """Bytes: the valid K/V rows, q and out, each once; operations: the
+    two products (4 * len * Hq * D) at the bfloat16 tensor rate."""
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    rows = int(lens.clamp_min(0).sum())
+    byts = 2 * rows * hkv * d * k.element_size() + 2 * q.numel() \
+        * q.element_size()
+    t_b = byts / HBM_BYTES_PER_S
+    t_o = 4.0 * rows * hq * d / (BF16_OPS_PER_S if k.dtype == torch.bfloat16
+                                 else SCALAR_OPS_PER_S)
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations", byts
+
+
+def _sdpa(q, k, v, lens):
+    """The library yardstick: one scaled_dot_product_attention call with
+    a length mask over the cache's own layout (transposed views)."""
+    import torch.nn.functional as F
+
+    mask = torch.arange(k.shape[1], device=k.device)[None, None, None, :] \
+        < lens[:, None, None, None]
+    return lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        enable_gqa=True)
+
+
+def cold_ms(calls, reps=3):
+    """Device ms per call of a CUDA graph that runs ``calls`` in turn
+    (each on its own inputs, so a cache larger than the 50 MB L2 is read
+    from HBM as in a decode step over many layers)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(calls))
+
+
+def phase_attention(rng, decode_s):
+    """Decode attention against its plain version at every listed shape;
+    returns the kernels-line row at the Llama decode shape (cache length
+    ``decode_s``)."""
+    from repro_torch.kernels.decode_attention.kernel import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}   # max |diff|
+    ratio = {torch.float32: 0.0, torch.bfloat16: 0.0}   # over tolerance
+
+    def check(dtype, x):
+        err, r = _attn_err(*x)
+        worst[dtype] = max(worst[dtype], err)
+        ratio[dtype] = max(ratio[dtype], r)
+        return err
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (16, 32, 64, 128, 256):
+            for g in (1, 4, 5, 8):
+                s = int(rng.integers(129, 700))
+                lens = [s, 1, 0] + list(rng.integers(1, s + 1, 2))
+                x = _attn_inputs(rng, 5, 2, g, d, s, dtype, lens)
+                err = check(dtype, x)
+                bound, by, _ = _attn_bound(x[0], x[1], x[3])
+                print(f"decode_attention {str(dtype)[6:]} B=5 S={s} Hkv=2 "
+                      f"G={g} D={d}: max|diff| {err:.3g}; kernel "
+                      f"{device_ms(lambda: decode_attention(*x)):.5f} ms, "
+                      f"plain {device_ms(lambda: decode_attention_ref(*x)):.5f}"
+                      f" ms, sdpa {device_ms(_sdpa(*x)):.5f} ms (device "
+                      f"time, graph replay); bound {bound:.7f} ms ({by})")
+        print(f"decode_attention {str(dtype)[6:]}: D in 16..256 x G in "
+              f"(1, 4, 5, 8), ragged S, lengths with 1, S, 0: max|diff| "
+              f"{worst[dtype]:.3g}, at most {ratio[dtype]:.3g} of the "
+              f"per-element tolerance ({ATTN_ULPS[dtype]:.3g} |plain| + "
+              f"{ATTN_ATOL})")
+    # the Llama decode shape and the long-context shape, bfloat16, each
+    # also with a planted fault: the kernel reads every row one 128-row
+    # tile short, which the tolerance must catch
+    b, hkv, g, d = 8, 8, 4, 64
+    lens = [decode_s] + list(rng.integers(1, decode_s + 1, b - 2)) + [0]
+    llama_in = _attn_inputs(rng, b, hkv, g, d, decode_s, torch.bfloat16,
+                            lens)
+    long_s = 32768
+    long_in = _attn_inputs(rng, 32, hkv, g, d, long_s, torch.bfloat16,
+                           rng.integers(long_s // 2, long_s + 1, 32))
+    for name, x in (("Llama decode shape", llama_in),
+                    (f"B=32 S={long_s}", long_in)):
+        err = check(torch.bfloat16, x)
+        lens_x = x[3]
+        short = torch.where(lens_x > 128, lens_x - 128, lens_x)
+        f_err, f_ratio = _attn_err(*x, kernel_lens=short)
+        print(f"decode_attention bf16 at the {name}: max|diff| {err:.3g}; "
+              f"planted fault (last tile skipped): max|diff| {f_err:.3g}, "
+              f"{f_ratio:.3g} times the per-element tolerance")
+        require(f_ratio > 1.0, f"decode_attention: the bf16 tolerance does "
+                f"not catch a skipped tile at the {name}")
+    print(f"decode_attention bf16, all shapes: max|diff| "
+          f"{worst[torch.bfloat16]:.3g}, at most "
+          f"{ratio[torch.bfloat16]:.3g} of the per-element tolerance")
+    for dtype, r in ratio.items():
+        require(r <= 1.0, f"decode_attention {dtype} max|diff| "
+                f"{worst[dtype]} over its tolerance ({r:.3g} of it)")
+    del llama_in
+
+    # timing at the decode shape: lengths mid-decode, four caches in turn
+    # (4 x 34 MB > L2), as the 16 layers of one step read 16 caches
+    lens = [decode_s - 16] * b
+    sets = [_attn_inputs(rng, b, hkv, g, d, decode_s, torch.bfloat16, lens)
+            for _ in range(4)]
+    ms = cold_ms([lambda x=x: decode_attention(*x) for x in sets])
+    plain_ms = cold_ms([lambda x=x: decode_attention_ref(*x) for x in sets])
+    lib_ms = cold_ms([_sdpa(*x) for x in sets])
+    bound, by, byts = _attn_bound(sets[0][0], sets[0][1], sets[0][3])
+    print(f"decode_attention Llama decode shape B={b} S={decode_s} Hkv={hkv} "
+          f"Hq={hkv * g} D={d} bf16 (lengths {lens[0]}): kernel {ms:.5f} ms, "
+          f"plain {plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms (device time, graph "
+          f"replay over 4 caches); bound {bound:.5f} ms ({by}, "
+          f"{byts / 1e6:.1f} MB); kernel at {byts / ms / 1e6:.1f} GB/s")
+    row = {"max_abs_err": max(worst.values()), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": lib_ms}
+    q, k, v, lens_l = long_in
+    ms_l = host_ms(lambda: decode_attention(q, k, v, lens_l), iters=10)
+    plain_l = host_ms(lambda: decode_attention_ref(q, k, v, lens_l), iters=3,
+                      warmup=1)
+    lib_l = host_ms(_sdpa(q, k, v, lens_l), iters=3, warmup=1)
+    bound_l, by_l, byts_l = _attn_bound(q, k, lens_l)
+    print(f"decode_attention long context B=32 S={long_s} Hkv={hkv} "
+          f"Hq={hkv * g} D={d} bf16 (lengths in [S/2, S]): kernel "
+          f"{ms_l:.5f} ms, plain {plain_l:.5f} ms, sdpa {lib_l:.5f} ms "
+          f"(events around back-to-back calls); bound {bound_l:.5f} ms "
+          f"({by_l}, {byts_l / 1e9:.3f} GB); kernel at "
+          f"{byts_l / ms_l / 1e6:.1f} GB/s")
+    del sets, long_in, q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+# -- phase 6 ----------------------------------------------------------------
+
+def teacher_forced(eng, prompt, forced, backend):
+    """Logits [B, n, V] of a prefill and n - 1 decode steps fed the
+    tokens ``forced`` [B, n] (each step's input is the previous column),
+    decode loop under sync-debug "error"."""
+    from repro_torch._device import no_host_sync
+    from repro_torch.models import api
+
+    b, s = prompt.shape
+    n = forced.shape[1]
+    cache, logits = api.prefill(eng.params, eng.cfg, {"tokens": prompt})
+    cache = api.grow_cache(eng.cfg, cache, b, s, s + n)
+    out = [logits]
+    with no_host_sync(torch.device("cuda")):
+        for i in range(n - 1):
+            cache, logits = api.decode_step(eng.params, eng.cfg, cache,
+                                            forced[:, i],
+                                            attn_backend=backend)
+            out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def compare_backends(eng, prompt, ref_tokens, what):
+    """The kernel's decode teacher-forced on the "ref" tokens, against
+    "ref": (max |diff|, max |diff| / max |logit|, greedy agreement)."""
+    lr = teacher_forced(eng, prompt, ref_tokens, "ref")
+    lc = teacher_forced(eng, prompt, ref_tokens, "cuda")
+    require(bool(torch.isfinite(lc).all()), f"{what}: non-finite logits")
+    diff = float((lc - lr).abs().max())
+    rel = diff / float(lr.abs().max())
+    agree = float((lc.argmax(-1) == lr.argmax(-1)).float().mean())
+    print(f"{what}: teacher-forced logits, kernel vs ref over "
+          f"{lc.shape[1]} calls: max|diff| {diff:.6g} = {rel:.3g} of the "
+          f"largest logit; greedy tokens agree {agree:.4f}")
+    return diff, rel, agree
+
+
+def profile_decode(eng, prompt, steps):
+    """``steps`` decode steps under torch.profiler after a prefill: device
+    busy time, idle share, launches per step, top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import api
+
+    b, s = prompt.shape
+    cache, logits = api.prefill(eng.params, eng.cfg, {"tokens": prompt})
+    cache = api.grow_cache(eng.cfg, cache, b, s, s + steps)
+    tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            cache, logits = api.decode_step(eng.params, eng.cfg, cache, tok)
+            tok = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    avgs = prof.key_averages()
+
+    def dev_us(a):
+        return getattr(a, "self_device_time_total",
+                       getattr(a, "self_cuda_time_total", 0))
+
+    kern = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
+                  key=dev_us, reverse=True)
+    busy = sum(dev_us(a) for a in kern) / 1e6
+    n_launch = sum(a.count for a in avgs
+                   if a.device_type == DeviceType.CPU
+                   and a.key == "cudaLaunchKernel")
+    print(f"profile (decode, {steps} steps): {sec:.4f} s under the profiler, "
+          f"device busy {busy:.4f} s, idle share {1 - busy / sec:.3f}; "
+          f"{n_launch} cudaLaunchKernel = {n_launch / steps:.1f} per step; "
+          f"{sec / steps * 1e3:.3f} ms a step")
+    for a in kern[:10]:
+        print(f"  device {dev_us(a) / 1e3:9.3f} ms  x{a.count:6d}  "
+              f"{a.key[:90]}")
+
+
+def phase_lm(args):
+    """Full-width llama3.2-1b served on the card; returns the decode
+    attention launches of the main path's generate."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.layers import matmul_f32
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = get_config("llama3.2-1b")
+    b, s, n_new = 8, args.prompt_len, args.new_tokens
+    rng = np.random.default_rng(args.seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                              .astype(np.int32)).cuda()
+    t0 = time.perf_counter()
+    params, _ = api.init_params(cfg, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params.values())
+    print(f"model: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+          f"H={cfg.num_heads}/{cfg.num_kv_heads} Dh={cfg.head_dim} "
+          f"ff={cfg.d_ff} V={cfg.vocab_size}, {n_params} bf16 parameters "
+          f"({sum(v.numel() * v.element_size() for v in params.values()) / 1e9:.3f}"
+          f" GB) drawn from seed {args.seed} in {t_init:.1f} s")
+    eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=n_new,
+                                                 attn_backend="cuda"),
+                        device="cuda")
+    # the float32 logits head on the card (a bfloat16 GEMM with float32
+    # output) against float32 operands
+    x = torch.randn(b, cfg.d_model, device="cuda").to(torch.bfloat16)
+    t = params["embed/table"]
+    head_err = float((matmul_f32(x, t.t()) - x.float() @ t.float().t())
+                     .abs().max())
+    print(f"logits head, bf16 GEMM with float32 output vs float32 operands: "
+          f"max|diff| {head_err:.3g}")
+    require(head_err < 1e-4, f"matmul_f32 off by {head_err}")
+
+    # warm-up (cuBLAS, allocator), then the main path with counts at 0
+    eng.generate({"tokens": prompt[:, :64]})
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = eng.generate({"tokens": prompt})
+    launches = read_counts()
+    steps = n_new - 1
+    require(launches == {"fused_gate": 0, "fused_gate_prng": 0,
+                         "int8_gemm": 0,
+                         "decode_attention": cfg.num_layers * steps},
+            f"generate launches {launches}, want decode_attention = "
+            f"{cfg.num_layers} layers x {steps} steps")
+    toks = out["tokens"]
+    require(toks.shape == (b, n_new) and toks.dtype == torch.int32,
+            f"tokens {tuple(toks.shape)} {toks.dtype}")
+    require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            "token outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"generate (attn cuda): batch {b}, prompt {s}, {n_new} new tokens: "
+          f"prefill {out['prefill_s']:.4f} s, decode {out['decode_s']:.4f} s "
+          f"for {steps} steps = {out['decode_s'] / steps * 1e3:.3f} ms a step, "
+          f"{out['decode_tok_per_s']:.1f} tok/s; decode_attention launches "
+          f"{launches['decode_attention']} = {cfg.num_layers} layers x "
+          f"{steps} steps; peak memory {peak:.2f} GB; decode loop under "
+          "sync debug mode 'error'")
+    eng_ref = ServingEngine(cfg, params, ServeConfig(max_new_tokens=n_new,
+                                                     attn_backend="ref"),
+                            device="cuda")
+    zero_counts()
+    out_ref = eng_ref.generate({"tokens": prompt})
+    require(read_counts()["decode_attention"] == 0,
+            "the ref backend launched the kernel")
+    agree = float((out_ref["tokens"] == toks).float().mean())
+    print(f"generate (attn ref): decode {out_ref['decode_s']:.4f} s = "
+          f"{out_ref['decode_tok_per_s']:.1f} tok/s; free-running greedy "
+          f"tokens equal to the kernel run's: {agree:.4f}")
+    compare_backends(eng, prompt, out_ref["tokens"], "bf16")
+    profile_decode(eng, prompt, 16)
+
+    # int8 weights (the FENIX Model Engine scheme on the LM)
+    eng8 = ServingEngine(cfg, params, ServeConfig(max_new_tokens=n_new,
+                                                  quant="int8"),
+                         device="cuda")
+    out8 = eng8.generate({"tokens": prompt})
+    require(out8["tokens"].shape == (b, n_new), "int8 generate shape")
+    agree8 = float((out8["tokens"] == toks).float().mean())
+    print(f"generate (int8 weights): prefill {out8['prefill_s']:.4f} s, "
+          f"decode {out8['decode_tok_per_s']:.1f} tok/s; tokens equal to the "
+          f"bf16 run's: {agree8:.4f}")
+    del eng8
+
+    # gated serving: the FENIX admission gate in front of the engine
+    gated = ServingEngine(cfg, params, ServeConfig(
+        max_new_tokens=8, gate_backend_rate=100.0), device="cuda")
+    arrivals = [{"stream": i % 3, "t_us": i * 400_000,
+                 "batch": {"tokens": prompt[i % b:i % b + 1, :256]}}
+                for i in range(12)]
+    t0 = time.perf_counter()
+    res = gated.serve_requests(arrivals)
+    require(res["admitted"] + res["denied"] == 12 and res["admitted"] >= 1,
+            f"serve_requests {res['admitted']} / {res['denied']}")
+    print(f"serve_requests: {res['admitted']} admitted, {res['denied']} "
+          f"denied of 12 arrivals by ServeGate in "
+          f"{time.perf_counter() - t0:.2f} s")
+    del eng, eng_ref, gated, params
+    torch.cuda.empty_cache()
+
+    # a float32 copy of the model: the kernel must match the einsum path
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    params32, _ = api.init_params(cfg32, seed=args.seed, device="cuda")
+    eng32 = ServingEngine(cfg32, params32, ServeConfig(
+        max_new_tokens=n_new, attn_backend="ref"), device="cuda")
+    ref32 = eng32.generate({"tokens": prompt})["tokens"]
+    _, rel32, _ = compare_backends(eng32, prompt, ref32, "float32")
+    require(rel32 <= 1e-3, f"float32 logits off by {rel32} of the largest")
+    del eng32, params32
+    torch.cuda.empty_cache()
+
+    # a small input against the CPU: the reduced model, float32
+    small = dataclasses.replace(get_config("llama3.2-1b", reduced=True),
+                                param_dtype="float32",
+                                activation_dtype="float32")
+    p_small, _ = api.init_params(small, seed=args.seed, device="cpu")
+    tok_small = prompt[:2, :16].cpu() % small.vocab_size
+    runs = {dev: ServingEngine(small, p_small, ServeConfig(max_new_tokens=8),
+                               device=dev).generate({"tokens": tok_small})
+            ["tokens"].cpu() for dev in ("cuda", "cpu")}
+    require(torch.equal(runs["cuda"], runs["cpu"]),
+            "reduced llama: card tokens differ from the CPU's")
+    print("reduced llama3.2-1b (float32), 8 new tokens: card (kernel) == "
+          "CPU (einsum path)")
+    return launches["decode_attention"]
+
+
 KERNEL_ROWS = (
     ("fused_gate", "src/repro_torch/csrc/fused_gate.cu",
      "src/repro/kernels/rate_gate/kernel.py:191"),
@@ -751,6 +1194,8 @@ KERNEL_ROWS = (
      "src/repro/kernels/rate_gate/kernel.py:58"),
     ("int8_gemm", "src/repro_torch/csrc/int8_gemm.cu",
      "src/repro/kernels/int8_matmul/kernel.py:61"),
+    ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+     "src/repro/kernels/decode_attention/kernel.py:71"),
 )
 
 
@@ -769,6 +1214,9 @@ def main():
     launches = phase_select_sweep(rng)
     slice_launches, _ = phase_slice(args)
     launches.update(slice_launches)
+    rows["decode_attention"] = phase_attention(
+        rng, args.prompt_len + args.new_tokens)
+    launches["decode_attention"] = phase_lm(args)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": launches[name], **rows[name]}
                for name, src, tpu in KERNEL_ROWS]

@@ -2,13 +2,15 @@
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+import contextlib
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device, None]
 
-# kernel backends of the two knobs (gate_backend, matmul_backend):
+# kernel backends of the knobs (gate_backend, matmul_backend,
+# attn_backend):
 #   "cuda"       the hand-written Hopper kernel (default for CUDA tensors)
 #   "cuda_prng"  gate only: the admission kernel that draws its own
 #                threefry bits on the card (the counterpart of the
@@ -18,6 +20,7 @@ DeviceLike = Union[str, torch.device, None]
 BACKENDS: Dict[str, Tuple[str, ...]] = {
     "gate_backend": ("cuda", "cuda_prng", "ref"),
     "matmul_backend": ("cuda", "ref"),
+    "attn_backend": ("cuda", "ref"),
 }
 _KERNEL_BACKENDS = ("cuda", "cuda_prng")
 
@@ -62,3 +65,18 @@ def resolve_backend(name: Optional[str], tensor: torch.Tensor,
                          f"needs CUDA tensors; got a {tensor.device} "
                          "tensor")
     return name
+
+
+@contextlib.contextmanager
+def no_host_sync(device: torch.device) -> Iterator[None]:
+    """On CUDA, make any operation that synchronises with the host raise
+    (``torch.cuda.set_sync_debug_mode("error")``) for the block."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)

@@ -1,0 +1,14 @@
+from repro_torch.configs.base import (  # noqa: F401
+    HybridConfig,
+    MoEConfig,
+    ModelConfig,
+    REDUCED,
+    REGISTRY,
+    SHAPES,
+    SSMConfig,
+    ShapeConfig,
+    get_config,
+    list_archs,
+    register,
+    shape_applicable,
+)

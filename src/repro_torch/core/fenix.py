@@ -30,14 +30,14 @@ raise ``NotImplementedError`` naming their ROADMAP item.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device, validate_backend
+from repro_torch._device import (no_host_sync, resolve_device,
+                                 validate_backend)
 from repro_torch.core.data_engine import engine as de
 from repro_torch.core.data_engine import rate_limiter as rl
 from repro_torch.core.data_engine.decision_tree import predict
@@ -160,21 +160,6 @@ def _make_single_step(ecfg: EngineConfig, iocfg: vio.IOConfig,
         return (state, queues, dline), verdict, stats
 
     return step_fn
-
-
-@contextlib.contextmanager
-def _no_host_sync(device: torch.device):
-    """On CUDA, make any operation that synchronises with the host raise
-    (``torch.cuda.set_sync_debug_mode("error")``) for the block."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
 
 
 class FenixSystem:
@@ -395,7 +380,7 @@ class FenixSystem:
         carry = (self.state, self.queues, self._dl)
         verd_parts: List[torch.Tensor] = []
         stat_sum = torch.zeros(4, dtype=torch.int64, device=self.device)
-        with _no_host_sync(self.device):
+        with no_host_sync(self.device):
             for i in range(n_batches):
                 lo, hi = i * B, min((i + 1) * B, n)
                 chunk = {k: v[lo:hi] for k, v in arrs.items()}

@@ -1,8 +1,9 @@
 """FENIX token-generation probability model (paper Eq. 2 + Appendix A).
 
-Port of ``repro/core/probability.py``: ``token_rate``, ``LUTConfig`` and
-the numpy ``build_lut`` (the initial LUT), plus ``build_lut_torch``, the
-port of ``probability_jnp`` / ``build_lut_jnp`` used by the in-loop
+Port of ``repro/core/probability.py``: ``token_rate``, ``LUTConfig``,
+the numpy ``build_lut`` (the initial LUT) and ``lut_lookup_np`` (the LM
+serving gate's lookup), plus ``build_lut_torch``, the port of
+``probability_jnp`` / ``build_lut_jnp`` used by the in-loop
 control-plane rebuild.
 
 ``build_lut_torch`` runs in eager float32, one op at a time, with every
@@ -62,6 +63,14 @@ def build_lut(n: float, q: float, v: float,
     p = probability(tt, cc, n=n, q=q, v=v)
     return np.round(p * ((1 << cfg.prob_bits) - 1)).astype(np.int32)
 
+
+
+def lut_lookup_np(lut: np.ndarray, t_us: np.ndarray, c: np.ndarray,
+                  cfg: LUTConfig = LUTConfig()) -> np.ndarray:
+    """Reference integer-only lookup (what the switch pipeline does)."""
+    ti = np.clip(np.asarray(t_us) >> cfg.t_shift, 0, cfg.t_bins - 1)
+    cj = np.clip(np.asarray(c) >> cfg.c_shift, 0, cfg.c_bins - 1)
+    return lut[ti, cj]
 
 def _f32(x, device) -> torch.Tensor:
     # a fill, not a host-to-device copy: safe inside the replay loop

@@ -25,7 +25,8 @@ from typing import Dict, List, Sequence, Tuple
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("fused_gate.cu", "rate_gate.cu", "int8_gemm.cu")
+SOURCES = ("fused_gate.cu", "rate_gate.cu", "int8_gemm.cu",
+           "decode_attention.cu")
 HEADERS = ("gate_common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")

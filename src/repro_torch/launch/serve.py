@@ -1,0 +1,90 @@
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch X`` —
+batched greedy decoding with optional INT8 weights and the FENIX
+admission gate (core/gate.py).  Port of ``repro/launch/serve.py``.
+
+Runs on the card by default (``--device cpu`` for the CPU), on the
+reduced config unless ``--full`` asks for the published widths, with
+random weights drawn from seed 0.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict
+
+import numpy as np
+
+from repro_torch._device import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.models import api
+from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+
+def apply_overrides(cfg, overrides: Dict[str, str]):
+    """``--set key=value`` config overrides (``moe.top_k=2`` reaches a
+    sub-config): the port's copy of the reference's
+    ``launch/dryrun.py::apply_overrides``."""
+    for key, val in overrides.items():
+        parts = key.split(".")
+
+        def parse(v):
+            for cast in (int, float):
+                try:
+                    return cast(v)
+                except ValueError:
+                    pass
+            if v in ("true", "false", "True", "False"):
+                return v.lower() == "true"
+            return v
+        v = parse(val)
+        if len(parts) == 1:
+            cfg = dataclasses.replace(cfg, **{parts[0]: v})
+        elif len(parts) == 2:
+            sub = getattr(cfg, parts[0])
+            cfg = dataclasses.replace(
+                cfg, **{parts[0]: dataclasses.replace(sub, **{parts[1]: v})})
+        else:
+            raise ValueError(key)
+    return cfg
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--quant", default="none", choices=["none", "int8"])
+    ap.add_argument("--gate-rate", type=float, default=None,
+                    help="requests/s; enables the FENIX admission gate")
+    ap.add_argument("--set", action="append", default=[])
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--full", action="store_true",
+                    help="the published widths instead of the reduced "
+                         "config")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced=not args.full)
+    cfg = apply_overrides(cfg, dict(s.split("=", 1) for s in args.set))
+    params, _ = api.init_params(cfg, seed=0, device=device)
+    eng = ServingEngine(cfg, params, ServeConfig(
+        max_new_tokens=args.new_tokens, quant=args.quant,
+        gate_backend_rate=args.gate_rate), device=device)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (args.batch, args.prompt_len))
+             .astype(np.int32)}
+    t0 = time.time()
+    out = eng.generate(batch)
+    print(f"arch={cfg.name} device={device} quant={args.quant} "
+          f"decode {out['decode_tok_per_s']:.1f} tok/s "
+          f"(prefill {out['prefill_s']:.3f} s, wall {time.time()-t0:.1f}s)")
+    print("sample tokens:", out["tokens"][0][:16].cpu().numpy())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,191 @@
+"""Uniform Model API: one facade over the model families.
+
+Port of ``repro/models/api.py`` for the ``transformer`` family (dense
+GQA); the other families raise ``NotImplementedError`` naming their
+ROADMAP item.  Provides:
+  init_params(cfg)          — concrete (on a device) or abstract (meta)
+  quantize_for_serving      — int8 weights + per-tensor/per-layer scales
+  prefill / decode_step     — the serving entry points
+  cache_specs / grow_cache  — decode-cache shapes, and growing a prefill
+                              cache so decode can append
+  analytic_param_count      — N for the 6·N·D roofline term
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+from repro_torch.models.param import Registrar
+
+_FAMILIES: Dict[str, Any] = {"transformer": transformer}
+
+
+def _family(cfg: ModelConfig):
+    fam = _FAMILIES.get(cfg.family)
+    if fam is None:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet (ROADMAP: the "
+            "other LM families); the port serves 'transformer'")
+    return fam
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, abstract: bool = False,
+                device: DeviceLike = None
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple[str, ...]]]:
+    """Returns (params, logical_axes): the reference's draws from
+    ``seed``, cast to ``cfg.param_dtype`` on ``device`` (``None`` means
+    ``cuda``); ``abstract`` gives ``meta`` tensors and draws nothing."""
+    dev = torch.device("meta") if abstract else resolve_device(device)
+    reg = Registrar(abstract=abstract, seed=seed,
+                    dtype=getattr(torch, cfg.param_dtype), device=dev)
+    _family(cfg).init_params(reg, cfg)
+    return reg.params, reg.axes
+
+
+_QUANT_SKIP = ("norm", "scale", "router", "gate_attn", "gate_mlp", "lam",
+               "A_log", "dt_bias", "/b")
+
+
+def quantize_for_serving(cfg: ModelConfig, params: Dict[str, Any],
+                         axes: Dict[str, Tuple[str, ...]]
+                         ) -> Tuple[Dict[str, Any], Dict[str, Tuple[str, ...]]]:
+    """FENIX Model Engine INT8 applied to LM weights (serve path only).
+
+    Matmul weights become int8 + a float32 per-tensor scale (per-layer for
+    stacked weights), computed in float32 as the reference does, so the
+    int8 values are equal.  ``meta`` tensors give ``meta`` results.
+    """
+    new_p, new_ax = {}, {}
+    for k, v in params.items():
+        new_p[k], new_ax[k] = v, axes[k]
+        if v.dim() < 2 or any(s in k for s in _QUANT_SKIP):
+            continue
+        if not (k.endswith("/w") or k.endswith("/table")
+                or "/experts/" in k):
+            continue
+        stacked = axes[k][0] == "layers"
+        sshape = (v.shape[0],) if stacked else ()
+        sax = ("layers",) if stacked else ()
+        if v.is_meta:
+            new_p[k] = torch.empty(v.shape, dtype=torch.int8, device="meta")
+            new_p[f"{k}_scale"] = torch.empty(sshape, dtype=torch.float32,
+                                              device="meta")
+        else:
+            w = v.to(torch.float32)
+            amax = w.abs().amax(dim=tuple(range(1, w.dim()))) if stacked \
+                else w.abs().amax()
+            scale = torch.clamp_min(amax, 1e-8) / 127.0
+            sc = scale.reshape(sshape + (1,) * (w.dim() - len(sshape)))
+            new_p[k] = torch.clamp(torch.round(w / sc), -127, 127) \
+                .to(torch.int8)
+            new_p[f"{k}_scale"] = scale
+        new_ax[f"{k}_scale"] = sax
+    return new_p, new_ax
+
+
+def prefill(params, cfg: ModelConfig, batch):
+    """batch {"tokens": [B,S]} -> (cache, last-position logits [B,V])."""
+    return _family(cfg).prefill(params, cfg, batch["tokens"])
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens,
+                attn_backend: Optional[str] = None):
+    """One token per sequence; ``attn_backend`` ("cuda" | "ref" | None
+    for the device's default) selects the decode-attention kernel.
+    Consumes ``cache``: its K/V tensors take the new rows in place, and
+    the returned cache holds the same tensors with the next ``pos``."""
+    return _family(cfg).decode_step(params, cfg, cache, tokens,
+                                    attn_backend=attn_backend)
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: ModelConfig, batch: int, smax: int
+                ) -> Dict[str, Tuple[Tuple[int, ...], Any, Tuple[str, ...]]]:
+    """name -> (shape, dtype, logical axes) of the decode cache."""
+    return _family(cfg).cache_spec(cfg, batch, smax)
+
+
+def grow_cache(cfg: ModelConfig, cache: Dict[str, Any], batch: int,
+               old_smax: int, new_smax: int) -> Dict[str, Any]:
+    """Zero-pad the kv_seq axes of a prefill cache so decode can append.
+
+    Identifies the sequence axis per entry by diffing cache_specs at the two
+    lengths; the grown entries are new tensors on the cache's device.
+    """
+    old = cache_specs(cfg, batch, old_smax)
+    new = cache_specs(cfg, batch, new_smax)
+    out = dict(cache)
+    for k, (oshp, _dt, _ax) in old.items():
+        nshp = new[k][0]
+        if oshp == nshp or k not in cache:
+            continue
+        arr = cache[k]
+        grown = arr.new_zeros(nshp[len(nshp) - arr.dim():])
+        grown[tuple(slice(0, n) for n in arr.shape)] = arr
+        out[k] = grown
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Analytic parameter counts (for MODEL_FLOPS = 6*N*D)
+# ---------------------------------------------------------------------------
+
+
+def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Matmul-participating parameters per token (the transformer
+    family; pure arithmetic on the config, MoE and MLA included).
+
+    Excludes the embedding *gather* (not a matmul); includes the LM head
+    (tied or not — the logits matmul runs either way).  For MoE with
+    active_only=True, routed experts count top_k of num_experts.
+    """
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def attn_gqa() -> int:
+        return d * h * dh + 2 * d * hkv * dh + h * dh * d
+
+    def attn_mla() -> int:
+        dn, dr, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+        n = 0
+        if cfg.q_lora_rank:
+            n += d * cfg.q_lora_rank + cfg.q_lora_rank * h * (dn + dr)
+        else:
+            n += d * h * (dn + dr)
+        n += d * r + d * dr + r * h * dn + r * h * cfg.v_head_dim
+        n += h * cfg.v_head_dim * d
+        return n
+
+    def mlp_dense(ff) -> int:
+        return 3 * d * ff
+
+    _family(cfg)
+    attn = attn_mla() if cfg.attention == "mla" else attn_gqa()
+    m = cfg.moe
+    if m.num_experts:
+        n_first = m.first_dense_layers
+        total = n_first * (attn + mlp_dense(m.first_dense_d_ff))
+        n_moe = cfg.num_layers - n_first
+        e_cnt = m.top_k if active_only else m.num_experts
+        per = (attn + d * m.num_experts            # router
+               + e_cnt * 3 * d * m.expert_d_ff
+               + (3 * d * m.shared_d_ff if m.num_shared_experts else 0))
+        total += n_moe * per
+    else:
+        total = cfg.num_layers * (attn + mlp_dense(f))
+    total += d * v  # logits head matmul
+    return total

@@ -1,0 +1,389 @@
+"""Shared model layers: norms, RoPE, embeddings, attention, GLU MLP.
+
+Port of ``repro/models/layers.py`` (the dense-decoder subset; ``moe_ffn``
+and the ``chunked`` attention are ROADMAP items).  Functions take the
+reference's flat parameter dict and keys, so parity stays key for key.
+
+Attention implementations (selected by ``cfg.attention_impl``):
+
+- ``naive``    — full [Sq,Skv] score matrix. Oracle for tests.
+- ``bands``    — triangular band decomposition: band b computes blocks
+                 (i, i-b) for all i>=b as one batched einsum, flash merge
+                 across bands (the square causal layout); other layouts
+                 take the kv-block loop ``_xblock_attention``.
+
+Decode attention (one new token against the cache) dispatches on
+``backend``: ``"cuda"`` runs the hand-written kernel, ``"ref"`` the
+model's own einsum path below.
+
+Softmax math runs in float32.  Where the reference asks an einsum of
+bfloat16 operands for a float32 result (``preferred_element_type``), the
+operands are cast to float32 first: a product of two bfloat16 values is
+exact in float32, so only the order of the float32 sums differs.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch._device import resolve_backend
+from repro_torch.kernels.decode_attention.kernel import decode_attention \
+    as attn_kernel
+from repro_torch.models.param import Registrar, shard
+
+F32 = torch.float32
+BF16 = torch.bfloat16
+
+
+def _promote(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Cast operands to their common dtype, as JAX's einsum promotes
+    (bfloat16 with float32 gives float32)."""
+    dt = functools.reduce(torch.promote_types, (x.dtype for x in xs))
+    return tuple(x.to(dt) for x in xs)
+
+
+def einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(eq, *_promote(*xs))
+
+
+# ---------------------------------------------------------------------------
+# Norms / RoPE / embeddings
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(reg: Registrar, path: str, dim: int) -> None:
+    reg.param(f"{path}/scale", (dim,), ("embed",), init="ones", dtype=F32)
+
+
+def rmsnorm(params: Dict, path: str, x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    return rmsnorm_1d(params[f"{path}/scale"], x, eps)
+
+
+def rmsnorm_1d(scale: torch.Tensor, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the trailing dim in float32 (also qwen3's per-head
+    qk-norm)."""
+    dt = x.dtype
+    x = x.to(F32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * scale).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Split-half rotary embedding. x [..., S, ..., D]; positions [..., S].
+    Computed in float32, cast back to x's dtype."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = torch.arange(half, dtype=F32, device=x.device)
+    inv = theta ** (-freq / half)                        # [half]
+    ang = positions.to(F32)[..., None] * inv             # [..., S, half]
+    for _ in range(x.dim() - ang.dim() - 1):
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_embedding(reg: Registrar, path: str, vocab: int, dim: int) -> None:
+    reg.param(f"{path}/table", (vocab, dim), ("vocab", "embed"),
+              init="normal", scale=0.02)
+
+
+def embed(params: Dict, path: str, ids: torch.Tensor) -> torch.Tensor:
+    table = params[f"{path}/table"]
+    rows = table.index_select(0, ids.reshape(-1)).reshape(
+        *ids.shape, table.shape[-1])
+    s = params.get(f"{path}/table_scale")
+    if s is not None:  # int8 serving table: dequantize the gathered rows
+        rows = rows.to(BF16) * s.to(BF16)
+    return rows
+
+
+def W(params: Dict, key: str) -> torch.Tensor:
+    """Fetch a matmul weight, dequantizing int8 serving weights on the
+    fly (a per-tensor scale, per-layer for stacked weights)."""
+    w = params[key]
+    s = params.get(f"{key}_scale")
+    if s is not None:
+        w = w.to(BF16) * s.to(BF16)
+    return w
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., k] @ b [k, n] with a float32 result: the products are exact
+    and summed in float32 (JAX's ``preferred_element_type=F32``).  On the
+    card bfloat16 operands go to a GEMM with float32 output, so a large
+    weight is not copied to float32 first; elsewhere they are cast."""
+    if a.is_cuda and a.dtype == b.dtype == BF16:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=F32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.to(F32), b.to(F32))
+
+
+def logits_head(params: Dict, x: torch.Tensor, head_path: Optional[str],
+                embed_path: str) -> torch.Tensor:
+    """x [..., d] -> float32 [..., V]; the tied variant reuses the
+    embedding table."""
+    if head_path is not None:
+        return matmul_f32(x, W(params, f"{head_path}/w"))       # [d, V]
+    return matmul_f32(x, W(params, f"{embed_path}/table").t())  # [V, d]
+
+
+# ---------------------------------------------------------------------------
+# Attention core
+# ---------------------------------------------------------------------------
+
+
+def _pad_to(x: torch.Tensor, axis: int, mult: int
+            ) -> Tuple[torch.Tensor, int]:
+    s = x.shape[axis]
+    pad = (-s) % mult
+    if pad == 0:
+        return x, 0
+    widths = [0, 0] * (x.dim() - 1 - axis % x.dim()) + [0, pad]
+    return F.pad(x, widths), pad
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True,
+              impl: str = "bands",
+              chunk_q: int = 1024,
+              chunk_kv: int = 1024,
+              window: Optional[int] = None,
+              kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B,Sq,Hq,Dk]; k [B,Skv,Hkv,Dk]; v [B,Skv,Hkv,Dv] -> [B,Sq,Hq,Dv]."""
+    b, sq, hq, dk = q.shape
+    _, skv, hkv, _ = k.shape
+    dv = v.shape[-1]
+    scale = dk ** -0.5
+    dev = q.device
+    if impl == "naive":
+        qg = q.reshape(b, sq, hkv, hq // hkv, dk)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(F32), k.to(F32)) * scale
+        qpos = torch.arange(sq, device=dev)[:, None] \
+            + (skv - sq if causal else 0)
+        kpos = torch.arange(skv, device=dev)[None, :]
+        mask = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= (qpos - kpos) < window
+        if kv_len is not None:
+            mask = mask[None] & (kpos[None] < kv_len[:, None, None])
+            s = torch.where(mask[:, None, None], s, -torch.inf)
+        else:
+            s = torch.where(mask, s, -torch.inf)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhe->bqhge", p.to(v.dtype), v)
+        return o.reshape(b, sq, hq, dv)
+    if impl == "chunked":
+        raise NotImplementedError(
+            "attention_impl='chunked' is not ported yet (ROADMAP: the other "
+            "LM families); use 'bands' or 'naive'")
+    if impl == "bands":
+        if not causal or sq != skv:
+            # bands requires the square causal layout; use the kv-block loop
+            return _xblock_attention(q, k, v, causal=causal,
+                                     chunk_kv=chunk_kv, window=window,
+                                     kv_len=kv_len, scale=scale)
+        return _band_attention(q, k, v, chunk=chunk_q, window=window,
+                               scale=scale)
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def _merge(m, lse, s, v_dtype):
+    """One flash step over masked float32 scores ``s`` (-inf where masked;
+    overwritten by p): returns (m_new, lse_new, corr, p in ``v_dtype``).
+    The reference zeroes p where s is -inf; exp(-inf) is 0 already."""
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+    p = s.sub_(m_safe[..., None]).exp_()
+    m_inf = torch.isinf(m)
+    corr = torch.exp(torch.where(m_inf, 0.0, m) - m_safe)
+    corr = torch.where(m_inf, 0.0, corr)
+    lse = lse * corr + p.sum(dim=-1)
+    return m_new, lse, corr, p.to(v_dtype)
+
+
+def _xblock_attention(q, k, v, *, causal, chunk_kv, window, kv_len, scale):
+    """Flash merge over an unrolled Python loop of KV chunks (cross /
+    encoder attention and non-square layouts)."""
+    b, sq, hq, dk = q.shape
+    _, skv, hkv, _ = k.shape
+    dv = v.shape[-1]
+    g = hq // hkv
+    dev = q.device
+    ck = min(chunk_kv, skv)
+    k, _ = _pad_to(k, 1, ck)
+    v, _ = _pad_to(v, 1, ck)
+    nk = k.shape[1] // ck
+    qg = q.reshape(b, sq, hkv, g, dk).to(F32)
+    qpos = torch.arange(sq, device=dev)[:, None] + (skv - sq if causal else 0)
+    m = torch.full((b, hkv, g, sq), -torch.inf, dtype=F32, device=dev)
+    lse = torch.zeros((b, hkv, g, sq), dtype=F32, device=dev)
+    acc = torch.zeros((b, hkv, g, sq, dv), dtype=F32, device=dev)
+    for ki in range(nk):
+        kb = k[:, ki * ck:(ki + 1) * ck]
+        vb = v[:, ki * ck:(ki + 1) * ck]
+        kpos = ki * ck + torch.arange(ck, device=dev)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb.to(F32)).mul_(scale)
+        msk = ((kpos < skv)[None, :]).expand(sq, ck)
+        if causal:
+            msk = msk & (kpos[None, :] <= qpos)
+        if window is not None:
+            msk = msk & ((qpos - kpos[None, :]) < window)
+        if kv_len is not None:
+            mskb = msk[None] & (kpos[None, None, :] < kv_len[:, None, None])
+            s = s.masked_fill_(~mskb[:, None, None], -torch.inf)
+        else:
+            s = s.masked_fill_(~msk, -torch.inf)
+        m, lse, corr, p = _merge(m, lse, s, v.dtype)
+        acc = acc * corr[..., None] \
+            + torch.einsum("bhgqk,bkhe->bhgqe", p, vb).to(F32)
+    out = acc / torch.clamp_min(lse, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(v.dtype)
+
+
+def _band_attention(q, k, v, *, chunk, window, scale):
+    b, s, hq, dk = q.shape
+    hkv = k.shape[2]
+    dv = v.shape[-1]
+    g = hq // hkv
+    dev = q.device
+    c = min(chunk, s)
+    q, pad = _pad_to(q, 1, c)
+    k, _ = _pad_to(k, 1, c)
+    v, _ = _pad_to(v, 1, c)
+    sp = q.shape[1]
+    n = sp // c
+    q_r = q.reshape(b, n, c, hkv, g, dk).to(F32)
+    k_r = k.reshape(b, n, c, hkv, dk).to(F32)
+    v_r = v.reshape(b, n, c, hkv, dv)
+    # band b touches offsets [b*c-(c-1), b*c+(c-1)]; include every band
+    # whose minimum offset is still inside the window
+    n_bands = n if window is None else min(n, (window + c - 2) // c + 1)
+
+    m = torch.full((b, n, hkv, g, c), -torch.inf, dtype=F32, device=dev)
+    lse = torch.zeros((b, n, hkv, g, c), dtype=F32, device=dev)
+    acc = torch.zeros((b, n, hkv, g, c, dv), dtype=F32, device=dev)
+    qi_in = torch.arange(c, device=dev)[:, None]
+    ki_in = torch.arange(c, device=dev)[None, :]
+    valid_k = torch.arange(sp, device=dev) < s             # kv padding mask
+
+    for band in range(n_bands):
+        nb = n - band
+        sco = torch.einsum("bnqhgd,bnkhd->bnhgqk", q_r[:, band:],
+                           k_r[:, :nb]).mul_(scale)
+        offs = band * c + qi_in - ki_in                    # [c,c] q-k
+        msk = offs >= 0
+        if window is not None:
+            msk &= offs < window
+        kmask = valid_k[:nb * c].reshape(nb, c)            # [nb,c]
+        full_mask = msk[None, None, None, None] \
+            & kmask[None, :, None, None, None, :]
+        sco.masked_fill_(~full_mask, -torch.inf)
+        m_new, lse_new, corr, p = _merge(m[:, band:], lse[:, band:], sco,
+                                         v.dtype)
+        lse[:, band:] = lse_new
+        o = torch.einsum("bnhgqk,bnkhe->bnhgqe", p, v_r[:, :nb])
+        acc[:, band:] = acc[:, band:] * corr[..., None] + o.to(F32)
+        m[:, band:] = m_new
+        del sco, p, o
+
+    out = acc / torch.clamp_min(lse, 1e-30)[..., None]
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, sp, hq, dv)
+    return out[:, :s].to(v.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor,
+                     window: Optional[int] = None,
+                     backend: Optional[str] = None) -> torch.Tensor:
+    """Single-token attention. q [B,Hq,Dk]; caches [B,Smax,Hkv,D*];
+    lengths [B] -> [B,Hq,Dv] in the cache's dtype.
+
+    ``backend="cuda"`` (the default for CUDA tensors) runs the
+    hand-written kernel (``kernels/decode_attention``; ``lengths`` int32):
+    the counterpart of the reference's ``ops.set_backend`` switch.  Its
+    probabilities stay float32 through the value sum.  ``"ref"`` (the
+    default on the CPU) is the model's own path: ``p`` is cast to the
+    cache dtype before the value product, as the reference does.  A
+    ``window`` (the hybrid family's local attention) runs on ``"ref"``
+    only.
+    """
+    if resolve_backend(backend, q, "attn_backend") == "cuda":
+        if window is not None:
+            raise NotImplementedError(
+                "windowed decode attention has no kernel yet (ROADMAP: the "
+                "hybrid family); use attn_backend='ref'")
+        return attn_kernel(q, k_cache, v_cache, lengths)
+    b, hq, dk = q.shape
+    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    dv = v_cache.shape[-1]
+    qg = q.reshape(b, hkv, hq // hkv, dk)
+    k_cache = shard(k_cache, "batch", "kv_seq", "kv_heads", "head_dim")
+    v_cache = shard(v_cache, "batch", "kv_seq", "kv_heads", "head_dim")
+    s = torch.einsum("bhgd,bshd->bhgs", qg.to(F32), k_cache.to(F32)) \
+        * (dk ** -0.5)
+    kpos = torch.arange(smax, device=q.device)[None, :]
+    mask = kpos < lengths[:, None]
+    if window is not None:
+        mask &= kpos > (lengths[:, None] - 1 - window)
+    s = torch.where(mask[:, None, None], s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshe->bhge", p.to(v_cache.dtype), v_cache)
+    return o.reshape(b, hq, dv)
+
+
+# ---------------------------------------------------------------------------
+# Dense projections / MLP
+# ---------------------------------------------------------------------------
+
+
+def dense(params: Dict, path: str, x: torch.Tensor, eq: str) -> torch.Tensor:
+    y = einsum(eq, x, W(params, f"{path}/w"))
+    b = params.get(f"{path}/b")
+    if b is not None:
+        y = y + b
+    return y
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    """JAX's activations op for op in x's dtype, each op rounded as
+    JAX rounds it (``torch.sigmoid`` / ``F.gelu`` round once at the end
+    and differ from JAX in a third of bfloat16 outputs)."""
+    if name == "silu":
+        # jax.nn.silu: x * sigmoid(x), sigmoid(x) = 1 / (1 + exp(-x))
+        return x * torch.reciprocal(1 + torch.exp(-x))
+    if name == "gelu":
+        # jax.nn.gelu(approximate=True), sqrt(2/pi) rounded to x's dtype
+        c = float(torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype))
+        return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3))))
+    raise ValueError(name)
+
+
+def init_glu_mlp(reg: Registrar, path: str, d: int, f: int,
+                 stack: Tuple[int, ...] = ()) -> None:
+    sa = tuple("stack" for _ in stack)
+    reg.param(f"{path}/wi_gate", (*stack, d, f), (*sa, "embed", "ffn"),
+              init="normal", scale=d ** -0.5)
+    reg.param(f"{path}/wi_up", (*stack, d, f), (*sa, "embed", "ffn"),
+              init="normal", scale=d ** -0.5)
+    reg.param(f"{path}/wo", (*stack, f, d), (*sa, "ffn", "embed"),
+              init="normal", scale=f ** -0.5)
+
+
+def glu_mlp(params: Dict, path: str, x: torch.Tensor,
+            act: str) -> torch.Tensor:
+    g = einsum("...d,df->...f", x, W(params, f"{path}/wi_gate"))
+    u = einsum("...d,df->...f", x, W(params, f"{path}/wi_up"))
+    h = _act(act, g) * u
+    return einsum("...f,fd->...d", h, W(params, f"{path}/wo"))

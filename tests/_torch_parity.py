@@ -2,8 +2,9 @@
 
 Each parity test feeds the same numpy inputs, made from a seed, to a
 reference (JAX) function and to its port, and compares the results leaf
-by leaf.  Every output on the port's path is an integer, so the
-comparison is exact equality.
+by leaf.  Integer outputs (the FENIX data plane) must be equal
+(``assert_same``); floating-point outputs (the LM substrate) are held to
+a stated tolerance (``assert_close``).
 """
 
 import numpy as np
@@ -51,3 +52,20 @@ def cuda_device():
         pytest.skip("needs an NVIDIA GPU with CUDA: the hand-written "
                     "Hopper kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def assert_close(ref, port, tol, where=""):
+    """Floating-point results within ``tol`` of the reference's largest
+    magnitude: max |ref - port| <= tol * max |ref| (leaf by leaf; NaNs
+    must sit at the same places).  Each caller states why its ``tol``."""
+    r = np.asarray(to_numpy(ref), np.float64)
+    p = np.asarray(to_numpy(port), np.float64)
+    assert r.shape == p.shape, (where, r.shape, p.shape)
+    nan = np.isnan(r)
+    assert np.array_equal(nan, np.isnan(p)), (where, "NaN positions differ")
+    if nan.all():
+        return
+    err = np.abs(r - p)[~nan].max()
+    scale = max(np.abs(r[~nan]).max(), 1e-30)
+    assert err <= tol * scale, (where, f"max|diff| {err:.3g} > {tol} x "
+                                       f"max|ref| {scale:.3g}")

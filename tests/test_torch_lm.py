@@ -1,0 +1,296 @@
+"""The port's LM substrate (layers, dense GQA transformer, model API,
+Registrar and weight converter) against the JAX package on the CPU.
+
+Inputs are made with numpy from a seed; the JAX parameters go through
+the converter (``params_from_numpy``), so both sides hold the same bits.
+
+Tolerances, each relative to the reference's largest magnitude:
+- float32: 1e-5 (the same float32 operations, summed in another order).
+- bfloat16, the reference unrolled over layers (``scan_layers=False``,
+  each op rounded to bfloat16 as PyTorch's eager ops round it): 1e-5; the
+  GeGLU configs 1e-2 (XLA's bfloat16 ``tanh`` rounds one output in three
+  hundred to the other neighbour).
+- bfloat16 with the reference's ``lax.scan`` over layers: 3e-2.  XLA
+  fuses the scanned layer body and keeps float32 between fused
+  elementwise ops that eager execution rounds to bfloat16, so the two
+  differ by a few bfloat16 ulps after two layers.
+"""
+
+import dataclasses
+from types import SimpleNamespace
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_close, assert_same, to_numpy
+from repro.configs import get_config as jax_config
+from repro.models import api as japi
+from repro.models import layers as JL
+from repro.models import param as jparam
+from repro_torch.configs import get_config, list_archs
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models import api
+from repro_torch.models import layers as TL
+from repro_torch.models.param import params_from_numpy
+
+ARCHS = ("llama3.2-1b", "qwen3-4b", "qwen2.5-14b", "gemma-7b")
+F32_OVER = dict(param_dtype="float32", activation_dtype="float32")
+
+
+def _both(arch, **over):
+    return (dataclasses.replace(jax_config(arch, reduced=True), **over),
+            dataclasses.replace(get_config(arch, reduced=True), **over))
+
+
+def _pair(rng, shape, dtype, scale=1.0):
+    j = jnp.asarray(rng.normal(0, scale, shape), getattr(jnp, dtype))
+    return j, params_from_numpy({"x": np.asarray(j)})["x"]
+
+
+def _converted(jp):
+    return params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+
+
+# -- layers -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_rope_match(dtype):
+    rng = np.random.default_rng(0)
+    jx, tx = _pair(rng, (2, 9, 4, 16), dtype)
+    js, ts = _pair(rng, (16,), "float32")
+    # float32 mean and rsqrt in another order; bfloat16 outputs may round
+    # to the other neighbour
+    tol = 1e-6 if dtype == "float32" else 1e-2
+    assert_close(JL.rmsnorm_1d(js, jx).astype(jnp.float32),
+                 TL.rmsnorm_1d(ts, tx).float(), tol)
+    assert_close(JL.rmsnorm({"n/scale": js}, "n", jx).astype(jnp.float32),
+                 TL.rmsnorm({"n/scale": ts}, "n", tx).float(), tol)
+    # [B,H,S,D] at positions [1,S] (prefill), [B,S,D] at [B,S]
+    pos = rng.integers(0, 5000, (2, 9))
+    for jxx, txx, p in ((jx.swapaxes(1, 2), tx.transpose(1, 2), pos[:1]),
+                        (jx[:, :, 0], tx[:, :, 0], pos)):
+        want = JL.rope(jxx, jnp.asarray(p), 500_000.0)
+        got = TL.rope(txx, torch.from_numpy(p), 500_000.0)
+        assert got.dtype == tx.dtype
+        # float32 cos/sin of the same angles: libm against XLA's
+        assert_close(want.astype(jnp.float32), got.float(), tol)
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("impl", ["naive", "bands"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_matches(impl, dtype, window):
+    rng = np.random.default_rng(1)
+    jq, tq = _pair(rng, (2, 70, 8, 16), dtype)
+    jk, tk = _pair(rng, (2, 70, 2, 16), dtype)
+    jv, tv = _pair(rng, (2, 70, 2, 16), dtype)
+    kw = dict(impl=impl, chunk_q=32, chunk_kv=32, window=window)
+    want = JL.attention(jq, jk, jv, **kw)
+    got = TL.attention(tq, tk, tv, **kw)
+    assert got.dtype == tq.dtype
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert_close(want.astype(jnp.float32), got.float(), tol)
+
+
+def test_xblock_attention_matches():
+    """Non-square layout (bands falls back to the kv-block loop)."""
+    rng = np.random.default_rng(2)
+    jq, tq = _pair(rng, (2, 5, 4, 32), "float32")
+    jk, tk = _pair(rng, (2, 70, 4, 32), "float32")
+    jv, tv = _pair(rng, (2, 70, 4, 32), "float32")
+    lens = np.array([70, 33], np.int32)
+    for causal in (True, False):
+        kw = dict(impl="bands", chunk_kv=32, causal=causal)
+        assert_close(JL.attention(jq, jk, jv, kv_len=jnp.asarray(lens), **kw),
+                     TL.attention(tq, tk, tv, kv_len=torch.from_numpy(lens),
+                                  **kw), 1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layers_decode_attention_matches(dtype, window):
+    """The model's own decode path (backend "ref"): p cast to the cache
+    dtype before the value product, as in the reference."""
+    rng = np.random.default_rng(3)
+    jq, tq = _pair(rng, (3, 8, 16), dtype)
+    jk, tk = _pair(rng, (3, 100, 2, 16), dtype)
+    jv, tv = _pair(rng, (3, 100, 2, 16), dtype)
+    lens = np.array([1, 57, 100], np.int32)
+    want = JL.decode_attention(jq, jk, jv, jnp.asarray(lens), window=window)
+    got = TL.decode_attention(tq, tk, tv, torch.from_numpy(lens),
+                              window=window, backend="ref")
+    assert got.dtype == tv.dtype
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert_close(want.astype(jnp.float32), got.float(), tol)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_activations_round_as_jax(act):
+    rng = np.random.default_rng(4)
+    jx, tx = _pair(rng, (4096,), "bfloat16", 2.0)
+    want = np.asarray(JL._act(act, jx), np.float32)
+    got = TL._act(act, tx).float().numpy()
+    # silu bit for bit; gelu's tanh differs from XLA's in a few outputs
+    assert (want != got).mean() <= (0 if act == "silu" else 0.01)
+
+
+# -- model --------------------------------------------------------------------
+
+
+def _run(cfg_j, cfg_t, jp, tp, toks, steps=2):
+    """Prefill, grow, then ``steps`` decode steps on the reference's
+    greedy tokens: the logits of every call, from both."""
+    b, s = toks.shape
+    jc, jl = japi.prefill(jp, cfg_j, {"tokens": jnp.asarray(toks)})
+    tc, tl = api.prefill(tp, cfg_t, {"tokens": torch.from_numpy(toks)})
+    assert tl.dtype == torch.float32 and tl.shape == (b, cfg_t.vocab_size)
+    assert tc["pos"] == int(jc["pos"]) == s
+    for k in ("scan/k", "scan/v"):
+        assert tc[k].dtype == getattr(torch, str(jc[k].dtype))
+    jc = japi.grow_cache(cfg_j, jc, b, s, s + steps)
+    tc = api.grow_cache(cfg_t, tc, b, s, s + steps)
+    out = [(np.asarray(jl, np.float32), tl)]
+    for _ in range(steps):
+        tok = np.argmax(out[-1][0], -1).astype(np.int32)
+        jc, jl = japi.decode_step(jp, cfg_j, jc, jnp.asarray(tok))
+        tc, tl = api.decode_step(tp, cfg_t, tc, torch.from_numpy(tok))
+        out.append((np.asarray(jl, np.float32), tl))
+    assert tc["pos"] == int(jc["pos"]) == s + steps
+    return out, (jc, tc)
+
+
+VARIANTS = {
+    "float32": (F32_OVER, 1e-5),
+    "bf16_unrolled": (dict(scan_layers=False), None),
+    "bf16": ({}, 3e-2),
+    "int8_kv": (dict(kv_cache_dtype="int8"), 3e-2),
+}
+# every config in float32 and bf16; the op-for-op bf16 check once per
+# activation (SwiGLU, GeGLU) and the int8 KV cache once: the same code
+CASES = [(a, v) for a in ARCHS for v in ("float32", "bf16")] + [
+    ("llama3.2-1b", "bf16_unrolled"), ("gemma-7b", "bf16_unrolled"),
+    ("qwen3-4b", "int8_kv")]
+
+
+@pytest.mark.parametrize("arch,variant", CASES)
+def test_prefill_decode_match(arch, variant):
+    over, tol = VARIANTS[variant]
+    if tol is None:
+        tol = 1e-2 if arch == "gemma-7b" else 1e-5
+    cfg_j, cfg_t = _both(arch, **over)
+    jp, _ = japi.init_params(cfg_j, seed=0)
+    tp = _converted(jp)
+    toks = np.random.default_rng(5).integers(0, cfg_j.vocab_size, (2, 40)
+                                             ).astype(np.int32)
+    out, (jc, tc) = _run(cfg_j, cfg_t, jp, tp, toks)
+    for i, (want, got) in enumerate(out):
+        assert_close(want, got, tol, f"{arch} {variant} call {i}")
+    for k in ("scan/k", "scan/v"):
+        assert_close(to_numpy(jc[k]).astype(np.float32), tc[k].float(), tol,
+                     f"{arch} {variant} {k}")
+
+
+def test_quantize_for_serving_matches():
+    cfg_j, cfg_t = _both("qwen2.5-14b")
+    jp, jax_axes = japi.init_params(cfg_j, seed=0)
+    tp, axes = api.init_params(cfg_t, seed=0, device="cpu")
+    assert axes == jax_axes
+    jq, jax_qaxes = japi.quantize_for_serving(cfg_j, jp, jax_axes)
+    tq, qaxes = api.quantize_for_serving(cfg_t, tp, axes)
+    assert qaxes == jax_qaxes
+    assert sorted(tq) == sorted(jq)
+    for k in jq:
+        assert tq[k].dtype == getattr(torch, str(jq[k].dtype)), k
+        if jq[k].dtype == jnp.bfloat16:
+            assert_same(np.asarray(jq[k]).view(np.uint16),
+                        tq[k].view(torch.int16).numpy().view(np.uint16), k)
+        else:
+            assert_same(jq[k], tq[k], k)
+    assert any(v.dtype == torch.int8 for v in tq.values())
+    meta, _ = api.quantize_for_serving(
+        cfg_t, *api.init_params(cfg_t, abstract=True))
+    assert all(v.is_meta for v in meta.values())
+    assert {k: (v.shape, v.dtype) for k, v in meta.items()} == \
+        {k: (v.shape, v.dtype) for k, v in tq.items()}
+    # the int8 model serves logits close to the reference's int8 model
+    toks = np.random.default_rng(6).integers(0, 512, (2, 16)
+                                             ).astype(np.int32)
+    out, _ = _run(cfg_j, cfg_t, jq, _converted(jq), toks, steps=1)
+    for want, got in out:
+        assert_close(want, got, 3e-2)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_registrar_draws_match(arch, monkeypatch):
+    """The port's Registrar makes the reference's numpy draws: equal as
+    float64 before the dtype cast, and bit for bit after the bfloat16
+    cast."""
+    cfg_j, cfg_t = _both(arch)
+    jp, _ = japi.init_params(cfg_j, seed=3)
+    tp, _ = api.init_params(cfg_t, seed=3, device="cpu")
+    assert sorted(jp) == sorted(tp)
+    for k in jp:
+        assert tp[k].dtype == getattr(torch, str(jp[k].dtype)), k
+        assert_same(np.asarray(jp[k]).view(np.uint16)
+                    if jp[k].dtype == jnp.bfloat16 else jp[k],
+                    tp[k].view(torch.int16).numpy().view(np.uint16)
+                    if tp[k].dtype == torch.bfloat16 else tp[k], k)
+    # before the cast: the reference Registrar's float64 draws, captured
+    monkeypatch.setattr(jparam, "jnp", SimpleNamespace(
+        asarray=lambda a, dtype=None: a, bfloat16=jnp.bfloat16))
+    reg_j = jparam.Registrar(seed=3)
+    japi._family(cfg_j).init_params(reg_j, cfg_j)
+    reg_t = api.Registrar(seed=3, dtype=torch.float64)
+    api._family(cfg_t).init_params(reg_t, cfg_t)
+    for k, v in reg_j.params.items():
+        assert v.dtype == np.float64
+        assert np.array_equal(v, reg_t.params[k].numpy()), k
+
+
+def test_converter_is_bit_exact_and_copies():
+    jp, _ = japi.init_params(jax_config("llama3.2-1b", reduced=True), seed=1)
+    tp = _converted(jp)
+    for k, v in jp.items():
+        a = np.asarray(v)
+        b = tp[k]
+        assert tuple(b.shape) == a.shape
+        if a.dtype == jnp.bfloat16:
+            assert np.array_equal(a.view(np.uint16),
+                                  b.view(torch.int16).numpy().view(np.uint16))
+        else:
+            assert np.array_equal(a, b.numpy())
+    tp["embed/table"].zero_()                 # the port's copy, not JAX's
+    assert float(jnp.abs(jp["embed/table"]).max()) > 0
+
+
+def test_specs_and_param_counts_match():
+    for arch in ARCHS:
+        for reduced in (True, False):
+            cj = jax_config(arch, reduced=reduced)
+            ct = get_config(arch, reduced=reduced)
+            assert dataclasses.asdict(cj) == dataclasses.asdict(ct)
+            assert api.analytic_param_count(ct) == \
+                japi.analytic_param_count(cj)
+            assert ct.param_count() == cj.param_count()
+            js = japi.cache_specs(cj, 4, 100)
+            ts = api.cache_specs(ct, 4, 100)
+            assert sorted(js) == sorted(ts)
+            for k in js:
+                assert js[k][0] == ts[k][0] and js[k][2] == ts[k][2], k
+                assert str(ts[k][1]) == f"torch.{js[k][1].__name__}", k
+    assert set(list_archs()) == set(ARCHS)
+
+
+def test_unported_families_raise():
+    moe = dataclasses.replace(get_config("llama3.2-1b", reduced=True),
+                              moe=MoEConfig(num_experts=4, top_k=2,
+                                            expert_d_ff=32))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.init_params(moe, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.init_params(ModelConfig(name="m", family="ssm"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TL.attention(*(torch.zeros(1, 4, 2, 16),) * 3, impl="chunked")

@@ -1,5 +1,5 @@
 """The port's hand-written Hopper kernels against their plain PyTorch
-versions, and the replay through them, on the card.  Needs an NVIDIA
+versions, and the replay and LM serving through them, on the card.  Needs an NVIDIA
 GPU (marker ``gpu``); skips with a reason elsewhere.  Imports neither JAX nor ``repro``, so it runs on a
 machine that has only the port's dependencies:
 
@@ -28,6 +28,9 @@ from repro_torch.kernels.rate_gate.kernel import (  # noqa: E402
     rate_gate_prng)
 from repro_torch.kernels.rate_gate.ops import (  # noqa: E402
     fused_admission, rate_gate)
+from repro_torch.kernels.decode_attention import ops as attn_ops  # noqa: E402
+from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
+    decode_attention as decode_attention_kernel)
 
 pytestmark = pytest.mark.gpu
 
@@ -195,3 +198,128 @@ def test_cuda_prng_replay_matches_cuda_replay(cuda_device):
         assert launched == ((8, 0) if backend == "cuda" else (0, 8))
     assert np.array_equal(runs["cuda"][0], runs["cuda_prng"][0])
     assert runs["cuda"][1] == runs["cuda_prng"][1]
+
+
+# -- decode attention (TPU kernel 4) -----------------------------------------
+
+# (b, hkv, g, d, s): head dims 16..256, groups 1, 4, 5, 8, S not a
+# multiple of any tile
+_ATTN_SHAPES = [(3, 2, 1, 16, 200), (2, 2, 4, 32, 129), (4, 8, 4, 64, 517),
+                (2, 8, 5, 128, 300), (2, 4, 8, 64, 1000),
+                (2, 2, 2, 256, 77), (1, 16, 1, 256, 64)]
+
+
+def _attn_case(rng, b, hkv, g, d, s, q_dtype, kv_dtype, dev, empty=True):
+    q = torch.from_numpy(rng.normal(0, 1, (b, hkv * g, d))).to(dev, q_dtype)
+    k = torch.from_numpy(rng.normal(0, 1, (b, s, hkv, d))).to(dev, kv_dtype)
+    v = torch.from_numpy(rng.normal(0, 1, (b, s, hkv, d))).to(dev, kv_dtype)
+    lens = rng.integers(1, s + 1, b)
+    lens[0] = s
+    if b > 1:
+        lens[-1] = 0 if empty else 1
+    if b > 2:
+        lens[1] = 1
+    return q, k, v, torch.from_numpy(lens.astype(np.int32)).to(dev)
+
+
+# element by element: 1e-5 in float32; in bfloat16 one ulp of the plain
+# output (2^-7 |want|) plus 1e-5, as chip_smoke.py holds it
+_ATTN_ULPS = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+
+
+def _attn_excess(got, want, lens):
+    """max of |got - want| over its per-element tolerance, over rows with
+    keys; rows without keys must be 0."""
+    torch.cuda.synchronize()
+    full = torch.from_numpy(lens.cpu().numpy() > 0)
+    assert torch.all(got[~full] == 0)
+    want = want.float()[full]
+    diff = (got.float()[full] - want).abs()
+    return float((diff / (_ATTN_ULPS[got.dtype] * want.abs() + 1e-5)).max())
+
+
+def _check_attn(got, want, lens):
+    assert _attn_excess(got, want, lens) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _ATTN_SHAPES)
+def test_decode_attention_kernel_matches_plain(shape, dtype, cuda_device):
+    """The kernel against its plain version on ragged lengths (1, S, an
+    empty row, which must give 0), every head dim and group size."""
+    rng = np.random.default_rng(sum(shape))
+    q, k, v, lens = _attn_case(rng, *shape, dtype, dtype, cuda_device)
+    before = decode_attention_kernel.launches
+    got = attn_ops.decode_attention(q, k, v, lens, backend="cuda")
+    assert decode_attention_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attn_ops.decode_attention(q, k, v, lens, backend="ref")
+    _check_attn(got, want, lens)
+
+
+def test_decode_attention_reads_a_layer_of_the_stacked_cache(cuda_device):
+    """The kernel reads one layer's view of a [L,B,Smax,Hkv,D] cache in
+    place, and a float32 q against a bfloat16 cache (the int8-KV path)."""
+    rng = np.random.default_rng(5)
+    cache = torch.from_numpy(rng.normal(0, 1, (3, 2, 2, 300, 4, 64))).to(
+        cuda_device, torch.bfloat16)            # [L, B, k|v, S, Hkv, D]
+    q = torch.from_numpy(rng.normal(0, 1, (2, 16, 64))).to(cuda_device,
+                                                            torch.float32)
+    lens = torch.tensor([300, 17], dtype=torch.int32, device=cuda_device)
+    k, v = cache[1, :, 0], cache[1, :, 1]
+    assert not k.is_contiguous()
+    got = attn_ops.decode_attention(q, k, v, lens, backend="cuda")
+    want = attn_ops.decode_attention(q, k, v, lens, backend="ref")
+    _check_attn(got, want, lens)
+
+
+def test_decode_attention_tolerance_catches_a_skipped_tile(cuda_device):
+    """The bfloat16 tolerance catches a planted fault: the kernel reading
+    every row longer than a tile one 128-row tile short."""
+    rng = np.random.default_rng(7)
+    q, k, v, lens = _attn_case(rng, 4, 8, 4, 64, 4100, torch.bfloat16,
+                               torch.bfloat16, cuda_device, empty=False)
+    short = torch.where(lens > 128, lens - 128, lens)
+    got = attn_ops.decode_attention(q, k, v, short, backend="cuda")
+    want = attn_ops.decode_attention(q, k, v, lens, backend="ref")
+    assert _attn_excess(got, want, lens) > 1.0
+
+
+def test_decode_attention_kernel_rejects_what_it_cannot_take(cuda_device):
+    q = torch.zeros(2, 8, 48, device=cuda_device)
+    kv = torch.zeros(2, 10, 2, 48, device=cuda_device)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention_kernel(q, kv, kv, lens)
+    q = torch.zeros(2, 18, 64, device=cuda_device)
+    kv = torch.zeros(2, 10, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="group"):
+        decode_attention_kernel(q, kv, kv, lens)
+    q = torch.zeros(2, 8, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        decode_attention_kernel(q, kv, kv, lens)
+
+
+def test_serving_engine_cuda_matches_ref_on_card(cuda_device):
+    """Reduced llama in float32 on the card: the kernel's greedy tokens
+    equal the einsum path's, with one launch per layer and step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b", reduced=True),
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    params, _ = api.init_params(cfg, seed=0, device=cuda_device)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+    out = {}
+    for backend in ("ref", "cuda"):
+        before = decode_attention_kernel.launches
+        eng = ServingEngine(cfg, params, ServeConfig(
+            max_new_tokens=6, attn_backend=backend), device=cuda_device)
+        out[backend] = eng.generate({"tokens": toks})["tokens"].cpu()
+        launched = decode_attention_kernel.launches - before
+        assert launched == (cfg.num_layers * 5 if backend == "cuda" else 0)
+    assert torch.equal(out["ref"], out["cuda"])
