@@ -14,8 +14,11 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    key (``fused_gate_prng``) at several batch sizes (random LUTs, keys,
    bucket states, ragged batches); the selection-only gate on given and
    on seeded draws (``rate_gate``, ``rate_gate_prng``); and the INT8 GEMM
-   at the serving path's six shapes plus ragged ones, with and without
-   bias, shift in {None, 0, 7}, beside ``torch._int_mm``.  The
+   on a K-major B (as the serving weights are held) at the serving path's
+   six shapes plus ragged ones (K of the tiny model, M = 1), with and
+   without bias, shift in {None, 0, 7}, beside ``torch._int_mm`` on a
+   row-major and on a K-major B (the faster is the yardstick), with a
+   sweep of every tile shape; a row-major B must be refused.  The
    tolerance is exact equality (max |diff| = 0): every output is an
    integer.
 3. The selection-only gate's path: a kernel sweep through the public op
@@ -47,7 +50,9 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    bfloat16, which a planted fault (every row one tile short) must
    break.  Timed beside its plain version and
    ``scaled_dot_product_attention`` (the library yardstick, never on the
-   path), each against its bytes bound.
+   path), each against its bytes bound, with the split count the wrapper
+   picks, the other split counts, GB/s and the share of the bound, and
+   the clusters the card holds at once.
 6. LM serving: ``ServingEngine.generate`` on the full-width
    ``llama3.2-1b`` (16 layers, d_model 2048, 32/8 heads, vocab 128256)
    with random bfloat16 weights from ``--seed``, batch 8, a
@@ -380,21 +385,29 @@ def _gemm_bound_ms(m, k, n, shift):
 
 
 def phase_gemm(rng):
-    from repro_torch.kernels.int8_matmul.kernel import int8_gemm
-    from repro_torch.kernels.int8_matmul.ops import int8_matmul
+    from repro_torch.kernels.int8_matmul.kernel import (TILES, gemm_tile,
+                                                        int8_gemm)
+    from repro_torch.kernels.int8_matmul.ops import int8_matmul, k_major
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
     def operands(m, k, n):
+        """a [m, k], b [k, n] K-major (as the serving weights are held),
+        bias [n], on the card."""
         a = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))
         b = torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8))
         bias = torch.from_numpy(rng.integers(-50_000, 50_000, n,
                                              dtype=np.int32))
-        return a.cuda(), b.cuda(), bias.cuda()
+        return a.cuda(), k_major(b.cuda()), bias.cuda()
 
     worst = 0
-    shapes = [s[1:4] for s in PATH_GEMMS] + [(1, 1, 1), (17, 33, 9),
-                                             (1000, 100, 70),
-                                             (4099, 200, 130)]
+    # the path's six shapes, then ragged M/N/K: K of the tiny model (24,
+    # 8, 16), odd K, M = 1
+    shapes = [s[1:4] for s in PATH_GEMMS] + [
+        (1, 1, 1), (17, 33, 9), (1000, 100, 70), (4099, 200, 130),
+        (1, 256, 7), (1, 96, 64), (2304, 24, 16), (300, 8, 7),
+        (1024, 16, 7), (77, 512, 300)]
     for m, k, n in shapes:
         a, b, bias = operands(m, k, n)
         for shift in (None, 0, 7):
@@ -404,17 +417,28 @@ def phase_gemm(rng):
                 worst = max(worst, max_abs_diff(got, ref))
         neg = int((int8_matmul(a, b, None, None, backend="cuda") < 0)
                   .sum())
-        print(f"int8_gemm [{m},{k}]x[{k},{n}]: max|diff|={worst} "
+        print(f"int8_gemm [{m},{k}]x[{k},{n}] (tile "
+              f"{TILES[gemm_tile(m, n, sms)]}): max|diff|={worst} "
               f"negative accumulators={neg}")
     require(worst == 0, f"int8_gemm vs plain max|diff| {worst}")
+    a, b, _ = operands(64, 32, 16)
+    try:
+        int8_gemm(a, b.contiguous())
+    except ValueError as e:
+        print(f"int8_gemm refuses a row-major b: {e}")
+    else:
+        require(False, "int8_gemm took a row-major b")
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     by = set()
     for name, m, k, n, shift in PATH_GEMMS:
         a, b, bias = operands(m, k, n)
         # torch._int_mm (the raw int32 product only) needs N % 8 == 0:
-        # the head's 7 columns are padded to 8 for the yardstick
-        b_lib = b if n % 8 == 0 else torch.nn.functional.pad(
-            b, (0, 8 - n % 8))
+        # the head's 7 columns are padded to 8 for the yardstick, which
+        # is timed on a row-major and on a K-major B, the faster kept
+        b_row = b.contiguous()
+        if n % 8:
+            b_row = torch.nn.functional.pad(b_row, (0, 8 - n % 8))
+        b_col = k_major(b_row)
 
         def kern():
             return int8_gemm(a, b, bias, shift)
@@ -422,24 +446,41 @@ def phase_gemm(rng):
         def plain():
             return int8_matmul_ref(a, b, bias, shift)
 
-        def lib():
-            return torch._int_mm(a, b_lib)
-
-        ms, plain_ms, lib_ms = device_ms(kern), device_ms(plain), \
-            device_ms(lib)
+        lib_ms = {}
+        for layout, bl in (("row-major", b_row), ("K-major", b_col)):
+            try:
+                torch._int_mm(a, bl)
+            except RuntimeError as e:
+                print(f"torch._int_mm refuses a {layout} B: "
+                      f"{str(e).splitlines()[0]}")
+                continue
+            lib_ms[layout] = device_ms(lambda bl=bl: torch._int_mm(a, bl))
+        require(bool(lib_ms), "torch._int_mm took neither layout")
+        ms, plain_ms = device_ms(kern), device_ms(plain)
         bound, bb = _gemm_bound_ms(m, k, n, shift)
         by.add(bb)
-        print(f"int8_gemm {name} [{m},{k}]x[{k},{n}]: kernel {ms:.5f} ms, "
-              f"plain {plain_ms:.5f} ms, torch._int_mm {lib_ms:.5f} ms "
-              f"(device time, graph replay); eager kernel call "
-              f"{host_ms(kern):.5f} ms; bound {bound:.6f} ms ({bb})")
+        lib = min(lib_ms.values())
+        libs = ", ".join(f"{lay} {t:.5f} ms" for lay, t in lib_ms.items())
+        print(f"int8_gemm {name} [{m},{k}]x[{k},{n}] tile "
+              f"{TILES[gemm_tile(m, n, sms)]}: kernel {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms, torch._int_mm {libs} (device "
+              f"time, graph replay); eager kernel call "
+              f"{host_ms(kern):.5f} ms; bound {bound:.6f} ms ({bb}, "
+              f"{bound / ms:.3f} of it)")
+        sweep = ", ".join(
+            f"{bm}x{bn} "
+            f"{device_ms(lambda i=i: int8_gemm(a, b, bias, shift, i)):.5f}"
+            for i, (bm, bn) in enumerate(TILES))
+        print(f"  tile sweep ({name}, ms): {sweep}")
         for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("bound_ms", bound), ("library_ms", lib_ms)):
+                       ("bound_ms", bound), ("library_ms", lib)):
             total[key] += v
     print(f"int8_gemm per chunk (six GEMMs): kernel {total['ms']:.5f} ms, "
           f"plain {total['plain_ms']:.5f} ms, torch._int_mm "
-          f"{total['library_ms']:.5f} ms, bound {total['bound_ms']:.6f} ms; "
-          f"launches so far {int8_gemm.launches}")
+          f"{total['library_ms']:.5f} ms (the faster layout of each), "
+          f"bound {total['bound_ms']:.6f} ms "
+          f"({total['bound_ms'] / total['ms']:.3f} of it); launches so far "
+          f"{int8_gemm.launches}")
     return {"max_abs_err": worst, **total,
             "bound_by": "bytes" if by == {"bytes"} else "operations"}
 
@@ -740,6 +781,22 @@ def phase_slice(args):
     return launches, n / sec_k
 
 
+def _launches(avgs):
+    """Kernel launches in a profile: the host's cudaLaunchKernel calls and
+    the cluster launches of decode attention (cudaLaunchKernelExC)."""
+    from torch.autograd import DeviceType
+
+    return sum(a.count for a in avgs if a.device_type == DeviceType.CPU
+               and (a.key == "cudaLaunchKernel"
+                    or a.key.startswith("cudaLaunchKernelEx")))
+
+
+def _port_kernels(avgs):
+    """The port's own kernels among a profile's device entries."""
+    names = ("fused_gate", "rate_gate", "int8_gemm", "decode_attention")
+    return [a for a in avgs if any(n in a.key for n in names)]
+
+
 def profile_replay(model, stream, batch, cpe, chunks, gate):
     """One replay under torch.profiler: device busy time and idle share
     (profiler overhead included), launches per chunk, the top device
@@ -762,13 +819,13 @@ def profile_replay(model, stream, batch, cpe, chunks, gate):
     busy = sum(dev_us(a) for a in kern) / 1e6
     host = sorted((a for a in avgs if a.device_type == DeviceType.CPU),
                   key=lambda a: a.count, reverse=True)
-    n_launch = sum(a.count for a in host if a.key == "cudaLaunchKernel")
+    n_launch = _launches(avgs)
     n_ops = sum(a.count for a in host if a.key.startswith("aten::"))
     print(f"profile (gate {gate}): replay {sec:.4f} s under the profiler, "
           f"device busy {busy:.4f} s, idle share {1 - busy / sec:.3f}; "
-          f"{n_launch} cudaLaunchKernel = {n_launch / chunks:.1f} per "
+          f"{n_launch} kernel launches = {n_launch / chunks:.1f} per "
           f"chunk; {n_ops} aten ops = {n_ops / chunks:.0f} per chunk")
-    for a in kern[:8]:
+    for a in kern[:8] + _port_kernels(kern[8:]):
         print(f"  device {dev_us(a) / 1e3:9.3f} ms  x{a.count:6d}  "
               f"{a.key[:90]}")
     for a in host[:10]:
@@ -938,33 +995,64 @@ def phase_attention(rng, decode_s):
 
     # timing at the decode shape: lengths mid-decode, four caches in turn
     # (4 x 34 MB > L2), as the 16 layers of one step read 16 caches
+    from repro_torch.kernels.decode_attention.kernel import (
+        max_active_clusters, num_splits, sm_count, tile_rows)
+
+    sms = sm_count(torch.device("cuda"))
     lens = [decode_s - 16] * b
     sets = [_attn_inputs(rng, b, hkv, g, d, decode_s, torch.bfloat16, lens)
             for _ in range(4)]
-    ms = cold_ms([lambda x=x: decode_attention(*x) for x in sets])
+    rows = tile_rows(d, 2, True)
+    splits = num_splits(b, hkv, decode_s, rows, sms)
+    resident = max_active_clusters(b, hkv, g, d, torch.bfloat16,
+                                   torch.bfloat16, splits)
+    # kernel and SDPA in turns (kernel, sdpa, kernel, sdpa): the second
+    # reading of each is kept, the first only warms the card up
+    turns = [cold_ms([lambda x=x: decode_attention(*x) for x in sets]),
+             cold_ms([_sdpa(*x) for x in sets])]
+    turns += [cold_ms([lambda x=x: decode_attention(*x) for x in sets]),
+              cold_ms([_sdpa(*x) for x in sets])]
+    ms, lib_ms = turns[2], turns[3]
     plain_ms = cold_ms([lambda x=x: decode_attention_ref(*x) for x in sets])
-    lib_ms = cold_ms([_sdpa(*x) for x in sets])
+    print("  decode shape in turns (kernel, sdpa, kernel, sdpa): "
+          + ", ".join(f"{t:.5f}" for t in turns) + " ms")
     bound, by, byts = _attn_bound(sets[0][0], sets[0][1], sets[0][3])
     print(f"decode_attention Llama decode shape B={b} S={decode_s} Hkv={hkv} "
-          f"Hq={hkv * g} D={d} bf16 (lengths {lens[0]}): kernel {ms:.5f} ms, "
-          f"plain {plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms (device time, graph "
-          f"replay over 4 caches); bound {bound:.5f} ms ({by}, "
-          f"{byts / 1e6:.1f} MB); kernel at {byts / ms / 1e6:.1f} GB/s")
+          f"Hq={hkv * g} D={d} bf16 (lengths {lens[0]}): kernel {ms:.5f} ms "
+          f"with {splits} splits ({b * hkv * splits} CTAs on {sms} SMs, "
+          f"{resident} clusters resident at most), plain {plain_ms:.5f} "
+          f"ms, sdpa {lib_ms:.5f} ms (device time, graph replay over 4 "
+          f"caches); bound {bound:.5f} ms ({by}, {byts / 1e6:.1f} MB); "
+          f"kernel at {byts / ms / 1e6:.1f} GB/s, {bound / ms:.3f} of the "
+          f"bound, {lib_ms / ms:.3f}x sdpa's speed")
+    for sp in (1, 2, 4, 8):
+        if sp != splits:
+            t = cold_ms([lambda x=x: decode_attention(*x, splits=sp)
+                         for x in sets])
+            print(f"  decode shape with {sp} splits: {t:.5f} ms "
+                  f"({bound / t:.3f} of the bound)")
     row = {"max_abs_err": max(worst.values()), "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": lib_ms}
     q, k, v, lens_l = long_in
+    splits_l = num_splits(32, hkv, long_s, rows, sms)
+    bound_l, by_l, byts_l = _attn_bound(q, k, lens_l)
+    for sp in (1, 2, 4):
+        t = host_ms(lambda sp=sp: decode_attention(q, k, v, lens_l,
+                                                   splits=sp), iters=10)
+        print(f"  long context with {sp} splits: {t:.5f} ms "
+              f"({bound_l / t:.3f} of the bound)")
     ms_l = host_ms(lambda: decode_attention(q, k, v, lens_l), iters=10)
     plain_l = host_ms(lambda: decode_attention_ref(q, k, v, lens_l), iters=3,
                       warmup=1)
     lib_l = host_ms(_sdpa(q, k, v, lens_l), iters=3, warmup=1)
-    bound_l, by_l, byts_l = _attn_bound(q, k, lens_l)
     print(f"decode_attention long context B=32 S={long_s} Hkv={hkv} "
           f"Hq={hkv * g} D={d} bf16 (lengths in [S/2, S]): kernel "
-          f"{ms_l:.5f} ms, plain {plain_l:.5f} ms, sdpa {lib_l:.5f} ms "
-          f"(events around back-to-back calls); bound {bound_l:.5f} ms "
-          f"({by_l}, {byts_l / 1e9:.3f} GB); kernel at "
-          f"{byts_l / ms_l / 1e6:.1f} GB/s")
+          f"{ms_l:.5f} ms with {splits_l} splits, plain {plain_l:.5f} ms, "
+          f"sdpa {lib_l:.5f} ms (events around back-to-back calls); bound "
+          f"{bound_l:.5f} ms ({by_l}, {byts_l / 1e9:.3f} GB); kernel at "
+          f"{byts_l / ms_l / 1e6:.1f} GB/s, {bound_l / ms_l:.3f} of the "
+          f"bound, {lib_l / ms_l:.3f}x sdpa's speed")
     del sets, long_in, q, k, v
     torch.cuda.empty_cache()
     return row
@@ -1038,14 +1126,12 @@ def profile_decode(eng, prompt, steps):
     kern = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
                   key=dev_us, reverse=True)
     busy = sum(dev_us(a) for a in kern) / 1e6
-    n_launch = sum(a.count for a in avgs
-                   if a.device_type == DeviceType.CPU
-                   and a.key == "cudaLaunchKernel")
+    n_launch = _launches(avgs)
     print(f"profile (decode, {steps} steps): {sec:.4f} s under the profiler, "
           f"device busy {busy:.4f} s, idle share {1 - busy / sec:.3f}; "
-          f"{n_launch} cudaLaunchKernel = {n_launch / steps:.1f} per step; "
+          f"{n_launch} kernel launches = {n_launch / steps:.1f} per step; "
           f"{sec / steps * 1e3:.3f} ms a step")
-    for a in kern[:10]:
+    for a in kern[:10] + _port_kernels(kern[10:]):
         print(f"  device {dev_us(a) / 1e3:9.3f} ms  x{a.count:6d}  "
               f"{a.key[:90]}")
 

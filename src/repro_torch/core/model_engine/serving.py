@@ -7,12 +7,16 @@ Port of the serving half of ``repro/core/model_engine/serving.py``:
 ``train/checkpoint.py`` layout is ``step_XXXXXXXX/state.npz`` with
 ``␟``-joined keys plus ``meta.json``) and ``build_model``.  Training and
 quantization are not ported yet: an int8 model is served from a
-checkpoint directory (or from weights handed in by the caller).
+checkpoint directory (or from weights handed in by the caller).  The
+GEMM weights are held K-major from here on (``qparams_from_numpy``),
+packed once at load: the replay's launches are the same as with the
+reference's layout.
 """
 
 from __future__ import annotations
 
 import json
+import re
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -23,10 +27,18 @@ from repro_torch._device import validate_backend
 from repro_torch.configs.fenix_models import (MODEL_CONFIGS,
                                               TrafficModelConfig)
 from repro_torch.core.model_engine.inference import ByLenModel, EngineModel
+from repro_torch.kernels.int8_matmul.ops import k_major
 
 SERVING_MODELS = ("bylen",) + tuple(sorted(MODEL_CONFIGS))
 _SEP = "␟"
 _SENTINEL = "COMPLETE"
+
+
+def _is_gemm_weight(key: str) -> bool:
+    layer, _, leaf = key.partition("/")
+    return leaf == "w" and (layer == "head"
+                            or re.fullmatch(r"(conv|fc)\d+", layer)
+                            is not None)
 
 
 def qparams_from_numpy(qp: Dict, device=None) -> Dict:
@@ -34,7 +46,14 @@ def qparams_from_numpy(qp: Dict, device=None) -> Dict:
     loaded checkpoint, as numpy arrays) -> the port's integer model: the
     same keys, arrays as int8/int32 tensors on ``device``, 0-d entries
     (shifts, the pool multiplier) as Python ints, ``cfg_shifts`` nested
-    as a dict of ints."""
+    as a dict of ints.
+
+    The GEMM weights (``conv*/w`` [kk,Cin,Cout], ``fc*/w`` and ``head/w``
+    [K,N]) keep their shapes and values but are views of K-major buffers
+    (``ops.k_major``): the reduction dimension is contiguous, the layout
+    the INT8 kernel reads, so each GEMM takes its weight as it is (a conv
+    weight's [kk*Cin, Cout] reshape is a view).  The packing runs once
+    here; it adds no launch to a replay."""
     out: Dict = {}
     for k, v in qp.items():
         if isinstance(v, dict):
@@ -42,7 +61,8 @@ def qparams_from_numpy(qp: Dict, device=None) -> Dict:
         elif np.ndim(v) == 0:
             out[k] = int(np.asarray(v))
         else:
-            out[k] = torch.from_numpy(np.array(v)).to(device)
+            t = torch.from_numpy(np.array(v)).to(device)
+            out[k] = k_major(t) if _is_gemm_weight(k) else t
     return out
 
 

@@ -1,30 +1,107 @@
 """Wrapper of the hand-written GQA decode-attention kernel
 (``csrc/decode_attention.cu``), which replaces the TPU kernel
 ``repro/kernels/decode_attention/kernel.py::decode_attention_pallas``.
-The plain version of the same function is ``ref.decode_attention_ref``.
+The plain version of the same function is ``ref.decode_attention_ref``;
+``ref.decode_attention_split_ref`` is the plain version of the kernel's
+split-and-merge algorithm.
+
+The kernel splits each sequence across the CTAs of a thread-block
+cluster (flash-decoding in one launch).  How many, :func:`num_splits`
+decides on the host from shapes and the SM count only, so the decode
+loop never reads ``lengths`` back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_VP] * 5 + [_I] * 5 + [_LL] * 4 + [ctypes.c_float, _I, _I,
+_ARGTYPES = [_VP] * 5 + [_I] * 5 + [_LL] * 4 + [ctypes.c_float, _I, _I, _I,
                                                 _VP]
+_OCC_ARGTYPES = [_I] * 7 + [ctypes.POINTER(_I)]
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 8
+SPLITS = (1, 2, 4, 8)           # cluster sizes (8 is the portable most)
+STEP_BYTES = 2048               # K bytes of one KV head in a tile
+# num_splits: at most one wave of CTAs (five of the tensor-core kernel's
+# fit a SM at D = 64; four is the CUDA-core kernel's), and rows enough a
+# split to amortise its merge
+MAX_CTAS_PER_SM = 4
+MIN_SPLIT_ROWS = 2048
 # (q, k/v) dtype pairs: one dtype, or float32 q against the bfloat16 cache
 # that the int8-KV path loads
 _DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
            (torch.float32, torch.bfloat16))
+_SM_COUNT: Dict[int, int] = {}
+
+
+def tensor_cores(q_dtype, kv_dtype) -> bool:
+    """Whether the kernel runs its products on the tensor cores: bfloat16
+    q and KV (float32 stays on the CUDA cores, where TF32 would not hold
+    the float32 tolerance)."""
+    return q_dtype == kv_dtype == torch.bfloat16
+
+
+def tile_rows(d: int, kv_bytes: int, mma: bool) -> int:
+    """Rows of one tile, the unit the kernel splits S by and a warp folds
+    at a time: ``STEP_BYTES`` of K per KV head, and at least 16 rows (one
+    product's depth) on the tensor cores (``mma``)."""
+    rows = STEP_BYTES // (d * kv_bytes)
+    return max(rows, 16) if mma else rows
+
+
+def num_splits(b: int, hkv: int, s: int, rows: int, sm_count: int) -> int:
+    """CTAs per (batch row, KV head), from shapes and the SM count only (a
+    row's split past its length reads nothing, so ``lengths`` is never
+    read): double from 1 while the CTAs do not cover the SMs once; past
+    that, double while the CTAs stay within ``MAX_CTAS_PER_SM`` a SM (one
+    wave) and each split keeps at least ``MIN_SPLIT_ROWS`` rows of the
+    capacity ``s`` (more, shorter CTAs even out rows of unequal length,
+    but each adds a partial to merge).  Never above 8 (the portable
+    cluster) or the tiles (of ``rows``, :func:`tile_rows`) of ``s``, so
+    no split is empty by capacity.  The group size does not enter: it
+    changes the work a row, not the bytes a CTA reads."""
+    tiles = -(-s // rows)
+    splits = 1
+    while splits < SPLITS[-1] and 2 * splits <= tiles:
+        ctas = b * hkv * splits
+        if ctas >= sm_count and (2 * ctas > MAX_CTAS_PER_SM * sm_count
+                                 or s // (2 * splits) < MIN_SPLIT_ROWS):
+            break
+        splits *= 2
+    return splits
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def _lib():
     return _build.function("decode_attention_launch", _ARGTYPES)
+
+
+def max_active_clusters(b: int, hkv: int, g: int, d: int, q_dtype,
+                        kv_dtype, splits: int) -> int:
+    """Clusters of ``splits`` CTAs the card holds at once for this
+    instantiation (``cudaOccupancyMaxActiveClusters``)."""
+    fn = _build.function("decode_attention_max_clusters", _OCC_ARGTYPES)
+    out = _I(0)
+    _build.check(fn(b, hkv, g, d, int(q_dtype == torch.bfloat16),
+                    int(kv_dtype == torch.bfloat16), splits,
+                    ctypes.byref(out)), "decode_attention occupancy")
+    return out.value
 
 
 class _DecodeAttention:
@@ -34,12 +111,14 @@ class _DecodeAttention:
         self.launches = 0
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
+                 lengths: torch.Tensor,
+                 splits: Optional[int] = None) -> torch.Tensor:
         """q [B,Hq,D] contiguous; k, v [B,S,Hkv,D] read in place (any
         batch and sequence strides; each row of one head contiguous and
         16-byte aligned); lengths [B] int32; all on one CUDA device.
         q and k/v of one dtype (float32 or bfloat16), or a float32 q with
-        bfloat16 k/v.  Returns
+        bfloat16 k/v.  ``splits`` (1, 2, 4 or 8, at most the tiles of S)
+        overrides :func:`num_splits`, for measurement.  Returns
         [B,Hq,D] in V's dtype; a row with length 0 gives 0."""
         if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
             raise ValueError("decode_attention takes q [B,Hq,D] and k, v "
@@ -80,6 +159,14 @@ class _DecodeAttention:
                 raise ValueError(f"decode_attention: {name} rows must be "
                                  "contiguous [Hkv, D] blocks at 16-byte "
                                  f"aligned offsets; strides {x.stride()}")
+        rows = tile_rows(d, k.element_size(), tensor_cores(q.dtype,
+                                                             k.dtype))
+        tiles = -(-s // rows)
+        if splits is None:
+            splits = num_splits(b, hkv, s, rows, sm_count(q.device))
+        elif splits not in SPLITS or splits > max(tiles, 1):
+            raise ValueError(f"decode_attention: splits {splits} not in "
+                             f"{SPLITS} or above the {tiles} tiles of S")
         fn = _lib()
         out = torch.empty((b, hq, d), device=q.device, dtype=v.dtype)
         if b == 0 or hkv == 0:
@@ -88,8 +175,9 @@ class _DecodeAttention:
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     lengths.data_ptr(), out.data_ptr(), b, s, hkv,
                     hq // hkv, d, k.stride(0), k.stride(1), v.stride(0),
-                    v.stride(1), d ** -0.5, int(q.dtype == torch.bfloat16),
-                    int(k.dtype == torch.bfloat16), stream)
+                    v.stride(1), math.log2(math.e) * d ** -0.5,
+                    int(q.dtype == torch.bfloat16),
+                    int(k.dtype == torch.bfloat16), splits, stream)
         _build.check(status, "decode_attention")
         self.launches += 1
         return out

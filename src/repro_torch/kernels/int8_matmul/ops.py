@@ -6,7 +6,8 @@ conv-as-GEMM.  Port of ``repro/kernels/int8_matmul/ops.py``.
 plain PyTorch version on any device; ``None`` picks ``"cuda"`` for CUDA
 tensors and ``"ref"`` for CPU tensors.  The reference pads M/N/K to the
 TPU's 128-multiple blocks; the Hopper kernel masks ragged edges itself,
-so nothing is padded here.
+so nothing is padded here.  The kernel takes B K-major (``k_major``);
+the plain version takes either layout.
 """
 
 from __future__ import annotations
@@ -21,15 +22,24 @@ from repro_torch.kernels.int8_matmul.kernel import int8_gemm
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 
 
+def k_major(w: torch.Tensor) -> torch.Tensor:
+    """``w`` [..., N] as a view of the same shape and values over a
+    buffer whose reduction dimensions are contiguous (a [N, ...] buffer
+    with N moved last): the layout of the kernel's B.  For a conv weight
+    [kk, Cin, Cout] this keeps ``w.reshape(kk * Cin, Cout)`` a view."""
+    return w.movedim(-1, 0).contiguous().movedim(0, -1)
+
+
 def int8_matmul(a: torch.Tensor, b: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 shift: Optional[int] = None,
                 backend: Optional[str] = None) -> torch.Tensor:
     """INT8 GEMM with int32 accumulation and pow2 requantization.
 
-    a [M,K] int8, b [K,N] int8, bias [N] int32 (optional); ``shift``
-    rounds half up and saturates to int8, ``None`` returns the raw int32
-    accumulator.  Bit-identical across backends and with the reference.
+    a [M,K] int8, b [K,N] int8 (K-major for ``"cuda"``: see
+    :func:`k_major`), bias [N] int32 (optional); ``shift`` rounds half up
+    and saturates to int8, ``None`` returns the raw int32 accumulator.
+    Bit-identical across backends and with the reference.
     """
     if resolve_backend(backend, a, "matmul_backend") == "ref":
         return int8_matmul_ref(a, b, bias=bias, shift=shift)
@@ -41,8 +51,10 @@ def int8_conv1d(x: torch.Tensor, w: torch.Tensor,
                 backend: Optional[str] = None) -> torch.Tensor:
     """'same'-padded conv1d as im2col onto :func:`int8_matmul`.
 
-    x [B,S,Cin] int8, w [K,Cin,Cout] int8 (K odd) -> [B,S,Cout] (int8
-    when ``shift`` is given, int32 otherwise).
+    x [B,S,Cin] int8, w [K,Cin,Cout] int8 (K odd; for ``"cuda"`` a
+    :func:`k_major` view, whose reshape to [K*Cin, Cout] is a view, not
+    a copy) -> [B,S,Cout] (int8 when ``shift`` is given, int32
+    otherwise).
     """
     bsz, s, cin = x.shape
     kk, _, cout = w.shape

@@ -1,6 +1,8 @@
 """The port's decode attention (TPU kernel 4) against the JAX package on
 the CPU: its plain version against ``decode_attention_ref`` and against
-the Pallas kernel in interpret mode, and the backend rules of ``ops``.
+the Pallas kernel in interpret mode, the plain version of the kernel's
+split-and-merge algorithm against both, the kernel's split rule, and the
+backend rules of ``ops``.
 The hand-written CUDA kernel itself runs only on the card
 (tests/test_torch_on_card.py).
 """
@@ -13,9 +15,11 @@ import torch
 from _torch_parity import assert_close
 from repro.kernels.decode_attention.kernel import decode_attention_pallas
 from repro.kernels.decode_attention.ref import decode_attention_ref
-from repro_torch.kernels.decode_attention import ops
+from repro_torch.kernels.decode_attention import kernel, ops
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref as port_ref)
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_split_ref as split_ref, split_bounds)
 from repro_torch.models import layers
 from repro_torch.models.param import params_from_numpy
 
@@ -93,3 +97,67 @@ def test_backend_rules():
         ops.decode_attention(q, k, v, lens, backend="pallas")
     with pytest.raises(ValueError, match="CUDA"):
         layers.decode_attention(q, k, v, lens, backend="cuda")
+
+
+# -- the kernel's split-and-merge algorithm and its split rule ---------------
+
+def _split_case(seed, b, hkv, g, d, s, lens):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(0, 1, (b, hkv * g, d)).astype(np.float32)
+    k = rng.normal(0, 1, (b, s, hkv, d)).astype(np.float32)
+    v = rng.normal(0, 1, (b, s, hkv, d)).astype(np.float32)
+    lens = np.asarray(lens, np.int32)
+    jax_in = tuple(jnp.asarray(x) for x in (q, k, v, lens))
+    return jax_in, tuple(torch.from_numpy(x) for x in (q, k, v, lens))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [16, 64])
+def test_split_ref_matches_jax_ref_and_pallas(splits, d):
+    """The plain split-and-merge version (per-split float32 partials
+    merged in split order with the isinf guards) against the reference's
+    decode_attention_ref and the Pallas kernel in interpret mode, float32
+    within 1e-6: lengths S, 1, one inside the first split (so the later
+    splits lie wholly past it), a ragged one and an empty row (0, as the
+    Pallas kernel gives)."""
+    b, hkv, g, s = 5, 2, 4, 256
+    rows = kernel.tile_rows(d, 4, False)
+    lens = [s, 1, s // splits // 2 + 1, 171, 0]
+    jax_in, port_in = _split_case(splits * d, b, hkv, g, d, s, lens)
+    got = split_ref(*port_in, splits=splits, rows=rows)
+    pal = np.asarray(decode_attention_pallas(*jax_in, ck=64,
+                                             interpret=True))
+    assert_close(pal, got, 1e-6, f"pallas splits={splits}")
+    assert np.all(got[-1].numpy() == 0)
+    want = np.asarray(decode_attention_ref(*jax_in))
+    assert_close(want[:-1], got[:-1], 1e-6, f"ref splits={splits}")
+    bounds = split_bounds(s, splits, rows)
+    assert bounds[0][0] == 0 and bounds[-1][1] == s
+    assert all(hi > lo for lo, hi in bounds)
+    assert all(a[1] == b_[0] for a, b_ in zip(bounds, bounds[1:]))
+    assert lens[2] <= bounds[0][1] or splits == 1
+
+
+def test_split_rule_depends_on_shapes_only():
+    """num_splits gives 1, 2, 4 or 8, never more than the tiles of S (no
+    split empty by capacity), from integers alone; at the Llama decode
+    shape (B=8, Hkv=8, S=4128, D=64, bf16) on 132 SMs it gives 4 and at
+    B=32, S=32768 it gives 2, the counts the H100 measured fastest
+    (PERF.md)."""
+    for b in (1, 2, 8, 32, 128):
+        for hkv in (1, 2, 8):
+            for s in (1, 15, 16, 17, 100, 4128, 32768):
+                for d in kernel.HEAD_DIMS:
+                    for kv_bytes, mma in ((4, False), (2, False), (2, True)):
+                        rows = kernel.tile_rows(d, kv_bytes, mma)
+                        n = kernel.num_splits(b, hkv, s, rows, 132)
+                        assert n in kernel.SPLITS
+                        assert n <= max(1, -(-s // rows))
+                        assert n == kernel.num_splits(b, hkv, s, rows, 132)
+    rows = kernel.tile_rows(64, 2, kernel.tensor_cores(torch.bfloat16,
+                                                       torch.bfloat16))
+    assert rows == 16
+    assert kernel.num_splits(8, 8, 4128, rows, 132) == 4
+    assert kernel.num_splits(32, 8, 32768, rows, 132) == 2
+    assert kernel.num_splits(1, 8, 4128, rows, 132) == 8
+    assert kernel.num_splits(8, 8, 4128, rows, 66) == 2

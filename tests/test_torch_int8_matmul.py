@@ -136,3 +136,64 @@ def test_int8_apply_logits_match_jax():
     assert port.dtype == torch.int32
     assert_same(ref, port)
     assert int(np.unique(np.argmax(np.asarray(ref), -1)).size) > 1
+
+
+def test_qparams_hold_gemm_weights_k_major():
+    """qparams_from_numpy gives the reference's arrays, each GEMM weight a
+    view of a K-major buffer: a conv weight's [kk*Cin, Cout] reshape is a
+    view (same storage, stride(0) == 1) and the FC and head weights have
+    stride(0) == 1; int8_apply on them equals JAX (above) and so does a
+    FenixSystem replay (tests/test_torch_fenix.py)."""
+    cfg = fenix_cnn_tiny()
+    x, _, _ = windows_from_flows(make_flows("iscx", 60, seed=3))
+    qp = jax.tree.map(np.asarray, quantize_traffic(
+        jtraffic.init(cfg, seed=0), cfg, jnp.asarray(x[:256])))
+    port = qparams_from_numpy(qp, "cpu")
+    gemm = [k for k in qp if k.endswith("/w")]
+    assert sorted(gemm) == sorted(
+        [f"conv{i}/w" for i in range(len(cfg.conv_filters))]
+        + [f"fc{i}/w" for i in range(len(cfg.fc_dims))] + ["head/w"])
+    for key in gemm:
+        w = port[key]
+        assert_same(qp[key], w, key)
+        if w.dim() == 3:
+            kk, cin, cout = w.shape
+            w2 = w.reshape(kk * cin, cout)
+            assert w2.data_ptr() == w.data_ptr(), key
+            assert w2.stride(0) == 1, key
+        else:
+            assert w.stride(0) == 1, key
+    for key in qp:
+        if key not in gemm and isinstance(port[key], torch.Tensor):
+            assert port[key].is_contiguous(), key
+    assert ops.k_major(torch.from_numpy(qp["fc0/w"].copy())).stride(0) == 1
+
+
+# the serving path's six GEMMs at full width (chip_smoke.PATH_GEMMS) and
+# ragged ones (the tiny model's K = 24, 8, 16; M = 1; odd N)
+_TILE_SHAPES = [(9216, 96, 64), (9216, 192, 128), (9216, 384, 256),
+                (1024, 256, 512), (1024, 512, 256), (1024, 256, 7),
+                (2304, 24, 16), (300, 8, 7), (1024, 16, 7), (1, 96, 64),
+                (1, 1, 1), (17, 33, 9), (77, 512, 300)]
+
+
+@pytest.mark.parametrize("shape", _TILE_SHAPES)
+def test_gemm_tile_and_copy_width_are_legal(shape):
+    """The tile chooser returns a tile of the kernel (an index into
+    TILES) no wider than twice N unless it is the narrowest; the copy
+    width divides K, the leading dimensions and the pointers."""
+    from repro_torch.kernels.int8_matmul.kernel import (TILES, copy_width,
+                                                        gemm_tile)
+
+    m, k, n = shape
+    for sms in (132, 114, 1):
+        i = gemm_tile(m, n, sms)
+        assert 0 <= i < len(TILES)
+        bn = TILES[i][1]
+        assert bn < 2 * n or bn == min(t[1] for t in TILES)
+    w = copy_width(k, k, k, 256, 512)
+    assert w in (16, 4, 1) and k % w == 0
+    assert copy_width(k, k, k, 256, 513) == 1
+    if m * n >= 132 * 2 * 32 * 32:
+        bm, bn = TILES[gemm_tile(m, n, 132)]
+        assert -(-m // bm) * -(-n // bn) >= 2 * 132

@@ -17,6 +17,8 @@ from repro_torch.configs.fenix_models import fenix_cnn_tiny  # noqa: E402
 from repro_torch.core.fenix import FenixConfig, FenixSystem  # noqa: E402
 from repro_torch.core.model_engine.inference import (  # noqa: E402
     EngineModel)
+from repro_torch.core.model_engine.serving import (  # noqa: E402
+    qparams_from_numpy)
 from repro_torch.data.synthetic_traffic import (  # noqa: E402
     make_flows, packet_stream)
 from repro_torch.kernels.int8_matmul import ops as mm_ops  # noqa: E402
@@ -114,38 +116,61 @@ def test_rate_gate_kernels_match_plain(n, cuda_device):
         before[0] + 3, before[1] + 3)
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 1), (5, 33, 7), (130, 70, 129),
-                                   (9216, 96, 64), (1024, 256, 7),
-                                   (77, 512, 300)])
+# the serving path's six GEMMs (chip_smoke.PATH_GEMMS), then ragged M/N/K:
+# the tiny model's K (24, 8, 16), odd K, M = 1
+@pytest.mark.parametrize("shape", [
+    (9216, 96, 64), (9216, 192, 128), (9216, 384, 256), (1024, 256, 512),
+    (1024, 512, 256), (1024, 256, 7),
+    (1, 1, 1), (5, 33, 7), (130, 70, 129), (77, 512, 300), (1, 256, 7),
+    (2304, 24, 16), (300, 8, 7), (1024, 16, 7), (1, 96, 64)])
 def test_int8_gemm_kernel_matches_plain(shape, cuda_device):
+    """The kernel on a K-major B (as the serving weights are held), bias
+    and no bias, every shift, at max |diff| = 0."""
     rng = np.random.default_rng(sum(shape))
     m, k, n = shape
     a, b = (torch.from_numpy(rng.integers(-128, 128, s, dtype=np.int8)
                              ).to(cuda_device) for s in ((m, k), (k, n)))
+    b = mm_ops.k_major(b)
     bias = torch.from_numpy(rng.integers(-40_000, 40_000, n,
                                          dtype=np.int32)).to(cuda_device)
     before = int8_gemm.launches
-    for shift in (None, 0, 1, 9):
+    shifts = (None, 0, 1, 7, 9)
+    for shift in shifts:
         for bb in (None, bias):
             ref = mm_ops.int8_matmul(a, b, bb, shift, backend="ref")
             got = mm_ops.int8_matmul(a, b, bb, shift, backend="cuda")
             torch.cuda.synchronize()
             assert_same(ref, got, f"{shape} shift={shift}")
-    assert int8_gemm.launches == before + 8
+    assert int8_gemm.launches == before + 2 * len(shifts)
+
+
+def test_int8_gemm_kernel_refuses_a_row_major_b(cuda_device):
+    """The kernel reads B K-major and transposes nothing on the fly."""
+    a = torch.zeros(64, 32, dtype=torch.int8, device=cuda_device)
+    b = torch.zeros(32, 16, dtype=torch.int8, device=cuda_device)
+    before = int8_gemm.launches
+    with pytest.raises(ValueError, match="K-major"):
+        int8_gemm(a, b)
+    with pytest.raises(ValueError, match="K-major"):
+        mm_ops.int8_matmul(a, b, backend="cuda")
+    assert int8_gemm.launches == before
+    assert torch.equal(int8_gemm(a, mm_ops.k_major(b)),
+                       torch.zeros(64, 16, dtype=torch.int32,
+                                   device=cuda_device))
 
 
 def _tiny_model(seed=0):
-    """Random int8 weights in quantize_traffic's layout (tiny CNN)."""
+    """Random int8 weights in quantize_traffic's layout (tiny CNN), held
+    as the serving path holds them (qparams_from_numpy: K-major)."""
     cfg = fenix_cnn_tiny()
     rng = np.random.default_rng(seed)
     e, ch, fc = cfg.embed_dim, cfg.conv_filters[0], cfg.fc_dims[0]
 
     def w8(*shape):
-        return torch.from_numpy(rng.integers(-127, 128, shape,
-                                             dtype=np.int8))
+        return rng.integers(-127, 128, shape, dtype=np.int8)
 
     def b32(n):
-        return torch.from_numpy(rng.integers(-500, 500, n, dtype=np.int32))
+        return rng.integers(-500, 500, n, dtype=np.int32)
 
     qp = {"embed_len/table": w8(cfg.len_buckets, e),
           "embed_ipd/table": w8(cfg.ipd_buckets, e),
@@ -154,7 +179,7 @@ def _tiny_model(seed=0):
           "fc0/w": w8(ch, fc), "fc0/b": b32(fc), "fc0/shift": 8,
           "head/w": w8(fc, cfg.num_classes), "head/b": b32(cfg.num_classes),
           "head/shift": 0, "cfg_shifts": {}}
-    return EngineModel(cfg, qp)
+    return EngineModel(cfg, qparams_from_numpy(qp))
 
 
 def test_replay_with_kernels_matches_plain_and_cpu(cuda_device):
@@ -257,6 +282,48 @@ def test_decode_attention_kernel_matches_plain(shape, dtype, cuda_device):
     _check_attn(got, want, lens)
 
 
+# (b, hkv, g, d, s) for the forced split counts: G = 5 and D = 256 among
+# them; lengths S, 1, S/3 and 0, so a row's later splits lie wholly past
+# its length
+_SPLIT_SHAPES = [(4, 2, 4, 64, 700), (4, 1, 5, 128, 400),
+                 (4, 2, 8, 256, 160), (4, 4, 1, 16, 2100)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("shape", _SPLIT_SHAPES)
+def test_decode_attention_kernel_split_counts(shape, dtypes, splits,
+                                              cuda_device):
+    """Every cluster size against the plain version, with splits wholly
+    past a row's length; an empty row still gives 0."""
+    rng = np.random.default_rng(sum(shape) + splits)
+    b, hkv, g, d, s = shape
+    q, k, v, lens = _attn_case(rng, *shape, *dtypes, cuda_device)
+    lens[2] = s // 3
+    before = decode_attention_kernel.launches
+    got = decode_attention_kernel(q, k, v, lens, splits=splits)
+    assert decode_attention_kernel.launches == before + 1
+    _check_attn(got, attn_ops.decode_attention(q, k, v, lens,
+                                               backend="ref"), lens)
+
+
+def test_decode_attention_split_count_from_shapes(cuda_device):
+    """The split count at the Llama decode shape is 4 on a 132-SM card,
+    and a split count above the tiles of S is refused."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        num_splits, sm_count, tile_rows)
+
+    if sm_count(cuda_device) == 132:
+        assert num_splits(8, 8, 4128, tile_rows(64, 2, True), 132) == 4
+    q = torch.zeros(1, 4, 64, device=cuda_device)
+    kv = torch.zeros(1, 20, 1, 64, device=cuda_device)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="splits"):
+        decode_attention_kernel(q, kv, kv, lens, splits=4)
+
+
 def test_decode_attention_reads_a_layer_of_the_stacked_cache(cuda_device):
     """The kernel reads one layer's view of a [L,B,Smax,Hkv,D] cache in
     place, and a float32 q against a bfloat16 cache (the int8-KV path)."""
@@ -271,6 +338,9 @@ def test_decode_attention_reads_a_layer_of_the_stacked_cache(cuda_device):
     got = attn_ops.decode_attention(q, k, v, lens, backend="cuda")
     want = attn_ops.decode_attention(q, k, v, lens, backend="ref")
     _check_attn(got, want, lens)
+    for splits in (2, 8):
+        _check_attn(decode_attention_kernel(q, k, v, lens, splits=splits),
+                    want, lens)
 
 
 def test_decode_attention_tolerance_catches_a_skipped_tile(cuda_device):
