@@ -11,16 +11,20 @@ Phases, in order; any failure exits non-zero and no phase catches one:
 2. Kernels against their plain PyTorch versions on the card, each timed
    beside its plain version and its bound: the fused admission gate on
    given draws (``fused_gate``) and drawing its own threefry bits from a
-   key (``fused_gate_prng``) at several batch sizes (random LUTs, keys,
-   bucket states, ragged batches); the selection-only gate on given and
-   on seeded draws (``rate_gate``, ``rate_gate_prng``); and the INT8 GEMM
-   on a K-major B (as the serving weights are held) at the serving path's
-   six shapes plus ragged ones (K of the tiny model, M = 1), with and
-   without bias, shift in {None, 0, 7}, beside ``torch._int_mm`` on a
-   row-major and on a K-major B (the faster is the yardstick), with a
-   sweep of every tile shape; a row-major B must be refused.  The
-   tolerance is exact equality (max |diff| = 0): every output is an
-   integer.
+   key (``fused_gate_prng``) at batch sizes from 1 to 2^22 (random LUTs,
+   keys, bucket states, ragged batches, one cluster's batch and past it,
+   lanes at a storage offset of 1, both batch-start register branches
+   forced, and batches on which the bucket binds across CTAs and tiles),
+   with the runtime calls of one ``fused_admission`` call (one kernel
+   launch), the time at n = 1 (the floor of one launch) and GB/s at 2^20;
+   the selection-only gate on given and on seeded draws (``rate_gate``,
+   ``rate_gate_prng``); and the INT8 GEMM on a K-major B (as the serving
+   weights are held) at the serving path's six shapes plus ragged ones (K
+   of the tiny model, M = 1), with and without bias, shift in {None, 0, 7},
+   beside ``torch._int_mm`` on a row-major and on a K-major B (the faster
+   is the yardstick), with a sweep of every tile shape; a row-major B must
+   be refused. The tolerance is exact equality (max |diff| = 0): every
+   output is an integer.
 3. The selection-only gate's path: a kernel sweep through the public op
    ``rate_gate`` over LUTs built for a range of flow counts and rates,
    on given draws and on seeded draws, each selection rate held to the
@@ -221,14 +225,19 @@ def _bound_ms(byts, ops):
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
-def _gate_bound(n, draw):
+def _gate_bytes_ops(n, draw):
     """Fused gate: t_i, c_i, ts (and rand16 unless drawn) in, one byte a
-    lane out; the LUT, the registers and the key once."""
+    lane out; the LUT, the registers and the key once.  Returns (bytes,
+    operations)."""
     lanes_in = 3 if draw else 4
     byts = n * (4 * lanes_in + 1) + LUT_BYTES + 2 * 4 + 4 \
         + (KEY_BYTES if draw else 0)
     ops = n * GATE_OPS_PER_LANE + (THREEFRY_OPS * (n + 1) if draw else 0)
-    return _bound_ms(byts, ops)
+    return byts, ops
+
+
+def _gate_bound(n, draw):
+    return _bound_ms(*_gate_bytes_ops(n, draw))
 
 
 def _select_bound(n, draw):
@@ -257,6 +266,146 @@ def _timed(name, n, kern, plain, bound, by, worst, launches):
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
+# the fused gates' batch sizes: ragged ones, one CTA, one cluster (up to
+# 8192 lanes) and past it (the look-back over 3, 7, 256 and 1024 tiles of
+# 4096 lanes; 1024 tiles are about four waves of the card's 264 resident
+# 1024-thread CTAs, so tiles wait on tiles of an earlier wave)
+GATE_SIZES = (1, 256, 1000, 4059, 4096, 8192, 8193, 3 * 8192 + 5, 1 << 20,
+              1 << 22)
+GATE_TIMED = (1, 256, 4096, 8192, 1 << 20)
+# batches on which the bucket binds (_binding_gate_case): in one cluster,
+# just past it and across many tiles
+BIND_SIZES = (4096, 8192, 8193, 3 * 8192 + 5, 1 << 20, 1 << 22)
+BIND_COST, BIND_CAP = 3, 1 << 30
+
+
+def _binding_gate_case(rng, n, dev):
+    """A batch on which the token bucket binds all along, so that the
+    spend carried across CTAs and tiles decides grants: a small starting
+    bucket and timestamps that advance at the selected lanes' expected
+    spend (BIND_COST a selected lane), running ahead of it and then
+    behind it twice in the batch (runs of equal timestamps where they
+    lag).  About half of the selected lanes are denied, in runs that
+    cross CTAs and tiles; the cap is so high that the bucket level is
+    never clipped, so it depends on every grant."""
+    lut = rng.integers(0, 1 << 16, (64, 32))
+    lut[rng.random((64, 32)) < 0.2] = 0
+    t_i, c_i = rng.integers(0, 70_000, n), rng.integers(0, 40, n)
+    prob = lut[np.minimum(t_i >> 10, 63), np.minimum(c_i, 31)]
+    rate = BIND_COST * prob.mean() / (1 << 16)
+    period = n / 2
+    swing = 0.9 * rate * period / (2 * np.pi)   # keeps ts non-decreasing
+    i = np.arange(n)
+    ts = 10_000 + np.floor(rate * i + swing * np.sin(2 * np.pi * i / period))
+    arrs = dict(t_i=t_i, c_i=c_i, ts=ts, rand16=rng.integers(0, 1 << 16, n),
+                lut=lut, bucket=rng.integers(0, 4 * BIND_COST),
+                t_last=0 if rng.random() < 0.5 else
+                ts[0] - rng.integers(0, 9))
+    return {k: torch.from_numpy(np.asarray(v, np.int32)).to(dev)
+            for k, v in arrs.items()}
+
+
+def _misaligned(x):
+    """A copy of ``x`` at a storage offset of one element (4 bytes past a
+    16-byte boundary), contiguous."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x
+    return buf[1:]
+
+
+def _runtime_calls(fn):
+    """(kernel launches, memsets) of one call of ``fn`` under
+    torch.profiler, after one call outside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    return _launches(avgs), sum(a.count for a in avgs
+                                if a.device_type == DeviceType.CPU
+                                and a.key.startswith("cudaMemset"))
+
+
+GATE_LANES = ("t_i", "c_i", "ts", "rand16")
+
+
+def gate_check(c, key, worst, cost, cap, lanes=None):
+    """Both fused kernels through fused_admission on case ``c`` (its
+    lanes, or the views ``lanes`` of them) against the plain versions,
+    raising ``worst``'s max |diff| per kernel.  Returns {"fused_gate",
+    "fused_gate_prng"}: (selected, granted, bucket') of the plain
+    version."""
+    from repro_torch.kernels.rate_gate import ref
+    from repro_torch.kernels.rate_gate.ops import fused_admission
+
+    lanes = lanes or [c[k] for k in GATE_LANES]
+    kw = dict(cost_us=cost, bucket_cap_us=cap)
+    args = (*lanes[:3], c["lut"], c["bucket"], c["t_last"])
+    prob = ref.lut_prob(c["lut"], c["t_i"], c["c_i"], 10, 0)
+    out = {}
+    for name, backend, draws in (
+            ("fused_gate", "cuda", dict(rand16=lanes[3])),
+            ("fused_gate_prng", "cuda_prng", dict(key=key))):
+        plain = fused_admission(*args, backend="ref", **draws, **kw)
+        got = fused_admission(*args, backend=backend, **draws, **kw)
+        worst[name] = max(worst[name], max_abs_diff(plain[0], got[0]),
+                          max_abs_diff(plain[1], got[1]))
+        rand = lanes[3] if name == "fused_gate" \
+            else ref.draw_rand16(key, prob.shape[0], 16)
+        out[name] = (int((rand < prob).sum()), int(plain[0].sum()),
+                     int(plain[1]))
+    return out
+
+
+def gate_correctness(rng):
+    """Both fused kernels against their plain versions on random batches
+    (GATE_SIZES), lanes at a storage offset of 1, the two branches of the
+    batch-start registers forced, and batches on which the bucket binds
+    (BIND_SIZES); returns the worst max |diff| per kernel."""
+    cost, cap = 2, 128
+    worst = {"fused_gate": 0, "fused_gate_prng": 0}
+    for n in GATE_SIZES:
+        for trial in range(8 if n <= 8192 else 3):
+            c = _gate_case(rng, n, "cuda", cost, cap)
+            res = gate_check(c, _key(rng), worst, cost, cap)
+        print(f"fused gates n={n}: max|diff| {worst} "
+              f"(selected, granted, bucket) {res}")
+    for n in (1000, 4096, 3 * 8192 + 5):
+        c = _gate_case(rng, n, "cuda", cost, cap)
+        lanes = [_misaligned(c[k]) for k in GATE_LANES]
+        require(all(x.data_ptr() % 16 == 4 for x in lanes),
+                "misaligned views")
+        res = gate_check(c, _key(rng), worst, cost, cap, lanes)
+        print(f"fused gates n={n}, lanes at a storage offset of 1: "
+              f"max|diff| {worst} (selected, granted, bucket) {res}")
+    for n in (1000, 4096, 3 * 8192 + 5):
+        for branch in ("t_last == 0", "bucket > cap"):
+            c = _gate_case(rng, n, "cuda", cost, cap)
+            if branch == "t_last == 0":
+                c["t_last"].zero_()
+            else:
+                c["bucket"].fill_(cap + 1 + int(rng.integers(0, 3 * cap)))
+            res = gate_check(c, _key(rng), worst, cost, cap)
+        print(f"fused gates n={n}, {branch}: max|diff| {worst} "
+              f"(selected, granted, bucket) {res}")
+    for n in BIND_SIZES:
+        c = _binding_gate_case(rng, n, "cuda")
+        res = gate_check(c, _key(rng), worst, BIND_COST, BIND_CAP)
+        print(f"fused gates n={n}, bucket binding: max|diff| {worst} "
+              f"(selected, granted, bucket) {res}")
+        for name, (sel, granted, bucket) in res.items():
+            require(0.1 * sel < sel - granted < 0.9 * sel
+                    and 0 < bucket < BIND_CAP,
+                    f"{name} n={n}: the bucket does not bind ({sel} "
+                    f"selected, {granted} granted, bucket {bucket})")
+    return worst
+
+
 def phase_gate(rng):
     """Both fused admission kernels against their plain versions; returns
     {"fused_gate": row, "fused_gate_prng": row} at n=4096."""
@@ -266,43 +415,42 @@ def phase_gate(rng):
     from repro_torch.kernels.rate_gate.ops import fused_admission
 
     cost, cap = 2, 128
-    worst = {"fused_gate": 0, "fused_gate_prng": 0}
-    for n in (1, 256, 1000, 4059, 4096, 8192):
-        for trial in range(8):
-            c = _gate_case(rng, n, "cuda", cost, cap)
-            key = _key(rng)
-            kw = dict(cost_us=cost, bucket_cap_us=cap)
-            args = (c["t_i"], c["c_i"], c["ts"], c["lut"], c["bucket"],
-                    c["t_last"])
-            plain = fused_admission(*args, rand16=c["rand16"],
-                                    backend="ref", **kw)
-            got = fused_admission(*args, rand16=c["rand16"],
-                                  backend="cuda", **kw)
-            worst["fused_gate"] = max(worst["fused_gate"],
-                                      max_abs_diff(plain[0], got[0]),
-                                      max_abs_diff(plain[1], got[1]))
-            plain = fused_admission(*args, key=key, backend="ref", **kw)
-            got = fused_admission(*args, key=key, backend="cuda_prng", **kw)
-            worst["fused_gate_prng"] = max(worst["fused_gate_prng"],
-                                           max_abs_diff(plain[0], got[0]),
-                                           max_abs_diff(plain[1], got[1]))
-        print(f"fused gates n={n}: max|diff| {worst} "
-              f"granted={int(got[0].sum())}/{n}")
+    kw = dict(cost_us=cost, bucket_cap_us=cap)
+    worst = gate_correctness(rng)
     for name, w in worst.items():
         require(w == 0, f"{name} vs plain max|diff| {w}")
+
+    # the wrapper launches its kernel and nothing else (and, above one
+    # cluster's batch, a memset of the look-back's scratch)
+    for n in (4096, 1 << 20):
+        c = _gate_case(rng, n, "cuda", cost, cap)
+        key = _key(rng)
+        args = (c["t_i"], c["c_i"], c["ts"], c["lut"], c["bucket"],
+                c["t_last"])
+        calls = {
+            "cuda": _runtime_calls(lambda: fused_admission(
+                *args, rand16=c["rand16"], backend="cuda", **kw)),
+            "cuda_prng": _runtime_calls(lambda: fused_admission(
+                *args, key=key, backend="cuda_prng", **kw))}
+        print(f"fused_admission n={n}: (kernel launches, memsets) a call "
+              f"{calls}")
+        require(all(launch == 1 for launch, _ in calls.values()),
+                f"fused_admission launched {calls} at n={n}")
+
     out = {}
-    for n in (256, 4096, 8192):
+    for n in GATE_TIMED:
         c = _gate_case(rng, n, "cuda", cost, cap)
         key = _key(rng)
         t_ref = torch.where(c["t_last"] == 0, c["ts"][0], c["t_last"])
         burst0 = torch.clamp_max(c["bucket"], cap)
-        scal = torch.stack([burst0, t_ref])
-        kw = dict(t_shift=10, c_shift=0, cost_us=cost, bucket_cap_us=cap)
+        regs = (c["bucket"], c["t_last"])
+        kkw = dict(t_shift=10, c_shift=0, **kw)
         lanes = (c["t_i"], c["c_i"], c["ts"])
         rows = {
             "fused_gate": _timed(
                 "fused_gate", n,
-                lambda: fused_gate(*lanes, c["rand16"], c["lut"], scal, **kw),
+                lambda: fused_gate(*lanes, c["rand16"], c["lut"], *regs,
+                                   **kkw),
                 lambda: ref.fused_admission_ref(
                     *lanes, c["lut"], c["rand16"], burst0, t_ref, 10, 0,
                     cost, cap),
@@ -310,13 +458,20 @@ def phase_gate(rng):
                 lambda: fused_gate.launches),
             "fused_gate_prng": _timed(
                 "fused_gate_prng", n,
-                lambda: fused_gate_prng(*lanes, key, c["lut"], scal,
-                                        prob_bits=16, **kw),
+                lambda: fused_gate_prng(*lanes, key, c["lut"], *regs,
+                                        prob_bits=16, **kkw),
                 lambda: ref.fused_admission_prng_ref(
                     *lanes, c["lut"], key, burst0, t_ref, 10, 0, cost, cap,
                     16),
                 *_gate_bound(n, True), worst["fused_gate_prng"],
                 lambda: fused_gate_prng.launches)}
+        if n >= 1 << 20:
+            for name, row in rows.items():
+                byts = _gate_bytes_ops(n, name.endswith("prng"))[0]
+                print(f"{name} n={n}: {byts / 1e6:.3f} MB at "
+                      f"{byts / row['ms'] / 1e6:.1f} GB/s, "
+                      f"{row['bound_ms'] / row['ms']:.3f} of the bytes "
+                      "bound")
         out[n] = rows
     return out[4096]
 

@@ -18,7 +18,8 @@ in ``launches``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -53,15 +54,14 @@ class _GateKernel:
     def __init__(self):
         self.launches = 0
 
-    def _check(self, lanes, lut: torch.Tensor, key=None, scal=None
-               ) -> int:
+    def _check(self, lanes, lut: torch.Tensor, key=None, regs=()) -> int:
         """Common checks: one CUDA device, contiguous [n] int32 ``lanes``
         (name, tensor) with n >= 1, a 2-D int32 LUT that fits in shared
-        memory, and the ``key``/``scal`` operand where the kernel takes
-        one.  Returns n."""
+        memory, the ``key`` where the kernel takes one, and the one-element
+        int32 registers ``regs`` (name, tensor).  Returns n."""
         n = lanes[0][1].shape[0]
-        tensors = [x for _, x in lanes] + [lut] + [
-            x for x in (key, scal) if x is not None]
+        tensors = [x for _, x in lanes] + [lut] + [x for _, x in regs] + (
+            [key] if key is not None else [])
         if any(not x.is_cuda or x.device != tensors[0].device
                for x in tensors):
             raise ValueError(f"{self.name} runs on CUDA tensors of one "
@@ -82,11 +82,10 @@ class _GateKernel:
                                 or not key.is_contiguous()):
             raise ValueError(f"{self.name}: key must be a contiguous [2] "
                              "int64 threefry key (uint32 words)")
-        if scal is not None and (scal.dtype != torch.int32
-                                 or scal.shape != (2,)
-                                 or not scal.is_contiguous()):
-            raise ValueError(f"{self.name}: scal must be a contiguous [2] "
-                             "int32 tensor (burst0, t_ref)")
+        for name, x in regs:
+            if x.dtype != torch.int32 or x.numel() != 1:
+                raise ValueError(f"{self.name}: {name} must be a "
+                                 "one-element int32 tensor")
         return n
 
     def _launch(self, *args) -> None:
@@ -99,27 +98,31 @@ class _FusedGate(_GateKernel):
     """Fused admission of one batch on the card, rand-input variant."""
 
     name, symbol = "fused_gate", "fused_gate_launch"
-    argtypes = (_VP,) * 8 + (_I,) * 7 + (_VP,)
+    argtypes = (_VP,) * 10 + (_I,) * 8 + (_VP,)
 
     def __call__(self, t_i: torch.Tensor, c_i: torch.Tensor,
                  ts: torch.Tensor, rand16: torch.Tensor, lut: torch.Tensor,
-                 scal: torch.Tensor, *, t_shift: int, c_shift: int,
-                 cost_us: int, bucket_cap_us: int
+                 bucket: torch.Tensor, t_last: torch.Tensor, *, t_shift: int,
+                 c_shift: int, cost_us: int, bucket_cap_us: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """t_i, c_i, ts, rand16 [n] int32 (n >= 1; no padding needed);
-        lut [TB, CB] int32; scal [2] int32 on the device: (burst0,
-        t_ref).  Returns (granted [n] bool, bucket_new 0-d int32), both
-        on the device; nothing is read back to the host."""
+        """t_i, c_i, ts, rand16 [n] int32 (n >= 1; no padding, any
+        alignment); lut [TB, CB] int32; bucket, t_last: the batch-start
+        token-bucket registers, one int32 each on the device (the kernel
+        derives the refill anchor and the burst cap from them).  Returns
+        (granted [n] bool, bucket_new 0-d int32), both on the device;
+        nothing is read back to the host."""
         n = self._check([("t_i", t_i), ("c_i", c_i), ("ts", ts),
-                         ("rand16", rand16)], lut, scal=scal)
-        granted, bucket = _gate_outputs(n, t_i.device)
+                         ("rand16", rand16)], lut,
+                        regs=[("bucket", bucket), ("t_last", t_last)])
+        granted, bucket_new, scratch = _gate_outputs(n, t_i.device, False)
         tb, cb = lut.shape
         self._launch(t_i.data_ptr(), c_i.data_ptr(), ts.data_ptr(),
-                     rand16.data_ptr(), lut.data_ptr(), scal.data_ptr(),
-                     granted.data_ptr(), bucket.data_ptr(), n, tb, cb,
-                     t_shift, c_shift, cost_us, bucket_cap_us,
+                     rand16.data_ptr(), lut.data_ptr(), bucket.data_ptr(),
+                     t_last.data_ptr(), granted.data_ptr(),
+                     bucket_new.data_ptr(), *_scratch_args(scratch), n,
+                     tb, cb, t_shift, c_shift, cost_us, bucket_cap_us,
                      _stream(t_i))
-        return granted, bucket[0]
+        return granted, bucket_new[0]
 
 
 class _FusedGatePrng(_GateKernel):
@@ -127,26 +130,28 @@ class _FusedGatePrng(_GateKernel):
     from the chunk's threefry subkey ``key``."""
 
     name, symbol = "fused_gate_prng", "fused_gate_prng_launch"
-    argtypes = (_VP,) * 8 + (_I,) * 8 + (_VP,)
+    argtypes = (_VP,) * 10 + (_I,) * 9 + (_VP,)
 
     def __call__(self, t_i: torch.Tensor, c_i: torch.Tensor,
                  ts: torch.Tensor, key: torch.Tensor, lut: torch.Tensor,
-                 scal: torch.Tensor, *, t_shift: int, c_shift: int,
-                 prob_bits: int, cost_us: int, bucket_cap_us: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 bucket: torch.Tensor, t_last: torch.Tensor, *, t_shift: int,
+                 c_shift: int, prob_bits: int, cost_us: int,
+                 bucket_cap_us: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """As :data:`fused_gate`, with ``rand16`` replaced by the draws
         ``prng.randint(key, n, 0, 2^prob_bits)`` made in the kernel."""
         n = self._check([("t_i", t_i), ("c_i", c_i), ("ts", ts)], lut,
-                        key=key, scal=scal)
+                        key=key,
+                        regs=[("bucket", bucket), ("t_last", t_last)])
         _check_prob_bits(prob_bits, self.name)
-        granted, bucket = _gate_outputs(n, t_i.device)
+        granted, bucket_new, scratch = _gate_outputs(n, t_i.device, True)
         tb, cb = lut.shape
         self._launch(t_i.data_ptr(), c_i.data_ptr(), ts.data_ptr(),
-                     key.data_ptr(), lut.data_ptr(), scal.data_ptr(),
-                     granted.data_ptr(), bucket.data_ptr(), n, tb, cb,
-                     t_shift, c_shift, prob_bits, cost_us, bucket_cap_us,
-                     _stream(t_i))
-        return granted, bucket[0]
+                     key.data_ptr(), lut.data_ptr(), bucket.data_ptr(),
+                     t_last.data_ptr(), granted.data_ptr(),
+                     bucket_new.data_ptr(), *_scratch_args(scratch), n,
+                     tb, cb, t_shift, c_shift, prob_bits, cost_us,
+                     bucket_cap_us, _stream(t_i))
+        return granted, bucket_new[0]
 
 
 class _RateGate(_GateKernel):
@@ -192,9 +197,28 @@ class _RateGatePrng(_GateKernel):
         return out
 
 
-def _gate_outputs(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+@functools.lru_cache(maxsize=64)
+def _scratch_words(n: int, draw: bool) -> int:
+    """The int64 words of look-back scratch a batch of ``n`` lanes needs:
+    0 up to one cluster's batch.  Asked of the library once per size."""
+    return _build.function("fused_gate_scratch_words", (_I, _I))(n, draw)
+
+
+def _gate_outputs(n: int, device, draw: bool) -> Tuple[
+        torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """granted [n] bool, bucket [1] int32 and the look-back's int64
+    scratch, which the launcher zeroes (None up to one cluster's batch:
+    that path takes none)."""
+    words = _scratch_words(n, draw)
     return (torch.empty((n,), dtype=torch.bool, device=device),
-            torch.empty((1,), dtype=torch.int32, device=device))
+            torch.empty((1,), dtype=torch.int32, device=device),
+            torch.empty((words,), dtype=torch.int64, device=device)
+            if words else None)
+
+
+def _scratch_args(x: Optional[torch.Tensor]) -> Tuple[Optional[int], int]:
+    """(pointer, words) of the scratch: (NULL, 0) where there is none."""
+    return (None, 0) if x is None else (x.data_ptr(), x.numel())
 
 
 def _stream(x: torch.Tensor) -> int:

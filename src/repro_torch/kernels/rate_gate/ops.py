@@ -89,9 +89,11 @@ def fused_admission(t_i: torch.Tensor, c_i: torch.Tensor, ts: torch.Tensor,
     ``key`` (``randint(key, (n,), 0, 2^prob_bits)``); ``"cuda_prng"``
     takes ``key`` only and draws in the kernel.  ``bucket``/``t_last``
     are the batch-start token-bucket registers (0-d int32); the refill
-    anchor and the burst cap are derived here as the reference's
-    ``ops.py:125-126`` does.  The kernels mask ragged lanes and read the
-    true last timestamp, so nothing is padded.
+    anchor and the burst cap are derived from them as the reference's
+    ``ops.py:125-126`` does: here for ``"ref"``, inside the kernel for
+    ``"cuda"``/``"cuda_prng"``, which then launch that one kernel and
+    nothing else.  The kernels mask ragged lanes and read the true last
+    timestamp, so nothing is padded.
     """
     backend = _device.resolve_backend(backend, t_i, "gate_backend")
     if (rand16 is None) == (key is None):
@@ -99,20 +101,17 @@ def fused_admission(t_i: torch.Tensor, c_i: torch.Tensor, ts: torch.Tensor,
     if backend == "cuda_prng" and key is None:
         raise ValueError("gate_backend=\"cuda_prng\" draws its own bits: "
                          "pass key=, not rand16=")
-    t_ref = torch.where(t_last == 0, ts[0], t_last).to(I32)
-    burst0 = torch.clamp_max(bucket, bucket_cap_us).to(I32)
+    kw = dict(t_shift=t_shift, c_shift=c_shift, cost_us=cost_us,
+              bucket_cap_us=bucket_cap_us)
     if backend == "cuda_prng":
-        return k.fused_gate_prng(
-            t_i, c_i, ts, key, lut, torch.stack([burst0, t_ref]),
-            t_shift=t_shift, c_shift=c_shift, prob_bits=prob_bits,
-            cost_us=cost_us, bucket_cap_us=bucket_cap_us)
+        return k.fused_gate_prng(t_i, c_i, ts, key, lut, bucket, t_last,
+                                 prob_bits=prob_bits, **kw)
     if rand16 is None:
         rand16 = draw_rand16(key, t_i.shape[0], prob_bits)
     if backend == "ref":
+        t_ref = torch.where(t_last == 0, ts[0], t_last).to(I32)
+        burst0 = torch.clamp_max(bucket, bucket_cap_us).to(I32)
         return fused_admission_ref(t_i, c_i, ts, lut, rand16, burst0,
                                    t_ref, t_shift, c_shift, cost_us,
                                    bucket_cap_us)
-    return k.fused_gate(t_i, c_i, ts, rand16, lut,
-                        torch.stack([burst0, t_ref]), t_shift=t_shift,
-                        c_shift=c_shift, cost_us=cost_us,
-                        bucket_cap_us=bucket_cap_us)
+    return k.fused_gate(t_i, c_i, ts, rand16, lut, bucket, t_last, **kw)

@@ -50,7 +50,39 @@ def _gate_case(rng, n, dev):
             for k, v in arrs.items()}
 
 
-@pytest.mark.parametrize("n", [1, 255, 1000, 4096, 8192])
+# one CTA, one cluster (up to 8192 lanes) and past it: the look-back over
+# 3, 7, 256 and 1024 tiles of 4096 lanes (1024 tiles are about four waves
+# of the 264 1024-thread CTAs an H100 holds at once)
+GATE_SIZES = [1, 255, 1000, 4096, 8192, 8193, 3 * 8192 + 5, 1 << 20,
+              1 << 22]
+BIND_SIZES = [4096, 8192, 8193, 3 * 8192 + 5, 1 << 20, 1 << 22]
+BIND_COST, BIND_CAP = 3, 1 << 30
+
+
+def _binding_case(rng, n, dev):
+    """A batch on which the token bucket binds all along: a small
+    starting bucket and timestamps that advance at the selected lanes'
+    expected spend, ahead of it and then behind it twice in the batch, so
+    that about half of the selected lanes are denied in runs that cross
+    CTAs and tiles; the cap never clips the bucket level."""
+    lut = rng.integers(0, 1 << 16, (64, 32))
+    lut[rng.random((64, 32)) < 0.2] = 0
+    t_i, c_i = rng.integers(0, 70_000, n), rng.integers(0, 40, n)
+    prob = lut[np.minimum(t_i >> 10, 63), np.minimum(c_i, 31)]
+    rate = BIND_COST * prob.mean() / (1 << 16)
+    period = n / 2
+    swing = 0.9 * rate * period / (2 * np.pi)   # keeps ts non-decreasing
+    i = np.arange(n)
+    ts = 10_000 + np.floor(rate * i + swing * np.sin(2 * np.pi * i / period))
+    arrs = dict(t_i=t_i, c_i=c_i, ts=ts, rand16=rng.integers(0, 1 << 16, n),
+                lut=lut, bucket=rng.integers(0, 4 * BIND_COST),
+                t_last=0 if rng.random() < 0.5 else
+                ts[0] - rng.integers(0, 9))
+    return {k: torch.from_numpy(np.asarray(v, np.int32)).to(dev)
+            for k, v in arrs.items()}
+
+
+@pytest.mark.parametrize("n", GATE_SIZES)
 def test_fused_gate_kernel_matches_plain(n, cuda_device):
     rng = np.random.default_rng(n)
     before = fused_gate.launches
@@ -72,7 +104,7 @@ def _key(rng, dev):
                             ).to(dev)
 
 
-@pytest.mark.parametrize("n", [1, 255, 1000, 4096, 8192])
+@pytest.mark.parametrize("n", GATE_SIZES)
 def test_fused_gate_prng_kernel_matches_plain(n, cuda_device):
     """The drawing kernel against fused_admission_ref on the draws of
     the same key."""
@@ -91,6 +123,104 @@ def test_fused_gate_prng_kernel_matches_plain(n, cuda_device):
         assert_same(res["ref"], res["cuda_prng"], f"n={n}")
         assert_same(res["ref"], res["cuda"], f"n={n}")
     assert fused_gate_prng.launches == before + 4
+
+
+def _misaligned(x):
+    """A copy of ``x`` at a storage offset of one element: contiguous,
+    4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x
+    return buf[1:]
+
+
+@pytest.mark.parametrize("n", [1000, 8192, 3 * 8192 + 5])
+def test_fused_gate_kernels_take_misaligned_lanes(n, cuda_device):
+    """Lanes that are not 16-byte aligned (the kernels' 4-byte load path)
+    give the plain versions' results, through the kernel wrappers
+    (bucket, t_last in place of the old register pair) and through
+    fused_admission; each call launches its kernel once."""
+    rng = np.random.default_rng(900 + n)
+    c = _gate_case(rng, n, cuda_device)
+    key = _key(rng, cuda_device)
+    lanes = [_misaligned(c[k]) for k in ("t_i", "c_i", "ts", "rand16")]
+    assert all(x.data_ptr() % 16 == 4 for x in lanes)
+    regs = (c["bucket"], c["t_last"])
+    kw = dict(t_shift=10, c_shift=0, cost_us=3, bucket_cap_us=150)
+    t_ref = torch.where(c["t_last"] == 0, c["ts"][0], c["t_last"])
+    burst0 = torch.clamp_max(c["bucket"], 150)
+    plain = gate_ref.fused_admission_ref(c["t_i"], c["c_i"], c["ts"],
+                                         c["lut"], c["rand16"], burst0,
+                                         t_ref, 10, 0, 3, 150)
+    plain_d = gate_ref.fused_admission_prng_ref(c["t_i"], c["c_i"], c["ts"],
+                                                c["lut"], key, burst0,
+                                                t_ref, 10, 0, 3, 150, 16)
+    before = (fused_gate.launches, fused_gate_prng.launches)
+    got = fused_gate(*lanes, c["lut"], *regs, **kw)
+    got_d = fused_gate_prng(*lanes[:3], key, c["lut"], *regs, prob_bits=16,
+                            **kw)
+    via_op = fused_admission(*lanes[:3], c["lut"], *regs, rand16=lanes[3],
+                             cost_us=3, bucket_cap_us=150)
+    via_op_d = fused_admission(*lanes[:3], c["lut"], *regs, key=key,
+                               cost_us=3, bucket_cap_us=150,
+                               backend="cuda_prng")
+    torch.cuda.synchronize()
+    for a, b in ((plain, got), (plain, via_op), (plain_d, got_d),
+                 (plain_d, via_op_d)):
+        assert_same(a, b, f"n={n}")
+    assert (fused_gate.launches, fused_gate_prng.launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("n", BIND_SIZES)
+def test_fused_gate_kernels_when_the_bucket_binds(n, cuda_device):
+    """Both kernels through fused_admission against their plain versions
+    on batches where the bucket denies a real share of the selected lanes
+    in every swing and ends strictly inside (0, cap): the spend carried
+    between the CTAs of a cluster and across look-back tiles, and the
+    grant count of every CTA, decide the outputs."""
+    rng = np.random.default_rng(300 + n)
+    kw = dict(cost_us=BIND_COST, bucket_cap_us=BIND_CAP)
+    for _ in range(2):
+        c = _binding_case(rng, n, cuda_device)
+        key = _key(rng, cuda_device)
+        args = (c["t_i"], c["c_i"], c["ts"], c["lut"], c["bucket"],
+                c["t_last"])
+        prob = gate_ref.lut_prob(c["lut"], c["t_i"], c["c_i"], 10, 0)
+        for backend, draws, rand in (
+                ("cuda", dict(rand16=c["rand16"]), c["rand16"]),
+                ("cuda_prng", dict(key=key),
+                 gate_ref.draw_rand16(key, n, 16))):
+            plain = fused_admission(*args, backend="ref", **draws, **kw)
+            got = fused_admission(*args, backend=backend, **draws, **kw)
+            assert_same(plain, got, f"{backend} n={n}")
+            sel, granted = int((rand < prob).sum()), int(plain[0].sum())
+            assert 0.1 * sel < sel - granted < 0.9 * sel, (sel, granted)
+            assert 0 < int(plain[1]) < BIND_CAP, int(plain[1])
+
+
+@pytest.mark.parametrize("n", [1000, 4096, 3 * 8192 + 5])
+@pytest.mark.parametrize("branch", ["t_last_zero", "bucket_over_cap"])
+def test_fused_gate_kernels_batch_start_registers(branch, n, cuda_device):
+    """The two branches of the batch-start registers that the kernels
+    derive themselves, forced on every trial: t_last == 0 (the refill
+    anchor is ts[0]) and bucket > bucket_cap_us (the burst is capped),
+    through the "cuda" and "cuda_prng" backends."""
+    rng = np.random.default_rng(400 + n + len(branch))
+    for _ in range(4):
+        c = _gate_case(rng, n, cuda_device)
+        if branch == "t_last_zero":
+            c["t_last"].zero_()
+        else:
+            c["bucket"].fill_(150 + 1 + int(rng.integers(0, 450)))
+        key = _key(rng, cuda_device)
+        args = (c["t_i"], c["c_i"], c["ts"], c["lut"], c["bucket"],
+                c["t_last"])
+        kw = dict(cost_us=3, bucket_cap_us=150)
+        for backend, draws in (("cuda", dict(rand16=c["rand16"])),
+                               ("cuda_prng", dict(key=key))):
+            plain = fused_admission(*args, backend="ref", **draws, **kw)
+            got = fused_admission(*args, backend=backend, **draws, **kw)
+            assert_same(plain, got, f"{branch} {backend} n={n}")
 
 
 @pytest.mark.parametrize("n", [1, 255, 1000, 4096, 100_000])

@@ -62,8 +62,15 @@ def _port(c, backend=None, device="cpu"):
                            cost_us=COST, bucket_cap_us=CAP, backend=backend)
 
 
-@pytest.mark.parametrize("n", [1, 255, 256, 1000])
-@pytest.mark.parametrize("jax_backend", ["ref", "pallas"])
+# JAX's interpreted kernel at the small sizes, its "ref" backend at those
+# of one whole CTA tile (4096 lanes) and past it (8193, the look-back's
+# smallest case on the card)
+_FUSED_CASES = [(b, n) for b in ("ref", "pallas") for n in (1, 255, 256, 1000)
+                ] + [("ref", 4096), ("ref", 8193)]
+
+
+@pytest.mark.parametrize("jax_backend,n", _FUSED_CASES,
+                         ids=[f"{b}-{n}" for b, n in _FUSED_CASES])
 def test_fused_admission_matches_jax(n, jax_backend):
     rng = np.random.default_rng(n)
     for trial in range(6):
@@ -83,8 +90,41 @@ def test_fused_admission_cuda_backend_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         t = {k: torch.as_tensor(np.asarray(v)) for k, v in c.items()}
         fused_gate(t["t_i"], t["c_i"], t["ts"], t["rand16"], t["lut"],
-                   torch.zeros(2, dtype=torch.int32), t_shift=10,
-                   c_shift=0, cost_us=COST, bucket_cap_us=CAP)
+                   t["bucket"], t["t_last"], t_shift=10, c_shift=0,
+                   cost_us=COST, bucket_cap_us=CAP)
+
+
+@pytest.mark.parametrize("branch", ["t_last_zero", "bucket_over_cap"])
+@pytest.mark.parametrize("draws", ["rand16", "key"])
+def test_fused_admission_batch_start_registers(branch, draws):
+    """The two branches of the batch-start registers, which the kernels
+    take over from the wrapper: t_last == 0 (the refill anchor is ts[0])
+    and bucket > bucket_cap_us (the burst is capped), on given draws and
+    on a key's, against JAX's fused_admission on the same numpy inputs."""
+    rng = np.random.default_rng(700 + len(branch) + len(draws))
+    n = 777
+    for trial in range(4):
+        c = _case(rng, n, t_last_zero=branch == "t_last_zero")
+        if branch == "bucket_over_cap":
+            c["bucket"] = np.int32(CAP + 1 + rng.integers(0, 3 * CAP))
+        t = _tensors(c)
+        if draws == "key":
+            key = jax.random.split(jax.random.PRNGKey(int(rng.integers(
+                0, 2**31))))[1]
+            c["rand16"] = np.asarray(jax.random.randint(key, (n,), 0,
+                                                        1 << 16, jnp.int32))
+            port = fused_admission(
+                t["t_i"], t["c_i"], t["ts"], t["lut"], t["bucket"],
+                t["t_last"], key=torch.as_tensor(
+                    np.asarray(key).astype(np.int64)),
+                cost_us=COST, bucket_cap_us=CAP)
+        else:
+            port = _port(c)
+        g_ref, b_ref = _jax(c, "pallas")
+        assert_same(g_ref, port[0], f"{branch} granted trial={trial}")
+        assert_same(b_ref, port[1], f"{branch} bucket trial={trial}")
+        if branch == "bucket_over_cap":
+            assert int(b_ref) <= CAP
 
 
 RAGGED = [1, 7, 255, 256, 257, 1000]
@@ -133,11 +173,12 @@ def test_seeded_rate_gate_matches_jax(n):
         assert_same(ref, via_op, f"n={n} seed={seed}")
 
 
-@pytest.mark.parametrize("n", RAGGED)
+@pytest.mark.parametrize("n", RAGGED + [3 * 8192 + 5])
 def test_keyed_fused_admission_matches_jax(n):
     """The plain version of the drawing fused kernel: fused admission on
     the draws of a chunk's subkey, against JAX's fused_admission fed
-    rand16=jax.random.randint(sub, (n,), 0, 2^16)."""
+    rand16=jax.random.randint(sub, (n,), 0, 2^16) (interpreted kernel;
+    its "ref" backend past three CTA tiles)."""
     rng = np.random.default_rng(500 + n)
     for trial in range(4):
         c = _case(rng, n, t_last_zero=trial % 3 == 0)
@@ -145,7 +186,7 @@ def test_keyed_fused_admission_matches_jax(n):
             0, 2**31))))[1]
         rand = jax.random.randint(key, (n,), 0, 1 << 16, jnp.int32)
         jc = dict(c, rand16=np.asarray(rand))
-        g_ref, b_ref = _jax(jc, "pallas")
+        g_ref, b_ref = _jax(jc, "pallas" if n <= 1000 else "ref")
         t = _tensors(c)
         tkey = torch.as_tensor(np.asarray(key).astype(np.int64))
         t_ref = torch.where(t["t_last"] == 0, t["ts"][0], t["t_last"])
@@ -178,9 +219,8 @@ def test_cuda_prng_backend_rejects_cpu_tensors():
             rate_gate(t["t_i"], t["c_i"], t["lut"], seed=3, backend=backend)
     with pytest.raises(ValueError, match="CUDA"):
         fused_gate_prng(t["t_i"], t["c_i"], t["ts"], key, t["lut"],
-                        torch.zeros(2, dtype=torch.int32), t_shift=10,
-                        c_shift=0, prob_bits=16, cost_us=COST,
-                        bucket_cap_us=CAP)
+                        t["bucket"], t["t_last"], t_shift=10, c_shift=0,
+                        prob_bits=16, cost_us=COST, bucket_cap_us=CAP)
     with pytest.raises(ValueError, match="CUDA"):
         rate_gate_prng(t["t_i"], t["c_i"], key, t["lut"], t_shift=10,
                        c_shift=0, prob_bits=16)
