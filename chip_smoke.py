@@ -7,7 +7,10 @@ Phases, in order; any failure exits non-zero and no phase catches one:
 
 1. Environment: torch and CUDA versions, the card's name and power
    limit, and the build of every hand-written kernel from this
-   checkout's sources (one nvcc per source, all at once, one library).
+   checkout's sources (one nvcc per source, all at once, one library);
+   the gates' 32-bit integer rate (64 a clock a SM x SMs x the max SM
+   clock) and the instructions of one threefry draw, read from the
+   built library's SASS, for the gates' bounds.
 2. Kernels against their plain PyTorch versions on the card, each timed
    beside its plain version and its bound: the fused admission gate on
    given draws (``fused_gate``) and drawing its own threefry bits from a
@@ -35,16 +38,25 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    made from ``--seed`` (or a reference checkpoint from
    ``--model-dir``), on the device driver with each gate kernel
    (``gate_backend="cuda"`` and ``"cuda_prng"``, loop under
-   ``torch.cuda.set_sync_debug_mode("error")``) and with the plain
-   backends, in turns; verdicts and stats must be identical.  Then the
+   ``torch.cuda.set_sync_debug_mode("error")``), each with the chunk
+   step replayed as CUDA graphs (``step_backend="graph"``, the main
+   path; captured once on a warm-up prefix, capture seconds printed) and
+   run eagerly (``"eager"``), and with the plain backends; verdicts,
+   stats and the final state, queue and delay-line tensors must be
+   identical, and so must the kernel counts of graph and eager; packets/s
+   of graph and eager in turns.  Graph against eager also on two
+   run_trace calls in a row with ragged tails, on a slow Model Engine
+   whose token bucket binds (a larger bucket must grant more), and with
+   a switch decision tree (fit with ``fit_tree`` on the trace's windows;
+   the host driver must agree, with packets answered by the tree).  The
    port's host driver (fast) on the card must give the device driver's
-   verdicts and stats; a replay with a switch decision tree (fit with
-   ``fit_tree`` on the trace's windows) must give the same on the device
-   and host drivers, with packets answered by the tree; the exact
-   per-packet host driver over a prefix must give the same on the card
-   and on the CPU, as must the device driver over a prefix.  Two more
-   replays (one per gate kernel) run under torch.profiler: the device's
-   busy time and idle share, launches per chunk, the top kernels.
+   verdicts and stats; the exact per-packet host driver over a prefix
+   must give the same on the card and on the CPU, as must the device
+   driver over a prefix.  Four more replays (each gate kernel, graph and
+   eager) run under torch.profiler: the device's busy time and idle
+   share (for graphs also by CUDA events around replays of the chunk
+   graph), host launch calls (at most 4 a chunk on graphs) and copies
+   per chunk, the top kernels.
 5. GQA decode attention (``decode_attention``) against its plain version
    in float32 and bfloat16, head dims 16-256, groups 1, 4, 5, 8, ragged
    lengths with 1, S and an empty row (which must give 0), at the
@@ -61,15 +73,19 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    ``llama3.2-1b`` (16 layers, d_model 2048, 32/8 heads, vocab 128256)
    with random bfloat16 weights from ``--seed``, batch 8, a
    ``--prompt-len`` prompt and ``--new-tokens`` tokens, decode attention
-   on the kernel and the decode loop under sync-debug "error"; the
-   kernel's launches must equal layers x decode steps.  The same inputs
-   with ``attn_backend="ref"``, then the kernel's decode teacher-forced
+   on the kernel and the decode loop under sync-debug "error", the
+   decode step replayed as a CUDA graph (captured once per shape); the
+   kernel's launches must equal layers x decode steps, and the eager
+   step (``step_backend="eager"``) must give the same tokens and counts;
+   ms a step and tok/s of both in turns.  The same inputs with
+   ``attn_backend="ref"``, then the kernel's decode teacher-forced
    on the "ref" tokens: float32 logits (a float32 copy of the model) must
    agree within 1e-3 of their largest magnitude; bfloat16 differences and
-   greedy agreement are printed.  Then an int8-weight generate, gated
-   ``serve_requests`` through ``ServeGate``, the reduced model on the card
-   against the CPU, and the decode loop under torch.profiler (busy time,
-   idle share, launches per step).
+   greedy agreement are printed.  Then the decode loop of the graph and
+   of the eager engine under torch.profiler (ms a step, busy time, idle
+   share, launch calls a step: at most 3 on the graph), an int8-weight
+   generate, gated ``serve_requests`` through ``ServeGate`` (one graph
+   for its one shape), and the reduced model on the card against the CPU.
 7. The ``kernels`` JSON line, then the last line:
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -81,8 +97,10 @@ just after.  It imports the port (``src/repro_torch``) and never JAX or
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -99,15 +117,22 @@ sys.path.insert(0, str(ROOT / "src"))
 # operations over the peak rate of their type
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
-SCALAR_OPS_PER_S = 67e12          # non-tensor-core 32-bit rate
+FP32_OPS_PER_S = 67e12            # float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12           # tensor-core bfloat16, dense
+# The gates are 32-bit integer work (adds, shifts, logic, compares):
+# compute capability 9.0 issues 64 such results a clock a SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput), so their rate
+# is 64 x the SMs x the SM clock the card reports (phase 1 sets
+# RATE["int32_ops_per_s"]).  One threefry2x32 draw costs the instructions
+# counted in the built library's SASS (phase 1 sets RATE["threefry_ops"]).
+INT32_OPS_PER_SM_CLOCK = 64
+RATE = {}
 SELECT_OPS_PER_LANE = 9           # shifts, clamps, LUT index, compare
 GATE_OPS_PER_LANE = 12            # the selection, plus scan and credit
-# one threefry2x32 draw: 20 rounds of (add, two shifts, or, xor), five
-# key injections of three adds, the two initial adds, the final xor and
-# mask
-THREEFRY_OPS = 20 * 5 + 5 * 3 + 2 + 2
 LUT_BYTES = 64 * 32 * 4
+# llama3.2-1b's decode step reads its 2.47 GB of bf16 weights: 0.74 ms at
+# 3.35 TB/s (PERF.md section 2)
+WEIGHT_READ_MS = 0.74
 KEY_BYTES = 2 * 8
 
 
@@ -179,6 +204,46 @@ def max_abs_diff(a, b):
 
 # -- phase 1 ----------------------------------------------------------------
 
+def threefry_sass_ops(lib):
+    """Instructions of one threefry2x32 draw, read from the built
+    library's SASS (``cuobjdump -sass``): the drawing selection kernel
+    (``rate_gate_kernel<true>``) against the rand-input one
+    (``<false>``).  A draw rotates 20 times, one funnel shift
+    (``SHF.L.W``/``SHF.R.W``) or byte permute (``PRMT``, by 16 or 24)
+    each, so the extra rotations over 20 count the draws
+    the drawing kernel holds (the key's, and the lane's in each unrolled
+    copy of the loop), and the extra instructions over that count are one
+    draw's, with the lane work it replaces (the rand16 load) taken off."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    ops = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split()[0]
+        for variant, tag in ((True, "rate_gate_kernelILb1E"),
+                             (False, "rate_gate_kernelILb0E")):
+            if tag in name:
+                ops[variant] = [o for o in re.findall(
+                    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                    r"([A-Z][A-Z0-9_.]*)", block) if o != "NOP"]
+    require(sorted(ops) == [False, True],
+            f"rate_gate kernels not found in the SASS of {lib}")
+    rot = {v: sum(o.startswith(("SHF.L.W", "SHF.R.W", "PRMT")) for o in x)
+           for v, x in ops.items()}
+    draws, rest = divmod(rot[True] - rot[False], 20)
+    require(draws >= 1 and rest == 0,
+            f"rotations in the SASS: {rot}, not whole draws")
+    per = (len(ops[True]) - len(ops[False])) / draws
+    print(f"threefry2x32 from the SASS: rate_gate_kernel<true> "
+          f"{len(ops[True])} instructions, {rot[True]} rotations; <false> "
+          f"{len(ops[False])}, {rot[False]}; {draws} draws, {per:.1f} "
+          "instructions a draw")
+    return per
+
+
 def phase_environment():
     from repro_torch.kernels import _build
 
@@ -196,6 +261,17 @@ def phase_environment():
     print(f"kernel build: {seconds:.2f} s ({len(_build.SOURCES)} sources "
           "compiled in parallel, one library)")
     print(log)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.splitlines()[0].split(",")
+    mhz_max, mhz_now = (float(c) for c in clocks)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    RATE["int32_ops_per_s"] = INT32_OPS_PER_SM_CLOCK * sms * mhz_max * 1e6
+    RATE["threefry_ops"] = threefry_sass_ops(_build.library_path())
+    print(f"32-bit integer rate: {INT32_OPS_PER_SM_CLOCK} a clock a SM x "
+          f"{sms} SMs x {mhz_max:.0f} MHz (max SM clock; now {mhz_now:.0f})"
+          f" = {RATE['int32_ops_per_s'] / 1e12:.3f} T ops/s")
     x = torch.tensor([-5, -4, -1, 7, -2**31], dtype=torch.int32,
                      device="cuda")
     got = (x >> 1).cpu().tolist()
@@ -220,8 +296,8 @@ def _gate_case(rng, n, dev, cost, cap):
 
 def _bound_ms(byts, ops):
     """(bound in ms, what bounds it): the larger of the bytes over HBM
-    bandwidth and the 32-bit operations over the scalar rate."""
-    t_b, t_o = byts / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    bandwidth and the 32-bit integer operations over their issue rate."""
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / RATE["int32_ops_per_s"]
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
@@ -232,7 +308,8 @@ def _gate_bytes_ops(n, draw):
     lanes_in = 3 if draw else 4
     byts = n * (4 * lanes_in + 1) + LUT_BYTES + 2 * 4 + 4 \
         + (KEY_BYTES if draw else 0)
-    ops = n * GATE_OPS_PER_LANE + (THREEFRY_OPS * (n + 1) if draw else 0)
+    ops = n * GATE_OPS_PER_LANE + (RATE["threefry_ops"] * (n + 1) if draw
+                                   else 0)
     return byts, ops
 
 
@@ -245,7 +322,8 @@ def _select_bound(n, draw):
     byte a lane out; the LUT and the key once."""
     lanes_in = 2 if draw else 3
     byts = n * (4 * lanes_in + 1) + LUT_BYTES + (KEY_BYTES if draw else 0)
-    ops = n * SELECT_OPS_PER_LANE + (THREEFRY_OPS * (n + 1) if draw else 0)
+    ops = n * SELECT_OPS_PER_LANE + (RATE["threefry_ops"] * (n + 1)
+                                     if draw else 0)
     return _bound_ms(byts, ops)
 
 
@@ -326,9 +404,9 @@ def _runtime_calls(fn):
         fn()
         torch.cuda.synchronize()
     avgs = prof.key_averages()
-    return _launches(avgs), sum(a.count for a in avgs
-                                if a.device_type == DeviceType.CPU
-                                and a.key.startswith("cudaMemset"))
+    return _launches(avgs)[0], sum(a.count for a in avgs
+                                   if a.device_type == DeviceType.CPU
+                                   and a.key.startswith("cudaMemset"))
 
 
 GATE_LANES = ("t_i", "c_i", "ts", "rand16")
@@ -467,11 +545,12 @@ def phase_gate(rng):
                 lambda: fused_gate_prng.launches)}
         if n >= 1 << 20:
             for name, row in rows.items():
-                byts = _gate_bytes_ops(n, name.endswith("prng"))[0]
+                byts, ops = _gate_bytes_ops(n, name.endswith("prng"))
                 print(f"{name} n={n}: {byts / 1e6:.3f} MB at "
-                      f"{byts / row['ms'] / 1e6:.1f} GB/s, "
-                      f"{row['bound_ms'] / row['ms']:.3f} of the bytes "
-                      "bound")
+                      f"{byts / row['ms'] / 1e6:.1f} GB/s, {ops / 1e6:.2f} "
+                      f"M integer ops; {row['bound_ms'] / row['ms']:.3f} of "
+                      f"the {row['bound_ms']:.5f} ms bound "
+                      f"({row['bound_by']})")
         out[n] = rows
     return out[4096]
 
@@ -522,6 +601,10 @@ def phase_select(rng):
                                                16),
                 *_select_bound(n, True), worst["rate_gate_prng"],
                 lambda: rate_gate_prng.launches)}
+    for name, row in out[1 << 20].items():
+        print(f"{name} n={1 << 20}: {row['ms']:.5f} ms, "
+              f"{row['bound_ms'] / row['ms']:.3f} of the "
+              f"{row['bound_ms']:.5f} ms bound ({row['bound_by']})")
     return out[4096]
 
 
@@ -759,17 +842,32 @@ def seeded_qparams(mcfg, seed, calib):
     return qp
 
 
-def replay(model, stream, device, batch, cpe, tree=None, **cfg_kw):
+def make_system(model, device, batch, cpe, tree=None, sys_kw=None,
+                **cfg_kw):
     from repro_torch.core.fenix import FenixConfig, FenixSystem
 
-    sys_ = FenixSystem(FenixConfig(model="int8_cnn", batch_size=batch,
+    return FenixSystem(FenixConfig(model="int8_cnn", batch_size=batch,
                                    control_plane_every=cpe, **cfg_kw),
-                       model, tree=tree, device=device)
-    if device != "cpu":
+                       model, tree=tree, device=device, **(sys_kw or {}))
+
+
+def run(sys_, stream, reset=True):
+    """One run_trace on a kept system (from a fresh state unless
+    ``reset`` is false); returns (verdicts, seconds)."""
+    if reset:
+        sys_.reset()
+    if sys_.device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = sys_.run_trace(stream)            # returns host arrays: synced
-    return out["verdict"], sys_, time.perf_counter() - t0
+    return out["verdict"], time.perf_counter() - t0
+
+
+def replay(model, stream, device, batch, cpe, tree=None, **cfg_kw):
+    """A run on a new system: (verdicts, system, seconds)."""
+    sys_ = make_system(model, device, batch, cpe, tree=tree, **cfg_kw)
+    v, sec = run(sys_, stream)
+    return v, sys_, sec
 
 
 def _counts():
@@ -791,12 +889,12 @@ def read_counts():
     return {name: k.launches for name, k in _counts().items()}
 
 
-def counted_replay(*args, **kw):
-    """A replay with every kernel count set to 0 just before it; returns
-    (verdicts, system, seconds, launches in this replay)."""
+def counted_run(sys_, stream):
+    """A run with every kernel count set to 0 just before it; returns
+    (verdicts, seconds, launches in this run)."""
     zero_counts()
-    v, sys_, sec = replay(*args, **kw)
-    return v, sys_, sec, read_counts()
+    v, sec = run(sys_, stream)
+    return v, sec, read_counts()
 
 
 def same_run(a, b, what):
@@ -806,10 +904,37 @@ def same_run(a, b, what):
             f"{what}: stats differ: {a[1].stats} vs {b[1].stats}")
 
 
+def same_carry(a, b, what):
+    """Identical final state, queue and delay-line tensors."""
+    for name in ("state", "queues", "_dl"):
+        x, y = getattr(a, name), getattr(b, name)
+        require(sorted(x) == sorted(y), f"{what}: {name} keys differ")
+        for k in x:
+            require(torch.equal(x[k].cpu(), y[k].cpu()),
+                    f"{what}: {name}[{k!r}] differs")
+
+
+def graph_vs_eager(g, e, stream, what, parts=None):
+    """The same trace (or its ``parts``, replayed one after another on one
+    system) on the graph and the eager system: verdicts, stats and final
+    tensors identical, no host sync."""
+    parts = parts or [stream]
+    runs = []
+    for sys_ in (e, g):
+        sys_.reset()
+        runs.append(np.concatenate([run(sys_, p, reset=False)[0]
+                                    for p in parts]))
+        require(sys_.host_syncs == 0, f"{what}: host syncs")
+    same_run((runs[0], e), (runs[1], g), f"{what}: graph vs eager")
+    same_carry(e, g, f"{what}: graph vs eager")
+    return runs[1]
+
+
 def phase_slice(args):
     from repro_torch.configs.fenix_models import fenix_cnn
     from repro_torch.core.data_engine.decision_tree import (fit_tree,
                                                             tree_arrays)
+    from repro_torch.core.data_engine.state import EngineConfig
     from repro_torch.core.model_engine import serving
     from repro_torch.core.model_engine.inference import EngineModel
     from repro_torch.data.synthetic_traffic import (make_flows,
@@ -835,47 +960,82 @@ def phase_slice(args):
     model = EngineModel(mcfg, serving.qparams_from_numpy(qp, "cuda"))
     chunks = -(-n // batch)
     base = (model, stream, "cuda", batch, cpe)
+    gates = ("cuda", "cuda_prng")
+    systems = {(gate, step): make_system(model, "cuda", batch, cpe,
+                                         gate_backend=gate,
+                                         step_backend=step)
+               for gate in gates for step in ("graph", "eager")}
+    plain = make_system(model, "cuda", batch, cpe, gate_backend="ref",
+                        matmul_backend="ref")
 
-    # warm-up on a short prefix (cuBLAS, allocator), then the counted runs
-    warm = {k: v[:3 * batch] for k, v in stream.items()}
-    for gate in ("cuda", "cuda_prng"):
-        replay(model, warm, "cuda", batch, cpe, gate_backend=gate)
-    v_k, sys_k, sec_k, launches = counted_replay(*base)
-    require(launches == {"fused_gate": chunks, "fused_gate_prng": 0,
-                         "int8_gemm": 6 * chunks, "decode_attention": 0},
-            f"launches {launches} for {chunks} chunks (gate \"cuda\")")
-    v_p, sys_p, sec_p, launches_p = counted_replay(*base,
-                                                   gate_backend="cuda_prng")
-    require(launches_p == {"fused_gate": 0, "fused_gate_prng": chunks,
-                           "int8_gemm": 6 * chunks, "decode_attention": 0},
-            f"launches {launches_p} for {chunks} chunks (gate "
-            "\"cuda_prng\")")
-    launches["fused_gate_prng"] = launches_p["fused_gate_prng"]
-    del launches["decode_attention"]
-    plain = dict(gate_backend="ref", matmul_backend="ref")
-    v_r, sys_r, sec_r, launches_r = counted_replay(*base, **plain)
+    # warm-up on a prefix of one window and a chunk (cuBLAS, allocator,
+    # and the graph systems capture both chunk graphs: the steady state)
+    warm = {k: v[:(cpe + 1) * batch] for k, v in stream.items()}
+    for sys_ in (*systems.values(), plain):
+        run(sys_, warm)
+    for gate in gates:
+        g = systems[(gate, "graph")]
+        require(sorted(g._graphs) == [False, True], "graphs not captured")
+        print(f"capture (gate {gate}): both chunk graphs in "
+              f"{g.capture_s:.4f} s (warm-up on copies of the carry + "
+              "capture), outside every timed replay; the address check "
+              f"before a replay takes {stale_check_ms(g._graphs[False]):.5f}"
+              f" ms of host time ({len(g._graphs[False]._held)} tensors)")
+
+    # the main path: the graph replays, each kernel count at 0 before it
+    want = {"cuda": {"fused_gate": chunks, "fused_gate_prng": 0,
+                     "int8_gemm": 6 * chunks, "decode_attention": 0},
+            "cuda_prng": {"fused_gate": 0, "fused_gate_prng": chunks,
+                          "int8_gemm": 6 * chunks, "decode_attention": 0}}
+    res, counted = {}, {}
+    for gate in gates:
+        for step in ("graph", "eager"):
+            sys_ = systems[(gate, step)]
+            v, sec, counted[(gate, step)] = counted_run(sys_, stream)
+            require(counted[(gate, step)] == want[gate],
+                    f"launches {counted[(gate, step)]} for {chunks} chunks "
+                    f"(gate {gate!r}, {step}); want {want[gate]}")
+            require(sys_.host_syncs == 0 and sys_.capture_s == 0.0,
+                    f"gate {gate} {step}: host syncs or a new capture")
+            res[(gate, step)] = (v, sys_, sec)
+        same_run(res[(gate, "graph")], res[(gate, "eager")],
+                 f"gate {gate}: graph vs eager")
+        same_carry(res[(gate, "graph")][1], res[(gate, "eager")][1],
+                   f"gate {gate}: graph vs eager")
+    # the kernels line: the counts of the graph replays (the main path)
+    launches = {"fused_gate": counted[("cuda", "graph")]["fused_gate"],
+                "fused_gate_prng":
+                    counted[("cuda_prng", "graph")]["fused_gate_prng"],
+                "int8_gemm": counted[("cuda", "graph")]["int8_gemm"]}
+    v_r, _, launches_r = counted_run(plain, stream)
     require(not any(launches_r.values()),
             f"the plain-backend replay launched kernels: {launches_r}")
-    # timing in turns on the same card
-    sec_p2 = replay(*base, gate_backend="cuda_prng")[2]
-    sec_r2 = replay(*base, **plain)[2]
-    sec_k2 = replay(*base)[2]
-    stats = sys_k.stats
-    print(f"replay (gate cuda): {n} packets in {sec_k:.4f} s, {sec_k2:.4f} "
-          f"s = {n / sec_k:.1f}, {n / sec_k2:.1f} packets/s; inferences "
-          f"{stats['inferences']}, granted {stats['granted']}, classified "
-          f"{stats['classified_pkts']}, host_syncs {sys_k.host_syncs} (loop "
-          "under sync debug mode 'error')")
-    print(f"replay (gate cuda_prng): {sec_p:.4f} s, {sec_p2:.4f} s = "
-          f"{n / sec_p:.1f}, {n / sec_p2:.1f} packets/s")
-    print(f"replay (plain backends on the card): {sec_r:.4f} s, "
-          f"{sec_r2:.4f} s = {n / sec_r:.1f}, {n / sec_r2:.1f} packets/s")
-    print(f"launches on the main path: {launches} (chunks {chunks}, "
-          f"6 x chunks = {6 * chunks})")
-    require(sys_k.host_syncs == 0 and sys_p.host_syncs == 0,
-            "host syncs in the replay")
-    same_run((v_k, sys_k), (v_r, sys_r), "gate cuda vs plain")
+    v_k, sys_k, sec_k = res[("cuda", "graph")]
+    v_p, sys_p, _ = res[("cuda_prng", "graph")]
+    same_run((v_k, sys_k), (v_r, plain), "gate cuda vs plain")
     same_run((v_p, sys_p), (v_k, sys_k), "gate cuda_prng vs cuda")
+    print("graph replay == eager replay (verdicts, stats, state, queues, "
+          "delay line) for gate cuda and cuda_prng; == plain backends; "
+          "0 host syncs")
+
+    # timing in turns on the same card: eager, graph, graph, eager
+    rate = {}
+    for gate in gates:
+        for step in ("eager", "graph", "graph", "eager"):
+            sec = run(systems[(gate, step)], stream)[1]
+            rate.setdefault((gate, step), []).append(n / sec)
+        print(f"replay (gate {gate}): graph "
+              f"{', '.join(f'{r:.1f}' for r in rate[(gate, 'graph')])} "
+              f"packets/s; eager "
+              f"{', '.join(f'{r:.1f}' for r in rate[(gate, 'eager')])} "
+              "packets/s (in turns: eager, graph, graph, eager)")
+    sec_r = run(plain, stream)[1]
+    stats = sys_k.stats
+    print(f"replay (plain backends on the card, graph): {n / sec_r:.1f} "
+          f"packets/s; inferences {stats['inferences']}, granted "
+          f"{stats['granted']}, classified {stats['classified_pkts']}")
+    print(f"launches on the main path: {launches} (chunks {chunks}, "
+          f"6 x chunks = {6 * chunks}), the same under graph and eager")
     require(v_k.shape == (n,) and v_k.dtype == np.int32,
             f"verdicts {v_k.shape} {v_k.dtype}")
     require(v_k.min() >= -1 and v_k.max() < mcfg.num_classes,
@@ -884,6 +1044,38 @@ def phase_slice(args):
             "the replay served no inference")
     print(f"verdict classes: {np.bincount(v_k + 1).tolist()} (index 0 = "
           "unclassified)")
+
+    # two run_trace calls in a row on new systems (the graph system
+    # captures in the first), each with a ragged tail
+    cut = (0, 100_003, n - 1000)
+    parts = [{k: v[lo:hi] for k, v in stream.items()}
+             for lo, hi in zip(cut, cut[1:])]
+    two = {step: make_system(model, "cuda", batch, cpe, step_backend=step)
+           for step in ("graph", "eager")}
+    graph_vs_eager(two["graph"], two["eager"], stream,
+                   "two calls with ragged tails", parts)
+    print(f"two run_trace calls in a row ({cut[1]} + {cut[2] - cut[1]} "
+          "packets, both ragged): graph == eager")
+    del two
+
+    # a slow Model Engine on which the token bucket binds: a bucket 2^14
+    # times larger grants more on the same trace and LUT
+    slow = dict(engine=EngineConfig(fpga_hz=5e3))
+    bind_kw = dict(n_est=50, q_est_pps=2e4)
+    bind = {step: make_system(model, "cuda", batch, cpe, sys_kw=bind_kw,
+                              step_backend=step, **slow)
+            for step in ("graph", "eager")}
+    graph_vs_eager(bind["graph"], bind["eager"], stream, "binding bucket")
+    wide = make_system(model, "cuda", batch, cpe, sys_kw=bind_kw,
+                       engine=EngineConfig(fpga_hz=5e3, queue_len=1 << 20))
+    run(wide, stream)
+    g_bind, g_wide = (bind["graph"].stats["granted"],
+                      wide.stats["granted"])
+    require(0 < g_bind < g_wide,
+            f"the bucket did not bind: granted {g_bind} vs {g_wide}")
+    print(f"binding bucket (fpga_hz 5e3, cost "
+          f"{slow['engine'].cost_us} us): graph == eager; granted {g_bind} "
+          f"against {g_wide} with a 2^14 x larger bucket")
 
     # the host driver (fast) on the card: the device driver's oracle
     v_h, sys_h, sec_h = replay(*base, driver="host")
@@ -898,28 +1090,31 @@ def phase_slice(args):
     x, y, _ = windows_from_flows(flows)
     tree = tree_arrays(fit_tree(x[:, -1, :], y, depth=4,
                                 num_classes=mcfg.num_classes), "cuda")
-    v_td, sys_td, sec_td = replay(*base, tree=tree)
+    tree_sys = {step: make_system(model, "cuda", batch, cpe, tree=tree,
+                                  step_backend=step)
+                for step in ("graph", "eager")}
+    v_td = graph_vs_eager(tree_sys["graph"], tree_sys["eager"], stream,
+                          "tree")
+    sys_td = tree_sys["graph"]
     v_th, sys_th, sec_th = replay(*base, tree=tree, driver="host")
     same_run((v_th, sys_th), (v_td, sys_td), "tree: host vs device")
     require(sys_td.stats["tree_pkts"] > 0, "the tree answered no packet")
-    require(sys_td.host_syncs == 0, "host syncs in the tree replay")
-    print(f"tree replay: device {sec_td:.4f} s, host {sec_th:.4f} s; "
+    print(f"tree replay: device graph == eager == host ({sec_th:.4f} s); "
           f"tree_pkts {sys_td.stats['tree_pkts']}, classified "
-          f"{sys_td.stats['classified_pkts']}/{n}; host == device")
+          f"{sys_td.stats['classified_pkts']}/{n}")
 
     # the card against the port's CPU runs on prefixes: the exact
-    # per-packet host driver, and the device driver
+    # per-packet host driver, and the device driver (graph on the card)
     ex_n, ex_b, ex_cpe = 3072, 256, 2
     ex = {k: v[:ex_n] for k, v in stream.items()}
     pre = {k: v[:4 * batch] for k, v in stream.items()}
     v_eg, sys_eg, sec_eg = replay(model, ex, "cuda", ex_b, ex_cpe,
                                   driver="host", exact=True)
     v_gpu, sys_gpu, _ = replay(model, pre, "cuda", batch, cpe)
-    model.to("cpu")
-    v_ec, sys_ec, sec_ec = replay(model, ex, "cpu", ex_b, ex_cpe,
+    model_cpu = copy.deepcopy(model).to("cpu")   # the card's model stays
+    v_ec, sys_ec, sec_ec = replay(model_cpu, ex, "cpu", ex_b, ex_cpe,
                                   driver="host", exact=True)
-    v_cpu, sys_cpu, _ = replay(model, pre, "cpu", batch, cpe)
-    model.to("cuda")
+    v_cpu, sys_cpu, _ = replay(model_cpu, pre, "cpu", batch, cpe)
     same_run((v_eg, sys_eg), (v_ec, sys_ec), "exact prefix: card vs CPU")
     for k in ("hash", "cls", "ring", "bucket", "lut", "rng_key",
               "denied_prob", "denied_tokens", "collisions"):
@@ -930,20 +1125,45 @@ def phase_slice(args):
           f"card {sec_eg:.4f} s ({ex_n / sec_eg:.1f} packets/s), CPU "
           f"{sec_ec:.4f} s; card == CPU (verdicts, stats, tables)")
     same_run((v_gpu, sys_gpu), (v_cpu, sys_cpu), "prefix: card vs CPU")
-    print(f"prefix of {4 * batch} packets: card == CPU (verdicts, stats)")
-    for gate in ("cuda", "cuda_prng"):
-        profile_replay(model, stream, batch, cpe, chunks, gate)
+    same_carry(sys_gpu, sys_cpu, "prefix: card (graph) vs CPU (eager)")
+    print(f"prefix of {4 * batch} packets: card (graph) == CPU (eager): "
+          "verdicts, stats, final tensors")
+    # a graph system whose model moves after capture (a round trip
+    # through the host) captures again and still gives the same answer
+    moved = copy.deepcopy(model)
+    sys_mv = make_system(moved, "cuda", batch, cpe)
+    v_mv0 = run(sys_mv, pre)[0]
+    moved.to("cpu")
+    moved.to("cuda")
+    require(all(g.stale() for g in sys_mv._graphs.values()),
+            "moved weights left a chunk graph current")
+    v_mv1 = run(sys_mv, pre)[0]
+    require(sys_mv.capture_s > 0, "moved weights: no new capture")
+    same_run((v_mv1, sys_mv), (v_gpu, sys_gpu), "moved weights")
+    require(np.array_equal(v_mv0, v_mv1), "moved weights: verdicts moved")
+    print(f"model moved to the host and back after capture: the chunk "
+          f"graphs recaptured ({sys_mv.capture_s:.4f} s), verdicts and "
+          "stats unchanged")
+    del sys_mv, moved
+    for gate in gates:
+        for step in ("graph", "eager"):
+            profile_replay(systems[(gate, step)], stream, chunks,
+                           f"gate {gate}, {step}")
     return launches, n / sec_k
 
 
 def _launches(avgs):
-    """Kernel launches in a profile: the host's cudaLaunchKernel calls and
-    the cluster launches of decode attention (cudaLaunchKernelExC)."""
+    """Host launch calls in a profile: cudaLaunchKernel, the cluster
+    launches (cudaLaunchKernelExC) and CUDA-graph launches
+    (cudaGraphLaunch); returns (launch calls, memcpy calls)."""
     from torch.autograd import DeviceType
 
-    return sum(a.count for a in avgs if a.device_type == DeviceType.CPU
-               and (a.key == "cudaLaunchKernel"
-                    or a.key.startswith("cudaLaunchKernelEx")))
+    host = [a for a in avgs if a.device_type == DeviceType.CPU]
+    calls = sum(a.count for a in host
+                if a.key in ("cudaLaunchKernel", "cudaGraphLaunch")
+                or a.key.startswith("cudaLaunchKernelEx"))
+    copies = sum(a.count for a in host if a.key.startswith("cudaMemcpy"))
+    return calls, copies
 
 
 def _port_kernels(avgs):
@@ -952,36 +1172,96 @@ def _port_kernels(avgs):
     return [a for a in avgs if any(n in a.key for n in names)]
 
 
-def profile_replay(model, stream, batch, cpe, chunks, gate):
+def counts_match_profile(kern, what):
+    """The profiler's count of each of the port's kernels over a run
+    equals the wrappers' counters over the same run (set to 0 just
+    before it): a graph that lost or doubled a kernel node fails here.
+    The two gate kernels are summed (a system runs one of them)."""
+    c = read_counts()
+    want = {"fused_gate": c["fused_gate"] + c["fused_gate_prng"],
+            "int8_gemm": c["int8_gemm"],
+            "decode_attention": c["decode_attention"]}
+    seen = {name: sum(a.count for a in kern if name in a.key)
+            for name in want}
+    require(seen == want, f"{what}: the profile holds kernels {seen}; the "
+            f"counters say {want}")
+    return seen
+
+
+def _dev_us(a):
+    return getattr(a, "self_device_time_total",
+                   getattr(a, "self_cuda_time_total", 0))
+
+
+def stale_check_ms(graph, iters=1000):
+    """Host milliseconds of the address check a replay makes first (the
+    tensors the step reads outside its buffers, against capture)."""
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        graph.stale()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def graph_device_s(graph, reps):
+    """Device seconds of one replay of a captured graph: ``reps`` replays
+    back to back between two CUDA events (the graph's kernels and the
+    gaps between them on the device; no host gap)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3 / reps
+
+
+def profile_replay(sys_, stream, chunks, what):
     """One replay under torch.profiler: device busy time and idle share
-    (profiler overhead included), launches per chunk, the top device
-    kernels and the host ops by count."""
+    (against the profiled replay, profiler overhead included, and against
+    the same replay timed just before without the profiler), host launch
+    calls and copies per chunk,
+    the top device kernels and the host ops by count.  On a graph system
+    the busy time is also read with CUDA events around back-to-back
+    replays of its chunk graph, as a cross-check; the profile must hold
+    as many of the port's kernels as the counters count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    sec_plain = run(sys_, stream)[1]
+    zero_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
-        sec = replay(model, stream, "cuda", batch, cpe,
-                     gate_backend=gate)[2]
+        sec = run(sys_, stream)[1]
     avgs = prof.key_averages()
-
-    def dev_us(a):
-        return getattr(a, "self_device_time_total",
-                       getattr(a, "self_cuda_time_total", 0))
-
     kern = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
-                  key=dev_us, reverse=True)
-    busy = sum(dev_us(a) for a in kern) / 1e6
+                  key=_dev_us, reverse=True)
+    seen = counts_match_profile(kern, f"profile ({what})")
+    busy = sum(_dev_us(a) for a in kern) / 1e6
     host = sorted((a for a in avgs if a.device_type == DeviceType.CPU),
                   key=lambda a: a.count, reverse=True)
-    n_launch = _launches(avgs)
+    n_launch, n_copy = _launches(avgs)
     n_ops = sum(a.count for a in host if a.key.startswith("aten::"))
-    print(f"profile (gate {gate}): replay {sec:.4f} s under the profiler, "
-          f"device busy {busy:.4f} s, idle share {1 - busy / sec:.3f}; "
-          f"{n_launch} kernel launches = {n_launch / chunks:.1f} per "
-          f"chunk; {n_ops} aten ops = {n_ops / chunks:.0f} per chunk")
+    note = ""
+    if sys_.step_backend == "graph":
+        require(n_launch / chunks <= 4, f"{what}: {n_launch} launch calls "
+                f"for {chunks} chunks")
+        g = sys_._graphs[False]
+        ev = chunks * graph_device_s(g.graph, 20)
+        sys_.reset()          # the extra replays moved the carry buffers
+        note = f" (CUDA events around the chunk graph: {ev:.4f} s)"
+    print(f"profile ({what}): replay {sec:.4f} s under the profiler, "
+          f"device busy {busy:.4f} s{note}, idle share "
+          f"{1 - busy / sec:.3f} (against {sec_plain:.4f} s without the "
+          f"profiler: {1 - busy / sec_plain:.3f}); {n_launch} launch calls = "
+          f"{n_launch / chunks:.2f} per chunk (cudaLaunchKernel + "
+          f"cudaLaunchKernelEx* + cudaGraphLaunch), {n_copy} memcpy calls "
+          f"= {n_copy / chunks:.2f} per chunk; {n_ops} aten ops = "
+          f"{n_ops / chunks:.1f} per chunk; port kernels in the profile "
+          f"{seen} == the counters")
     for a in kern[:8] + _port_kernels(kern[8:]):
-        print(f"  device {dev_us(a) / 1e3:9.3f} ms  x{a.count:6d}  "
+        print(f"  device {_dev_us(a) / 1e3:9.3f} ms  x{a.count:6d}  "
               f"{a.key[:90]}")
     for a in host[:10]:
         print(f"  host x{a.count:6d}  self cpu "
@@ -1042,7 +1322,7 @@ def _attn_bound(q, k, lens):
         * q.element_size()
     t_b = byts / HBM_BYTES_PER_S
     t_o = 4.0 * rows * hq * d / (BF16_OPS_PER_S if k.dtype == torch.bfloat16
-                                 else SCALAR_OPS_PER_S)
+                                 else FP32_OPS_PER_S)
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations", byts
 
 
@@ -1251,44 +1531,71 @@ def compare_backends(eng, prompt, ref_tokens, what):
     return diff, rel, agree
 
 
-def profile_decode(eng, prompt, steps):
-    """``steps`` decode steps under torch.profiler after a prefill: device
-    busy time, idle share, launches per step, top kernels."""
+def profile_decode(eng, prompt, steps, what):
+    """``steps`` steps of the engine's decode loop under torch.profiler,
+    replayed from the prompt's position after a generate (graph replays
+    on a graph engine, the step body op by op on an eager one): ms a
+    step, device busy time, idle share (under the profiler, and against
+    the same steps timed just before without it), launch calls a step,
+    top kernels.  On a graph engine the busy time is also read with CUDA
+    events around back-to-back replays, as a cross-check; the profile
+    must hold as many of the port's kernels as the counters count.
+    Returns (ms a step, busy ms a step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import api
-
     b, s = prompt.shape
-    cache, logits = api.prefill(eng.params, eng.cfg, {"tokens": prompt})
-    cache = api.grow_cache(eng.cfg, cache, b, s, s + steps)
-    tok = logits.argmax(-1).to(torch.int32)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    require(steps < eng.scfg.max_new_tokens, "more steps than the cache")
+    eng.generate({"tokens": prompt})
+    bufs, graph = eng._decode_bufs[(b, s)], eng._graphs.get((b, s))
+    body = eng._decode_body(s)
+
+    def loop():
+        bufs["cache"]["pos"].fill_(s)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            cache, logits = api.decode_step(eng.params, eng.cfg, cache, tok)
-            tok = logits.argmax(-1).to(torch.int32)
+            if graph is not None:
+                graph.replay()
+            else:
+                body(bufs)
         torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    sec_plain = loop()
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        sec = loop()
     avgs = prof.key_averages()
-
-    def dev_us(a):
-        return getattr(a, "self_device_time_total",
-                       getattr(a, "self_cuda_time_total", 0))
-
     kern = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
-                  key=dev_us, reverse=True)
-    busy = sum(dev_us(a) for a in kern) / 1e6
-    n_launch = _launches(avgs)
-    print(f"profile (decode, {steps} steps): {sec:.4f} s under the profiler, "
-          f"device busy {busy:.4f} s, idle share {1 - busy / sec:.3f}; "
-          f"{n_launch} kernel launches = {n_launch / steps:.1f} per step; "
-          f"{sec / steps * 1e3:.3f} ms a step")
+                  key=_dev_us, reverse=True)
+    seen = counts_match_profile(kern, f"decode ({what})")
+    require(seen["decode_attention"] == eng.cfg.num_layers * steps,
+            f"decode ({what}): {seen['decode_attention']} attention "
+            f"kernels for {steps} steps")
+    busy = sum(_dev_us(a) for a in kern) / 1e6
+    n_launch, n_copy = _launches(avgs)
+    note = ""
+    if graph is not None:
+        require(n_launch / steps <= 3, f"decode ({what}): {n_launch} launch "
+                f"calls for {steps} steps")
+        bufs["cache"]["pos"].fill_(s)
+        ev = steps * graph_device_s(graph.graph, steps)
+        note = f" (CUDA events around the step graph: {ev:.4f} s)"
+    print(f"profile (decode, {what}, {steps} steps): {sec:.4f} s under the "
+          f"profiler = {sec / steps * 1e3:.3f} ms a step, device busy "
+          f"{busy:.4f} s = {busy / steps * 1e3:.3f} ms a step{note}, idle "
+          f"share {1 - busy / sec:.3f} (against {sec_plain / steps * 1e3:.3f}"
+          f" ms a step without the profiler: {1 - busy / sec_plain:.3f}); "
+          f"{n_launch} launch calls = "
+          f"{n_launch / steps:.1f} per step, {n_copy} memcpy calls; "
+          f"port kernels in the profile {seen} == the counters; "
+          f"weight-read bound {WEIGHT_READ_MS} ms a step")
     for a in kern[:10] + _port_kernels(kern[10:]):
-        print(f"  device {dev_us(a) / 1e3:9.3f} ms  x{a.count:6d}  "
+        print(f"  device {_dev_us(a) / 1e3:9.3f} ms  x{a.count:6d}  "
               f"{a.key[:90]}")
+    return sec / steps * 1e3, busy / steps * 1e3
 
 
 def phase_lm(args):
@@ -1329,8 +1636,23 @@ def phase_lm(args):
           f"max|diff| {head_err:.3g}")
     require(head_err < 1e-4, f"matmul_f32 off by {head_err}")
 
-    # warm-up (cuBLAS, allocator), then the main path with counts at 0
-    eng.generate({"tokens": prompt[:, :64]})
+    # warm-up (cuBLAS, allocator; the graph engine captures its decode
+    # step for this shape), then the main path with counts at 0
+    eng_eager = ServingEngine(cfg, params, ServeConfig(
+        max_new_tokens=n_new, attn_backend="cuda", step_backend="eager"),
+        device="cuda")
+    for e in (eng, eng_eager):
+        e.generate({"tokens": prompt[:, :64]})
+    torch.cuda.reset_peak_memory_stats()
+    cap = eng.generate({"tokens": prompt})["capture_s"]
+    peak_cap = torch.cuda.max_memory_allocated() / 1e9
+    g = eng._graphs[(b, s)]
+    print(f"capture (decode step, batch {b}, prompt {s}): {cap:.4f} s "
+          "(warm-up on the step's own buffers, a copy of pos, + capture), "
+          f"outside every timed loop; peak memory of that generate, the "
+          f"capture included: {peak_cap:.2f} GB; the address check before "
+          f"a replay takes {stale_check_ms(g):.5f} ms of host time "
+          f"({len(g._held)} tensors)")
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     out = eng.generate({"tokens": prompt})
@@ -1341,19 +1663,40 @@ def phase_lm(args):
                          "decode_attention": cfg.num_layers * steps},
             f"generate launches {launches}, want decode_attention = "
             f"{cfg.num_layers} layers x {steps} steps")
+    require(out["capture_s"] == 0.0, "the graph was captured again")
     toks = out["tokens"]
     require(toks.shape == (b, n_new) and toks.dtype == torch.int32,
             f"tokens {tuple(toks.shape)} {toks.dtype}")
     require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
             "token outside the vocabulary")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"generate (attn cuda): batch {b}, prompt {s}, {n_new} new tokens: "
-          f"prefill {out['prefill_s']:.4f} s, decode {out['decode_s']:.4f} s "
-          f"for {steps} steps = {out['decode_s'] / steps * 1e3:.3f} ms a step, "
+    print(f"generate (attn cuda, graph): batch {b}, prompt {s}, {n_new} new "
+          f"tokens: prefill {out['prefill_s']:.4f} s, decode "
+          f"{out['decode_s']:.4f} s for {steps} steps = "
+          f"{out['decode_s'] / steps * 1e3:.3f} ms a step, "
           f"{out['decode_tok_per_s']:.1f} tok/s; decode_attention launches "
           f"{launches['decode_attention']} = {cfg.num_layers} layers x "
           f"{steps} steps; peak memory {peak:.2f} GB; decode loop under "
           "sync debug mode 'error'")
+    zero_counts()
+    out_e = eng_eager.generate({"tokens": prompt})
+    require(read_counts() == launches,
+            f"eager generate launches {read_counts()} != graph {launches}")
+    require(torch.equal(out_e["tokens"], toks),
+            "graph decode tokens differ from the eager decode's")
+    # timing in turns on the same card: eager, graph, graph, eager
+    turns = {}
+    for name, e in (("eager", eng_eager), ("graph", eng), ("graph", eng),
+                    ("eager", eng_eager)):
+        r = e.generate({"tokens": prompt})
+        require(torch.equal(r["tokens"], toks), f"{name} tokens moved")
+        turns.setdefault(name, []).append(r)
+    for name, rs in turns.items():
+        print(f"decode ({name}): "
+              + ", ".join(f"{r['decode_s'] / steps * 1e3:.3f} ms a step = "
+                          f"{r['decode_tok_per_s']:.1f} tok/s" for r in rs)
+              + f" (in turns: eager, graph, graph, eager; weight-read bound "
+              f"{WEIGHT_READ_MS} ms a step); greedy tokens graph == eager")
     eng_ref = ServingEngine(cfg, params, ServeConfig(max_new_tokens=n_new,
                                                      attn_backend="ref"),
                             device="cuda")
@@ -1362,11 +1705,14 @@ def phase_lm(args):
     require(read_counts()["decode_attention"] == 0,
             "the ref backend launched the kernel")
     agree = float((out_ref["tokens"] == toks).float().mean())
-    print(f"generate (attn ref): decode {out_ref['decode_s']:.4f} s = "
+    print(f"generate (attn ref, graph): decode {out_ref['decode_s']:.4f} s = "
           f"{out_ref['decode_tok_per_s']:.1f} tok/s; free-running greedy "
           f"tokens equal to the kernel run's: {agree:.4f}")
+    del eng_ref
     compare_backends(eng, prompt, out_ref["tokens"], "bf16")
-    profile_decode(eng, prompt, 16)
+    profile_decode(eng, prompt, 16, "graph")
+    profile_decode(eng_eager, prompt, 16, "eager")
+    del eng_eager
 
     # int8 weights (the FENIX Model Engine scheme on the LM)
     eng8 = ServingEngine(cfg, params, ServeConfig(max_new_tokens=n_new,
@@ -1390,10 +1736,14 @@ def phase_lm(args):
     res = gated.serve_requests(arrivals)
     require(res["admitted"] + res["denied"] == 12 and res["admitted"] >= 1,
             f"serve_requests {res['admitted']} / {res['denied']}")
+    captures = sum(r["capture_s"] > 0 for r in res["results"])
+    require(captures == 1, f"serve_requests captured {captures} graphs for "
+            "one shape")
     print(f"serve_requests: {res['admitted']} admitted, {res['denied']} "
           f"denied of 12 arrivals by ServeGate in "
-          f"{time.perf_counter() - t0:.2f} s")
-    del eng, eng_ref, gated, params
+          f"{time.perf_counter() - t0:.2f} s; one decode graph captured, "
+          "replayed for every admitted request")
+    del eng, gated, params
     torch.cuda.empty_cache()
 
     # a float32 copy of the model: the kernel must match the einsum path

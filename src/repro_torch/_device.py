@@ -17,10 +17,17 @@ DeviceLike = Union[str, torch.device, None]
 #                reference's on-core-PRNG "pallas_tpu")
 #   "ref"        the plain PyTorch version (default for CPU tensors; on
 #                the card only when asked for by name)
+# and how the compiled steps run (step_backend: the replay's chunk step,
+# the LM's decode step):
+#   "graph"      captured once as a CUDA graph and replayed (the
+#                counterpart of the reference's jax.jit; default on CUDA)
+#   "eager"      the same step body op by op (default on the CPU; on the
+#                card only when asked for by name)
 BACKENDS: Dict[str, Tuple[str, ...]] = {
     "gate_backend": ("cuda", "cuda_prng", "ref"),
     "matmul_backend": ("cuda", "ref"),
     "attn_backend": ("cuda", "ref"),
+    "step_backend": ("graph", "eager"),
 }
 _KERNEL_BACKENDS = ("cuda", "cuda_prng")
 
@@ -64,6 +71,19 @@ def resolve_backend(name: Optional[str], tensor: torch.Tensor,
         raise ValueError(f"{knob}={name!r} runs a Hopper kernel and "
                          f"needs CUDA tensors; got a {tensor.device} "
                          "tensor")
+    return name
+
+
+def resolve_step_backend(name: Optional[str],
+                         device: torch.device) -> str:
+    """How a compiled step runs on ``device``: ``name``, else ``"graph"``
+    on CUDA and ``"eager"`` on the CPU.  ``"graph"`` off CUDA raises."""
+    validate_backend(name, "step_backend")
+    if name is None:
+        return "graph" if device.type == "cuda" else "eager"
+    if name == "graph" and device.type != "cuda":
+        raise ValueError("step_backend='graph' captures a CUDA graph and "
+                         f"needs a CUDA device; got {device}")
     return name
 
 

@@ -16,6 +16,20 @@ Port of ``repro/core/fenix.py``, single pipe, with its two drivers:
   (``host_syncs`` stays 0).  On CUDA the loop runs under
   ``torch.cuda.set_sync_debug_mode("error")``, so any operation that
   would synchronise with the host raises instead.
+
+  The reference jits its chunk step once and donates the carry
+  (``_ensure_jits``).  Here one in-place step body reads a chunk, leaves
+  the new carry (state, queues, delay line) in buffers the system
+  allocates once, adds the chunk's stats into a device sum and returns
+  its verdicts.  With ``step_backend="graph"`` (the default on CUDA) the
+  body is captured as two CUDA graphs at first use (``_graph.capture``:
+  one plain chunk, one chunk that ends a T_w window and rebuilds the
+  LUT), kept for every later ``run_trace`` (and captured again once the
+  model's or the tree's tensors move), and each full chunk is one
+  copy in, one graph launch and one copy of its verdicts out; the trace
+  is staged on the device once, a chunk per contiguous block.
+  ``"eager"`` (the default on the CPU) runs the same body op by op, as
+  does the ragged tail chunk on either backend.
 * **host** (``driver="host"``; ``exact=True`` for the per-packet scan
   admission): the batch-at-a-time ``step`` loop with a Python list of
   in-flight results and the control plane called from the host each
@@ -36,8 +50,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import _graph
 from repro_torch._device import (no_host_sync, resolve_device,
-                                 validate_backend)
+                                 resolve_step_backend, validate_backend)
 from repro_torch.core.data_engine import engine as de
 from repro_torch.core.data_engine import rate_limiter as rl
 from repro_torch.core.data_engine.decision_tree import predict
@@ -89,6 +104,9 @@ class FenixConfig:
     model_dir: Optional[str] = None
     # int8-GEMM backend of the serving model: "cuda" | "ref"
     matmul_backend: Optional[str] = None
+    # how the device driver runs its chunk step: "graph" (CUDA graphs,
+    # the default on CUDA) | "eager" (the default on the CPU)
+    step_backend: Optional[str] = None
 
     def __post_init__(self):
         if self.driver == "auto":
@@ -111,6 +129,7 @@ class FenixConfig:
             raise ValueError("exact=True runs only on driver=\"host\"")
         validate_backend(self.gate_backend, "gate_backend")
         validate_backend(self.matmul_backend, "matmul_backend")
+        validate_backend(self.step_backend, "step_backend")
 
 
 def _tree_fill(verdict: torch.Tensor, pkt_len: torch.Tensor, tree: Dict,
@@ -162,6 +181,50 @@ def _make_single_step(ecfg: EngineConfig, iocfg: vio.IOConfig,
     return step_fn
 
 
+# the packed chunk: one int64 row per field of PKT_KEYS; these two are
+# int32 on the data plane
+_I32_KEYS = ("ts_us", "pkt_len")
+
+
+def _unpack(packed: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """[len(PKT_KEYS), n] int64 -> the chunk dict the step takes."""
+    return {k: packed[j].to(I32) if k in _I32_KEYS else packed[j]
+            for j, k in enumerate(PKT_KEYS)}
+
+
+# the buffers a chunk step's warm-up before capture must not advance
+_CARRY_SCRATCH = (("state",), ("queues",), ("dl",), ("stats",))
+
+
+def _store(dst: Tuple[Dict, ...], src: Tuple[Dict, ...]) -> None:
+    """Leave the new carry ``src`` in the carry buffers ``dst``: one copy
+    a changed leaf.  The step builds every changed leaf anew (from the
+    chunk, or out of place from the old carry), so no new leaf is a view
+    of a carry buffer and the copies may run in any order."""
+    for d, s in zip(dst, src):
+        for k, t in d.items():
+            if s[k] is not t:
+                t.copy_(s[k])
+
+
+def _make_chunk_step(step_fn):
+    """The in-place chunk step of the device driver, the body that is run
+    eagerly and captured as a graph alike: ``chunk_step(bufs, packed,
+    cp)`` runs ``step_fn`` on the carry held in ``bufs`` (``"state"``,
+    ``"queues"``, ``"dl"``), leaves the new carry in the same tensors,
+    adds the chunk's stats into ``bufs["stats"]`` and returns its
+    verdicts."""
+
+    def chunk_step(bufs, packed: torch.Tensor, cp: bool) -> torch.Tensor:
+        carry = (bufs["state"], bufs["queues"], bufs["dl"])
+        new, verdict, stats = step_fn(carry, _unpack(packed), cp)
+        _store(carry, new)
+        bufs["stats"] += stats
+        return verdict
+
+    return chunk_step
+
+
 class FenixSystem:
     """Stateful co-simulation wrapper (single pipe, host or device
     driver).
@@ -211,9 +274,18 @@ class FenixSystem:
         self.tree_depth = tree_depth
         self.n_est = n_est
         self.q_est_pps = q_est_pps
-        self._step = _make_single_step(cfg.engine, cfg.io,
-                                       cfg.loop_latency_us, model,
-                                       self.tree, tree_depth)
+        self.step_backend = resolve_step_backend(cfg.step_backend,
+                                                 self.device)
+        self._chunk_step = _make_chunk_step(_make_single_step(
+            cfg.engine, cfg.io, cfg.loop_latency_us, model, self.tree,
+            tree_depth))
+        # the device driver's carry, chunk and verdict buffers (allocated
+        # at its first run), its chunk graphs by the cp flag and their
+        # memory pool; capture seconds of the last run_trace
+        self._bufs: Optional[Dict] = None
+        self._graphs: Dict[bool, _graph.Graph] = {}
+        self._pool = None
+        self.capture_s = 0.0
         self.reset()
 
     def reset(self) -> None:
@@ -368,29 +440,108 @@ class FenixSystem:
                 self.control_plane()
         return {"verdict": verdicts}
 
+    def _stage(self, stream: Dict[str, np.ndarray], n_chunks: int
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The trace on the device, packed: full chunks [n_chunks, F, B]
+        int64 (a chunk is one contiguous block) and the ragged tail [F,
+        rest] (None without one), F = len(PKT_KEYS)."""
+        B = self.cfg.batch_size
+        cols = np.stack([np.asarray(stream[k]).astype(_PKT_DTYPES[k])
+                         .astype(np.int64) for k in PKT_KEYS])
+        full = cols[:, :n_chunks * B].reshape(len(PKT_KEYS), n_chunks, B)
+        chunks = torch.from_numpy(np.ascontiguousarray(
+            full.transpose(1, 0, 2))).to(self.device)
+        rest = cols[:, n_chunks * B:]
+        tail = (torch.from_numpy(np.ascontiguousarray(rest)).to(self.device)
+                if rest.shape[1] else None)
+        return chunks, tail
+
+    def _load_bufs(self) -> Dict:
+        """The device driver's buffers, holding the system's carry: the
+        carry tensors are allocated once and copied into at each run."""
+        cfg = self.cfg
+        if self._bufs is None:
+            self._bufs = {
+                "state": init_state(cfg.engine, device=self.device),
+                "queues": vio.init_queues(cfg.io, device=self.device),
+                "dl": dl.init(cfg.io.queue_len, device=self.device),
+                "stats": torch.zeros(4, dtype=torch.int64,
+                                     device=self.device),
+                "chunk": torch.zeros((len(PKT_KEYS), cfg.batch_size),
+                                     dtype=torch.int64, device=self.device),
+                "verdict": torch.zeros(cfg.batch_size, dtype=I32,
+                                       device=self.device)}
+        bufs = self._bufs
+        for name, src in (("state", self.state), ("queues", self.queues),
+                          ("dl", self._dl)):
+            for k, t in bufs[name].items():
+                t.copy_(src[k])
+        bufs["stats"].zero_()
+        return bufs
+
+    def _ensure_graphs(self, bufs: Dict, chunks: torch.Tensor,
+                       flags) -> None:
+        """Capture the chunk step for each cp flag in ``flags`` not yet
+        captured (the warm-up reads the trace's first chunk, on copies of
+        the carry and the stats); adds the seconds to ``capture_s``.  The
+        graphs are captured again once the model's or the tree's tensors
+        have moved."""
+        if any(g.stale() for g in self._graphs.values()):
+            self._graphs.clear()
+            self._pool = None     # a pool outlives no graph of its own
+        model, tree = self.model, self.tree
+
+        def reads():    # what the step reads, without a cycle to ``self``
+            return _graph.tensors_of(model, tree)
+
+        for cp in flags:
+            if cp in self._graphs:
+                continue
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            bufs["chunk"].copy_(chunks[0])
+
+            def body(b, cp=cp):
+                b["verdict"].copy_(self._chunk_step(b, b["chunk"], cp))
+
+            self._graphs[cp] = _graph.capture(
+                body, bufs, self.device, pool=self._pool,
+                scratch=_CARRY_SCRATCH, reads=reads)
+            self.capture_s += self._graphs[cp].seconds
+
     def _run_trace_device(self, stream: Dict[str, np.ndarray]
                           ) -> Dict[str, np.ndarray]:
         cfg = self.cfg
         n = len(stream["ts_us"])
         B, cpe = cfg.batch_size, cfg.control_plane_every
-        arrs = self._to_device(stream)
-        self._sync_inflight_to_device()
         n_chunks = n // B
         n_batches = n_chunks + (1 if n_chunks * B < n else 0)
-        carry = (self.state, self.queues, self._dl)
-        verd_parts: List[torch.Tensor] = []
-        stat_sum = torch.zeros(4, dtype=torch.int64, device=self.device)
+        chunks, tail = self._stage(stream, n_chunks)
+        self._sync_inflight_to_device()
+        bufs = self._load_bufs()
+        cps = [(i + 1) % cpe == 0 for i in range(n_chunks)]
+        graphs = self.step_backend == "graph"
+        self.capture_s = 0.0
+        if graphs:
+            self._ensure_graphs(bufs, chunks, sorted(set(cps)))
+        verd = torch.empty((n_chunks, B), dtype=I32, device=self.device)
+        verd_tail = None
         with no_host_sync(self.device):
-            for i in range(n_batches):
-                lo, hi = i * B, min((i + 1) * B, n)
-                chunk = {k: v[lo:hi] for k, v in arrs.items()}
-                carry, vd, st = self._step(carry, chunk,
-                                           (i + 1) % cpe == 0)
-                verd_parts.append(vd)
-                stat_sum += st
-        self.state, self.queues, self._dl = carry
+            for i, cp in enumerate(cps):
+                if graphs:
+                    bufs["chunk"].copy_(chunks[i])
+                    self._graphs[cp].replay()
+                    verd[i].copy_(bufs["verdict"])
+                else:
+                    verd[i].copy_(self._chunk_step(bufs, chunks[i], cp))
+            if tail is not None:
+                verd_tail = self._chunk_step(bufs, tail,
+                                             n_batches % cpe == 0)
+        # the system's own carry: copies, so a later replay moves nothing
+        self.state, self.queues, self._dl = (
+            _graph.clone(bufs[k]) for k in ("state", "queues", "dl"))
         self._dl_dirty = True
-        stat = stat_sum.cpu().numpy()
+        stat = bufs["stats"].cpu().numpy()
         self.stats["packets"] += n
         self.stats["granted"] += int(stat[0])
         self.stats["inferences"] += int(stat[1])
@@ -400,6 +551,6 @@ class FenixSystem:
         self.stats["dropped_inflight"] = int(self._dl["dropped"])
         self.stats["served_per_engine"][0] += int(stat[1])
         self.stats["engine_q_depth_hist"][0][0] += n_batches
-        verdicts = (torch.cat(verd_parts).cpu().numpy().astype(np.int32)
-                    if verd_parts else np.full(n, -1, np.int32))
-        return {"verdict": verdicts}
+        parts = [verd.reshape(-1)] + ([] if verd_tail is None
+                                      else [verd_tail])
+        return {"verdict": torch.cat(parts).cpu().numpy().astype(np.int32)}

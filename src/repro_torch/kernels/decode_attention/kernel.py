@@ -105,7 +105,9 @@ def max_active_clusters(b: int, hkv: int, g: int, d: int, q_dtype,
 
 
 class _DecodeAttention:
-    """Callable kernel wrapper; ``launches`` counts kernel launches."""
+    """Callable kernel wrapper; ``launches`` counts kernel launches (a
+    CUDA-graph replay adds the launches recorded at its capture:
+    ``_graph.Graph.replay``)."""
 
     def __init__(self):
         self.launches = 0

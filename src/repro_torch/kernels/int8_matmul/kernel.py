@@ -68,7 +68,9 @@ def _lib():
 
 
 class _Int8Gemm:
-    """Callable kernel wrapper; ``launches`` counts kernel launches."""
+    """Callable kernel wrapper; ``launches`` counts kernel launches (a
+    CUDA-graph replay adds the launches recorded at its capture:
+    ``_graph.Graph.replay``)."""
 
     def __init__(self):
         self.launches = 0

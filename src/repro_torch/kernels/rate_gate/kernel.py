@@ -45,7 +45,9 @@ def _check_prob_bits(prob_bits: int, kernel: str) -> None:
 
 
 class _GateKernel:
-    """Callable kernel wrapper; ``launches`` counts kernel launches."""
+    """Callable kernel wrapper; ``launches`` counts kernel launches (a
+    CUDA-graph replay adds the launches recorded at its capture:
+    ``_graph.Graph.replay``)."""
 
     name = ""
     symbol = ""

@@ -4,7 +4,8 @@ admission gate (core/gate.py).  Port of ``repro/launch/serve.py``.
 
 Runs on the card by default (``--device cpu`` for the CPU), on the
 reduced config unless ``--full`` asks for the published widths, with
-random weights drawn from seed 0.
+random weights drawn from seed 0.  The decode step is a CUDA graph on
+the card and runs op by op on the CPU.
 """
 
 from __future__ import annotations
@@ -81,8 +82,10 @@ def main(argv=None):
     t0 = time.time()
     out = eng.generate(batch)
     print(f"arch={cfg.name} device={device} quant={args.quant} "
+          f"step={eng.step_backend} "
           f"decode {out['decode_tok_per_s']:.1f} tok/s "
-          f"(prefill {out['prefill_s']:.3f} s, wall {time.time()-t0:.1f}s)")
+          f"(prefill {out['prefill_s']:.3f} s, capture "
+          f"{out['capture_s']:.3f} s, wall {time.time()-t0:.1f}s)")
     print("sample tokens:", out["tokens"][0][:16].cpu().numpy())
 
 

@@ -102,8 +102,11 @@ def decode_step(params, cfg: ModelConfig, cache, tokens,
                 attn_backend: Optional[str] = None):
     """One token per sequence; ``attn_backend`` ("cuda" | "ref" | None
     for the device's default) selects the decode-attention kernel.
-    Consumes ``cache``: its K/V tensors take the new rows in place, and
-    the returned cache holds the same tensors with the next ``pos``."""
+    Consumes ``cache``: its K/V tensors take the new rows in place at
+    ``pos`` (a 0-d int32 device tensor), and the returned cache holds the
+    same tensors with ``pos + 1`` as a new tensor.  Reads nothing back to
+    the host, so every step is the same program (a CUDA graph can replay
+    it)."""
     return _family(cfg).decode_step(params, cfg, cache, tokens,
                                     attn_backend=attn_backend)
 
@@ -120,24 +123,36 @@ def cache_specs(cfg: ModelConfig, batch: int, smax: int
 
 
 def grow_cache(cfg: ModelConfig, cache: Dict[str, Any], batch: int,
-               old_smax: int, new_smax: int) -> Dict[str, Any]:
+               old_smax: int, new_smax: int,
+               out: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Zero-pad the kv_seq axes of a prefill cache so decode can append.
 
     Identifies the sequence axis per entry by diffing cache_specs at the two
     lengths; the grown entries are new tensors on the cache's device.
+    Given ``out`` (a grown cache of these shapes from an earlier call),
+    the entries are written into its tensors instead, which keep their
+    addresses (the buffers a captured decode step reads).  ``pos``, the
+    next position as a 0-d int32 device tensor, is carried over.
     """
     old = cache_specs(cfg, batch, old_smax)
     new = cache_specs(cfg, batch, new_smax)
-    out = dict(cache)
+    res = dict(cache) if out is None else out
     for k, (oshp, _dt, _ax) in old.items():
-        nshp = new[k][0]
-        if oshp == nshp or k not in cache:
+        if k not in cache:
             continue
         arr = cache[k]
-        grown = arr.new_zeros(nshp[len(nshp) - arr.dim():])
+        if out is None:
+            nshp = new[k][0]
+            if oshp == nshp:
+                continue
+            res[k] = grown = arr.new_zeros(nshp[len(nshp) - arr.dim():])
+        else:
+            grown = out[k]
+            for d, (n_old, n_new) in enumerate(zip(arr.shape, grown.shape)):
+                if n_new != n_old:
+                    grown.narrow(d, n_old, n_new - n_old).zero_()
         grown[tuple(slice(0, n) for n in arr.shape)] = arr
-        out[k] = grown
-    return out
+    return res
 
 
 # ---------------------------------------------------------------------------

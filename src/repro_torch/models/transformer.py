@@ -9,12 +9,15 @@ Two serving entry points:
   - ``decode_step`` — one token against the cache
 
 Cache layout (stacked over layers): k, v [L, B, Smax, Hkv, Dh] under
-``"scan/k"`` / ``"scan/v"``; ``"pos"`` is the next position as a Python
-int (the reference's traced scalar), so writing the new token's K/V row
-is a basic slice, never a tensor index read back to the host.
-``decode_step`` writes that row into the cache in place and returns the
-same tensors: the reference's ``dynamic_update_slice`` + stacked scan
-output without a copy of the whole cache per step.
+``"scan/k"`` / ``"scan/v"``; ``"pos"`` is the next position as a 0-d
+int32 tensor on the cache's device, as the reference's scalar.  No step
+reads it back to the host: the positions and key counts are built from
+it on the device, and the new token's K/V row is written with
+``index_copy_`` at a one-lane device index (a 0-d tensor index would be
+read back).  ``decode_step`` writes that row into the cache in place and
+returns the same tensors: the reference's ``dynamic_update_slice`` +
+stacked scan output without a copy of the whole cache per step.  Every
+step is the same program, so it can be captured as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -31,9 +34,10 @@ F32 = torch.float32
 
 
 class _Step(NamedTuple):
-    """One decode step: the new token's position as a Python int, and as
-    int32 tensors [B] the positions and the key counts (``pos + 1``)."""
-    pos: int
+    """One decode step, on the device: the new token's position as a [1]
+    int64 index of the kv_seq axis, and as int32 tensors [B] the
+    positions and the key counts (``pos + 1``)."""
+    row: torch.Tensor
     positions: torch.Tensor
     lengths: torch.Tensor
 
@@ -141,14 +145,14 @@ def _attn_prefill(p, cfg: ModelConfig, x):
 def _attn_decode(p, cfg: ModelConfig, x, cache_l, step: _Step,
                  attn_backend: Optional[str] = None):
     """x [B,d]; cache_l per-layer dict of views into the stacked cache;
-    ``step`` the step's position (a Python int) and its int32 tensors.
-    Writes the new K/V row at ``step.pos`` in place and returns (out, the
-    same cache views)."""
-    pos, posv, lengths = step
+    ``step`` the step's position index and int32 tensors.  Writes the
+    new K/V row at ``step.row`` in place and returns (out, the same cache
+    views)."""
+    row, posv, lengths = step
     q, k, v = _gqa_qkv(p, cfg, x, posv)
     kc, vc = cache_l["k"], cache_l["v"]
-    kc[:, pos] = _kv_store(cfg, k)
-    vc[:, pos] = _kv_store(cfg, v)
+    kc.index_copy_(1, row, _kv_store(cfg, k)[:, None].to(kc.dtype))
+    vc.index_copy_(1, row, _kv_store(cfg, v)[:, None].to(vc.dtype))
     o = L.decode_attention(q, _kv_load(cfg, kc), _kv_load(cfg, vc),
                            lengths, backend=attn_backend)
     out = L.dense(p, "attn/wo", o, "...hk,hkd->...d")
@@ -205,7 +209,8 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
     logits = L.logits_head(params, x,
                            None if cfg.tie_embeddings else "head", "embed")
     cache: Dict[str, Any] = {f"scan/{k}": v for k, v in caches.items()}
-    cache["pos"] = int(tokens.shape[1])
+    cache["pos"] = torch.full((), tokens.shape[1], dtype=torch.int32,
+                              device=tokens.device)
     return cache, logits
 
 
@@ -215,14 +220,16 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     """tokens [B] one step; cache from prefill (+ ``grow_cache``).
     Consumes the cache: its K/V tensors are updated in place (a caller
     that keeps the old dict sees the new rows).  Returns (the same
-    tensors with ``pos + 1``, logits [B,V] float32)."""
+    tensors with ``pos + 1``, a new 0-d int32 tensor, and logits [B,V]
+    float32).  Reads nothing back to the host."""
     _check_dense_gqa(cfg)
     pos = cache["pos"]
     x = _embed_in(params, cfg, tokens)
-    # the step's positions and key counts, built once for every layer
-    b, dev = x.shape[0], x.device
-    step = _Step(pos, torch.full((b,), pos, dtype=torch.int32, device=dev),
-                 torch.full((b,), pos + 1, dtype=torch.int32, device=dev))
+    # the step's position index, positions and key counts, built once on
+    # the device for every layer
+    b = x.shape[0]
+    step = _Step(pos.reshape(1).long(), pos.expand(b),
+                 (pos + 1).expand(b).contiguous())
     scan_cache = {k[len("scan/"):]: v for k, v in cache.items()
                   if k.startswith("scan/")}
 

@@ -194,3 +194,154 @@ def test_unported_paths_raise(tiny_int8):
     with pytest.raises(ValueError, match="EngineModel"):
         FenixSystem(FenixConfig(matmul_backend="ref"), ByLenModel(),
                     device="cpu")
+
+
+# -- the in-place chunk step (the body the card captures as a graph) ----------
+
+
+def _cut(trace, lo, hi):
+    return {k: v[lo:hi] for k, v in trace.items()}
+
+
+def _systems(model_name, tiny_int8, batch, cpe):
+    jmodel, tmodel = ((JByLenModel(), ByLenModel())
+                      if model_name == "bylen" else tiny_int8)
+    ref = JFenixSystem(JFenixConfig(batch_size=batch,
+                                    control_plane_every=cpe,
+                                    driver="device"), jmodel)
+    port = FenixSystem(FenixConfig(batch_size=batch, control_plane_every=cpe,
+                                   step_backend="eager"), tmodel,
+                       device="cpu")
+    return ref, port
+
+
+def _assert_carry_same(ref, port, where):
+    assert port.stats == ref.stats, where
+    for k in TABLE_KEYS:
+        assert_same(ref.state[k], port.state[k], f"{where} {k}")
+    assert_same(dict(ref.queues), dict(port.queues), f"{where} queues")
+    assert_same(dict(ref._dl), dict(port._dl), f"{where} delay line")
+
+
+# (batch, cpe): a ragged tail that ends a T_w window (350 x 5 + 50, the
+# sixth batch), and a tail that does not after two windows (128 x 14 + 8)
+@pytest.mark.parametrize("batch,cpe", [(350, 3), (128, 4)])
+@pytest.mark.parametrize("model_name", ["bylen", "int8_cnn_tiny"])
+def test_chunk_step_matches_reference_across_windows_and_tail(
+        trace, tiny_int8, model_name, batch, cpe):
+    """The in-place chunk step, run eagerly, against the reference's
+    jitted scan + tail step: verdicts, stats, tables, queues and delay
+    line, bit for bit."""
+    ref, port = _systems(model_name, tiny_int8, batch, cpe)
+    v_ref = np.asarray(ref.run_trace(dict(trace))["verdict"])
+    v = port.run_trace(dict(trace))["verdict"]
+    assert np.array_equal(v, v_ref)
+    _assert_carry_same(ref, port, f"{model_name} {batch}/{cpe}")
+    assert port.host_syncs == 0 and port.capture_s == 0.0
+    assert ref.stats["inferences"] > 0
+
+
+@pytest.mark.parametrize("model_name", ["bylen", "int8_cnn_tiny"])
+def test_two_run_traces_in_a_row_match_reference(trace, tiny_int8,
+                                                 model_name):
+    """Two replays on one system: the second starts from the carry the
+    first left, as the reference's donated carry does."""
+    ref, port = _systems(model_name, tiny_int8, BATCH, CPE)
+    for lo, hi in ((0, 1000), (1000, LIMIT)):
+        v_ref = np.asarray(ref.run_trace(_cut(trace, lo, hi))["verdict"])
+        assert np.array_equal(port.run_trace(_cut(trace, lo, hi))
+                              ["verdict"], v_ref), (lo, hi)
+        _assert_carry_same(ref, port, f"{model_name} after [{lo}, {hi})")
+
+
+def test_host_step_then_device_run_trace_matches_reference(trace,
+                                                           tiny_int8):
+    """Host steps, then a device replay: the in-flight results of the
+    steps go into the device carry, and the replay matches the
+    reference's."""
+    ref, port = _systems("int8_cnn_tiny", tiny_int8, BATCH, CPE)
+    for lo in (0, BATCH, 2 * BATCH):
+        r = ref.step(_cut(trace, lo, lo + BATCH))
+        p = port.step(_cut(trace, lo, lo + BATCH))
+        assert np.array_equal(np.asarray(r["verdict"]), p["verdict"]), lo
+    assert len(port._inflight) > 0
+    v_ref = np.asarray(ref.run_trace(_cut(trace, 3 * BATCH, LIMIT))
+                       ["verdict"])
+    assert np.array_equal(port.run_trace(_cut(trace, 3 * BATCH, LIMIT))
+                          ["verdict"], v_ref)
+    _assert_carry_same(ref, port, "step then run_trace")
+
+
+def test_chunk_step_keeps_its_buffers_and_the_system_its_state(trace):
+    """The device driver's carry buffers are allocated once and keep
+    their addresses across run_trace calls; the system's state after a
+    replay is its own copy, which a later replay does not move."""
+    port = FenixSystem(FenixConfig(batch_size=BATCH,
+                                   control_plane_every=CPE), ByLenModel(),
+                       device="cpu")
+    port.run_trace(_cut(trace, 0, 900))
+    bufs = port._bufs
+    ptrs = {k: t.data_ptr() for k, t in bufs["state"].items()}
+    kept = {k: v.clone() for k, v in port.state.items()}
+    held = port.state
+    assert all(held[k].data_ptr() != ptrs[k] for k in ptrs)
+    port.run_trace(_cut(trace, 900, LIMIT))
+    assert port._bufs is bufs
+    assert {k: t.data_ptr() for k, t in bufs["state"].items()} == ptrs
+    for k, v in kept.items():
+        assert torch.equal(held[k], v), k
+
+
+def test_step_backend_knob():
+    """"eager" is the CPU's default; "graph" needs CUDA; an unknown name
+    raises."""
+    assert FenixSystem(FenixConfig(), ByLenModel(),
+                       device="cpu").step_backend == "eager"
+    with pytest.raises(ValueError, match="CUDA"):
+        FenixSystem(FenixConfig(step_backend="graph"), ByLenModel(),
+                    device="cpu")
+    with pytest.raises(ValueError, match="unknown step_backend"):
+        FenixConfig(step_backend="compile")
+
+
+def test_graph_warm_up_copies_only_the_scratch_paths():
+    """The warm-up before capture writes copies at the scratch key paths
+    and the step's own buffers elsewhere; the caller's dicts stay as they
+    were."""
+    from repro_torch import _graph
+
+    pos = torch.zeros((), dtype=torch.int32)
+    bufs = {"state": {"a": torch.zeros(2)}, "out": torch.zeros(1),
+            "cache": {"k": torch.zeros(3), "pos": pos}}
+    w = _graph.with_scratch(bufs, [("state",), ("cache", "pos")])
+    w["state"]["a"] += 1
+    w["cache"]["pos"] += 1
+    w["cache"]["k"] += 1
+    assert float(bufs["state"]["a"].sum()) == 0 and int(pos) == 0
+    assert bufs["cache"]["pos"] is pos
+    assert w["cache"]["k"] is bufs["cache"]["k"] and w["out"] is bufs["out"]
+    assert float(bufs["cache"]["k"].sum()) == 3
+
+
+def test_graph_refuses_to_replay_once_what_it_reads_moved():
+    """A captured step's reads outside its buffers (a module's buffers, a
+    tree's arrays) are held at capture; once one of them moves the graph
+    is stale and its replay raises."""
+    from repro_torch import _graph
+
+    model = torch.nn.Module()
+    model.register_buffer("w", torch.ones(3))
+    tree = {"feat": torch.zeros(4, dtype=torch.int32), "depth": 4}
+    graph = _graph.Graph(None, {}, 0.0,
+                         lambda: _graph.tensors_of(model, tree))
+    assert len(graph._held) == 2 and not graph.stale()
+    model.to("cpu")                       # no move: the same tensors
+    assert not graph.stale()
+    model.to(torch.float64)
+    assert graph.stale()
+    with pytest.raises(RuntimeError, match="moved after capture"):
+        graph.replay()
+    graph = _graph.Graph(None, {}, 0.0,
+                         lambda: _graph.tensors_of(model, tree))
+    tree["feat"] = tree["feat"].clone()
+    assert graph.stale()

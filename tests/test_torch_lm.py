@@ -193,6 +193,62 @@ def test_prefill_decode_match(arch, variant):
                      f"{arch} {variant} {k}")
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_position_is_a_device_scalar(arch):
+    """``cache["pos"]`` is a 0-d int32 tensor on the cache's device after
+    prefill and after each step (``pos + 1``, a new tensor: the caller's
+    stays), equal to the reference's; each step writes its K/V row at
+    that position and no other, in place."""
+    cfg_j, cfg_t = _both(arch, **F32_OVER)
+    jp, _ = japi.init_params(cfg_j, seed=0)
+    tp = _converted(jp)
+    toks = np.random.default_rng(6).integers(0, cfg_j.vocab_size, (2, 12)
+                                             ).astype(np.int32)
+    jc, _ = japi.prefill(jp, cfg_j, {"tokens": jnp.asarray(toks)})
+    tc, _ = api.prefill(tp, cfg_t, {"tokens": torch.from_numpy(toks)})
+    tc = api.grow_cache(cfg_t, tc, 2, 12, 14)
+    jc = japi.grow_cache(cfg_j, jc, 2, 12, 14)
+    for step in range(2):
+        pos = tc["pos"]
+        assert isinstance(pos, torch.Tensor) and pos.dim() == 0
+        assert pos.dtype == torch.int32 and pos.device == tc["scan/k"].device
+        assert int(pos) == int(jc["pos"]) == 12 + step
+        k_before = tc["scan/k"].clone()
+        tok = toks[:, step]
+        jc, _ = japi.decode_step(jp, cfg_j, jc, jnp.asarray(tok))
+        new, _ = api.decode_step(tp, cfg_t, tc, torch.from_numpy(tok))
+        assert new["scan/k"] is tc["scan/k"] and int(pos) == 12 + step
+        assert new["pos"] is not pos and int(new["pos"]) == 13 + step
+        changed = (new["scan/k"] != k_before).flatten(3).any(-1)
+        assert changed[:, :, 12 + step].all()
+        changed[:, :, 12 + step] = False
+        assert not changed.any()
+        tc = new
+    assert_close(to_numpy(jc["scan/k"]), tc["scan/k"], 1e-5, f"{arch} k")
+
+
+def test_grow_cache_into_kept_buffers():
+    """``grow_cache(out=)`` writes a prefill cache into the buffers of an
+    earlier grown cache: the same tensors, the prefill's rows, zeros past
+    them (over a longer earlier prompt's rows) and the new ``pos``."""
+    cfg = get_config("llama3.2-1b", reduced=True)
+    tp, _ = api.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(8)
+    caches = [api.prefill(tp, cfg, {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, 10)).astype(np.int32))})[0]
+        for _ in range(2)]
+    kept = api.grow_cache(cfg, caches[0], 2, 10, 16)
+    kept["scan/k"][:, :, 10:] = 1
+    kept["pos"].fill_(15)
+    ptrs = {k: v.data_ptr() for k, v in kept.items()}
+    out = api.grow_cache(cfg, caches[1], 2, 10, 16, out=kept)
+    want = api.grow_cache(cfg, caches[1], 2, 10, 16)
+    assert out is kept and {k: v.data_ptr() for k, v in out.items()} == ptrs
+    for k in want:
+        assert torch.equal(out[k], want[k]), k
+    assert int(out["pos"]) == 10
+
+
 def test_quantize_for_serving_matches():
     cfg_j, cfg_t = _both("qwen2.5-14b")
     jp, jax_axes = japi.init_params(cfg_j, seed=0)

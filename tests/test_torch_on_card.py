@@ -355,6 +355,201 @@ def test_cuda_prng_replay_matches_cuda_replay(cuda_device):
     assert runs["cuda"][1] == runs["cuda_prng"][1]
 
 
+# -- the compiled steps: CUDA graphs against the eager step ------------------
+
+
+def _counts():
+    return (fused_gate.launches, fused_gate_prng.launches,
+            int8_gemm.launches, decode_attention_kernel.launches)
+
+
+def _graph_case(case, dev):
+    """(config kwargs, model, tree, system kwargs) of a replay case."""
+    from repro_torch.core.data_engine.decision_tree import (fit_tree,
+                                                            tree_arrays)
+    from repro_torch.core.data_engine.state import EngineConfig
+    from repro_torch.core.model_engine.inference import ByLenModel
+    from repro_torch.core.model_engine.vector_io import IOConfig
+    from repro_torch.data.synthetic_traffic import windows_from_flows
+
+    base = dict(batch_size=256, control_plane_every=3)
+    if case == "binding":
+        # a slow Model Engine: the bucket denies grants, the ring fills
+        return (dict(engine=EngineConfig(fpga_hz=2e4),
+                     io=IOConfig(queue_len=64), batch_size=200,
+                     control_plane_every=2), ByLenModel(), None,
+                dict(n_est=50, q_est_pps=2e4))
+    tree = None
+    if case == "tree":
+        x, y, _ = windows_from_flows(make_flows("iscx", 40, seed=7))
+        tree = tree_arrays(fit_tree(x[:, -1, :], y, depth=4,
+                                    num_classes=7), dev)
+    if case == "cuda_prng":
+        base["gate_backend"] = "cuda_prng"
+    return base, _tiny_model(), tree, {}
+
+
+@pytest.mark.parametrize("case", ["cuda", "cuda_prng", "tree", "binding"])
+def test_graph_replay_matches_eager_replay(case, cuda_device):
+    """The chunk step replayed as CUDA graphs against the same step run
+    eagerly, over two run_trace calls on one system (each with a ragged
+    tail; the second reuses the graphs): verdicts, stats, the final
+    state, queue and delay-line tensors bit for bit, the same kernel
+    counts, no host sync (the loop runs under sync-debug "error")."""
+    stream = packet_stream(make_flows("iscx", 40, seed=7), limit=1800)
+    parts = [{k: v[lo:hi] for k, v in stream.items()}
+             for lo, hi in ((0, 1100), (1100, 1800))]
+    cfg_kw, model, tree, sys_kw = _graph_case(case, cuda_device)
+    runs = {}
+    for backend in ("eager", "graph"):
+        before = _counts()
+        sys_ = FenixSystem(FenixConfig(step_backend=backend, **cfg_kw),
+                           model, tree=tree, device=cuda_device, **sys_kw)
+        verdicts = []
+        for i, part in enumerate(parts):
+            verdicts.append(sys_.run_trace(part)["verdict"])
+            if backend == "graph":
+                assert sorted(sys_._graphs) == [False, True]
+                assert (sys_.capture_s > 0) == (i == 0)
+        runs[backend] = (verdicts, sys_, tuple(
+            a - b for a, b in zip(_counts(), before)))
+        assert sys_.host_syncs == 0
+    (v_e, s_e, c_e), (v_g, s_g, c_g) = runs["eager"], runs["graph"]
+    assert c_e == c_g and (c_e[0] + c_e[1]) > 0, (c_e, c_g)
+    for a, b in zip(v_e, v_g):
+        assert np.array_equal(a, b)
+    assert s_e.stats == s_g.stats
+    for name in ("state", "queues", "_dl"):
+        assert_same(getattr(s_e, name), getattr(s_g, name), name)
+    if case == "binding":
+        assert 0 < s_g.stats["granted"] < 1800
+    if case == "tree":
+        assert s_g.stats["tree_pkts"] > 0
+
+
+def test_graph_replay_leaves_the_system_state_alone(cuda_device):
+    """After run_trace the system's state is its own: another system's
+    graph replays, and this system's next replay, do not move it until
+    that replay returns."""
+    stream = packet_stream(make_flows("iscx", 40, seed=7), limit=1800)
+    sys_ = FenixSystem(FenixConfig(batch_size=256, control_plane_every=3),
+                       _tiny_model(), device=cuda_device)
+    assert sys_.step_backend == "graph"
+    sys_.run_trace(dict(stream))
+    held = sys_.state
+    kept = {k: v.clone() for k, v in held.items()}
+    sys_.reset()
+    sys_.run_trace(dict(stream))
+    for k, v in kept.items():
+        assert torch.equal(held[k], v), k
+    assert_same(held, sys_.state, "a replay from reset repeats itself")
+
+
+def test_chunk_graphs_recapture_after_the_model_moves(cuda_device):
+    """A graph holds the model's addresses: once the model has moved
+    (to the host and back) the kept graphs refuse to replay, and the next
+    run_trace captures them again and repeats the first run."""
+    stream = packet_stream(make_flows("iscx", 40, seed=7), limit=1800)
+    model = _tiny_model()
+    sys_ = FenixSystem(FenixConfig(batch_size=256, control_plane_every=3),
+                       model, device=cuda_device)
+    first = sys_.run_trace(dict(stream))["verdict"]
+    stats, graph = dict(sys_.stats), sys_._graphs[False]
+    model.to("cpu")
+    model.to(cuda_device)
+    assert graph.stale()
+    with pytest.raises(RuntimeError, match="moved after capture"):
+        graph.replay()
+    sys_.reset()
+    again = sys_.run_trace(dict(stream))["verdict"]
+    assert sys_.capture_s > 0 and sys_._graphs[False] is not graph
+    assert np.array_equal(first, again) and sys_.stats == stats
+
+
+def test_decode_graph_recaptures_after_the_weights_move(cuda_device):
+    """A weight of the decode graph replaced after capture: the next
+    generate captures again and gives the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = get_config("llama3.2-1b", reduced=True)
+    params, _ = api.init_params(cfg, seed=0, device=cuda_device)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16))
+    eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=6),
+                        device=cuda_device)
+    first = eng.generate({"tokens": toks})["tokens"]
+    key = next(iter(eng.params))
+    eng.params[key] = eng.params[key].clone()
+    again = eng.generate({"tokens": toks})
+    assert again["capture_s"] > 0
+    assert torch.equal(first, again["tokens"])
+
+
+def test_graph_owners_are_freed_without_the_collector(cuda_device):
+    """A system and an engine that hold graphs are freed as soon as they
+    are dropped: a graph in a reference cycle would be destroyed by the
+    garbage collector at any later moment, also during another capture,
+    and that invalidates the capture."""
+    import gc
+    import weakref
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    stream = packet_stream(make_flows("iscx", 40, seed=7), limit=600)
+    sys_ = FenixSystem(FenixConfig(batch_size=256, control_plane_every=2),
+                       _tiny_model(), device=cuda_device)
+    sys_.run_trace(dict(stream))
+    cfg = get_config("llama3.2-1b", reduced=True)
+    params, _ = api.init_params(cfg, seed=0, device=cuda_device)
+    eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=3),
+                        device=cuda_device)
+    eng.generate({"tokens": np.zeros((1, 8), np.int32)})
+    assert sys_._graphs and eng._graphs
+    refs = (weakref.ref(sys_), weakref.ref(eng))
+    gc.disable()
+    try:
+        del sys_, eng
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
+@pytest.mark.parametrize("attn", ["cuda", "ref"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_graph_tokens_match_eager(dtype, attn, cuda_device):
+    """The decode step replayed as a CUDA graph gives the eager step's
+    greedy tokens and kernel counts, over two generate calls on one
+    engine (the second reuses the graph)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b", reduced=True),
+                              param_dtype=dtype, activation_dtype=dtype)
+    params, _ = api.init_params(cfg, seed=0, device=cuda_device)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16))
+    out = {}
+    for backend in ("eager", "graph"):
+        before = decode_attention_kernel.launches
+        eng = ServingEngine(cfg, params, ServeConfig(
+            max_new_tokens=6, attn_backend=attn, step_backend=backend),
+            device=cuda_device)
+        res = [eng.generate({"tokens": toks}) for _ in range(2)]
+        out[backend] = [r["tokens"].cpu() for r in res]
+        launched = decode_attention_kernel.launches - before
+        assert launched == (2 * cfg.num_layers * 5 if attn == "cuda"
+                            else 0), backend
+        if backend == "graph":
+            assert res[0]["capture_s"] > 0 and res[1]["capture_s"] == 0
+    for e, g in zip(out["eager"], out["graph"]):
+        assert torch.equal(e, g)
+
+
 # -- decode attention (TPU kernel 4) -----------------------------------------
 
 # (b, hkv, g, d, s): head dims 16..256, groups 1, 4, 5, 8, S not a

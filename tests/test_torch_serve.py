@@ -151,3 +151,54 @@ def test_launcher_runs_on_cpu(capsys):
             get_config("gemma-7b", reduced=True), num_layers=3,
             tie_embeddings=False,
             moe=dataclasses.replace(get_config("gemma-7b").moe, top_k=2))
+
+
+def _arch(arch, **over):
+    cj = dataclasses.replace(jax_config(arch, reduced=True), **over)
+    ct = dataclasses.replace(get_config(arch, reduced=True), **over)
+    jp, _ = japi.init_params(cj, seed=0)
+    tp = params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+    return cj, ct, jp, tp
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-4b", "qwen2.5-14b",
+                                  "gemma-7b"])
+def test_generate_tokens_match_float32_each_config(arch):
+    """Each ported config in float32: the decode step body (the one the
+    card captures as a graph, run eagerly here) gives the reference's
+    greedy tokens, twice on one engine (the second call writes into the
+    buffers the first allocated)."""
+    cj, ct, jp, tp = _arch(arch, **F32)
+    toks = _tokens(4, 2, 12, vocab=cj.vocab_size)
+    want = np.asarray(JaxEngine(cj, jp, JaxServeConfig(max_new_tokens=5))
+                      .generate({"tokens": jnp.asarray(toks)})["tokens"])
+    eng = ServingEngine(ct, tp, ServeConfig(max_new_tokens=5), device="cpu")
+    for call in range(2):
+        got = eng.generate({"tokens": toks})
+        assert np.array_equal(want, got["tokens"].numpy()), (arch, call)
+        assert got["capture_s"] == 0.0
+    assert list(eng._decode_bufs) == [(2, 12)]
+
+
+def test_serve_step_backend_knob():
+    """"eager" is the CPU's default; "graph" needs CUDA; an unknown name
+    raises."""
+    _, ct, _, tp = _llama()
+    assert ServingEngine(ct, tp, ServeConfig(),
+                         device="cpu").step_backend == "eager"
+    with pytest.raises(ValueError, match="CUDA"):
+        ServingEngine(ct, tp, ServeConfig(step_backend="graph"),
+                      device="cpu")
+    with pytest.raises(ValueError, match="unknown step_backend"):
+        ServingEngine(ct, tp, ServeConfig(step_backend="jit"),
+                      device="cpu")
+
+
+def test_launcher_prints_the_step_backend(capsys):
+    """The launcher names how its decode step ran and its capture time
+    (none on the CPU, which runs the step eagerly)."""
+    launch_serve.main(["--arch", "llama3.2-1b", "--device", "cpu",
+                       "--batch", "1", "--prompt-len", "4",
+                       "--new-tokens", "2"])
+    out = capsys.readouterr().out
+    assert "step=eager" in out and "capture 0.000 s" in out
