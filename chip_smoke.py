@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    checkout's sources (one nvcc per source, all at once, one library);
    the gates' 32-bit integer rate (64 a clock a SM x SMs x the max SM
    clock) and the instructions of one threefry draw, read from the
-   built library's SASS, for the gates' bounds.
+   built library's SASS, for the gates' bounds; int32 ``>>`` on the
+   card against the CPU, by positive counts and by 0 and negative ones
+   (which sign-fill: an RNN's ``lut_preshift`` may be either).
 2. Kernels against their plain PyTorch versions on the card, each timed
    beside its plain version and its bound: the fused admission gate on
    given draws (``fused_gate``) and drawing its own threefry bits from a
@@ -22,8 +24,10 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    launch), the time at n = 1 (the floor of one launch) and GB/s at 2^20;
    the selection-only gate on given and on seeded draws (``rate_gate``,
    ``rate_gate_prng``); and the INT8 GEMM on a K-major B (as the serving
-   weights are held) at the serving path's six shapes plus ragged ones (K
-   of the tiny model, M = 1), with and without bias, shift in {None, 0, 7},
+   weights are held) at the CNN path's six shapes and the RNN's three
+   (M = 1024: [32, 128] with bias, [128, 128] without, the [128, 7]
+   head; raw int32 out), each timed, plus ragged ones (K of the tiny
+   models, M = 1), with and without bias, shift in {None, 0, 7},
    beside ``torch._int_mm`` on a row-major and on a K-major B (the faster
    is the yardstick), with a sweep of every tile shape; a row-major B must
    be refused. The tolerance is exact equality (max |diff| = 0): every
@@ -57,6 +61,23 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    share (for graphs also by CUDA events around replays of the chunk
    graph), host launch calls (at most 4 a chunk on graphs) and copies
    per chunk, the top kernels.
+4b. The full-width FENIX-RNN (embed 16, 128 units, seq 9, 7 classes)
+   with seeded int8 weights, its shifts and tanh-LUT input shift picked
+   on a calibration batch (printed, with h's shares at 0 and +-127), on
+   phase 4's trace: graph == eager == plain backends for both gate
+   kernels, 19 INT8 GEMMs a chunk, packets/s in turns, the card (graph)
+   == the CPU (eager) on four chunks, and the four profiles.
+4c. Oracle payloads (``oracle_windows=`` from the trace's flows) on the
+   CNN and the RNN: graph == eager on the trace, graph == host driver
+   (fast) == the CPU on a prefix with a ragged tail, and the rate beside
+   the rate without them.
+4d. Capture replay: the trace's flows written as a pcap
+   (``synthesize_pcap``, 1000 packets more: two streamed blocks and a
+   ragged tail), ingested back equal to the source stream, and streamed
+   by ``run_trace`` (``TraceSpec`` with overlap on and off, a bare path)
+   on the CNN system phase 4 captured: each == the in-memory replay,
+   no capture, 0 host syncs, the chunks' kernel counts; the pcap's
+   bytes and the parse-only, streaming and in-memory rates.
 5. GQA decode attention (``decode_attention``) against its plain version
    in float32 and bfloat16, head dims 16-256, groups 1, 4, 5, 8, ragged
    lengths with 1, S and an empty row (which must give 0), at the
@@ -86,8 +107,10 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    share, launch calls a step: at most 3 on the graph), an int8-weight
    generate, gated ``serve_requests`` through ``ServeGate`` (one graph
    for its one shape), and the reduced model on the card against the CPU.
-7. The ``kernels`` JSON line, then the last line:
-   ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+7. Each phase's seconds and the total, the ``kernels`` JSON line
+   (``int8_gemm``'s launches count the CNN's and the RNN's main paths),
+   then the last line: ``{"ok": true, "device": {"platform": "gpu",
+   ...}}``.
 
 Launch counts are set to 0 just before each path is driven and read
 just after.  It imports the port (``src/repro_torch``) and never JAX or
@@ -276,7 +299,19 @@ def phase_environment():
                      device="cuda")
     got = (x >> 1).cpu().tolist()
     require(got == [-3, -2, -1, 3, -2**30], f"int32 >> gave {got}")
-    print("int32 >> on the card floors negative values: ok")
+    # counts of 0 and below (an RNN's lut_preshift may be either): a
+    # negative count sign-fills (-1 for a negative value, 0 otherwise) on
+    # the card as on the CPU and in XLA, by a Python int and by a tensor
+    for count in (0, -1, -3):
+        want = (x.cpu() >> count).tolist()
+        for got in ((x >> count).cpu().tolist(),
+                    (x >> torch.full_like(x, count)).cpu().tolist()):
+            require(got == want, f"int32 >> {count} gave {got}, the CPU "
+                    f"{want}")
+    require((x >> -1).cpu().tolist() == [-1, -1, -1, 0, -1],
+            "int32 >> -1 does not sign-fill")
+    print("int32 >> on the card floors negative values, and by a count of "
+          "0 or below matches the CPU (>> -1 sign-fills): ok")
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -609,13 +644,25 @@ def phase_select(rng):
 
 
 # the six GEMMs of one chunk of the full-width CNN: 1024 served lanes x 9
-PATH_GEMMS = (("conv0", 9216, 96, 64, 7), ("conv1", 9216, 192, 128, 7),
-              ("conv2", 9216, 384, 256, 7), ("fc0", 1024, 256, 512, 7),
-              ("fc1", 1024, 512, 256, 7), ("head", 1024, 256, 7, None))
+# (name, M, K, N, shift, bias)
+PATH_GEMMS = (("conv0", 9216, 96, 64, 7, True),
+              ("conv1", 9216, 192, 128, 7, True),
+              ("conv2", 9216, 384, 256, 7, True),
+              ("fc0", 1024, 256, 512, 7, True),
+              ("fc1", 1024, 512, 256, 7, True),
+              ("head", 1024, 256, 7, None, True))
+# the full-width FENIX-RNN's three GEMM shapes at 1024 served lanes: each
+# of the 9 steps runs the input GEMM (bias, raw int32) and the recurrent
+# one (no bias, raw int32), then the head runs once: 19 a chunk
+RNN_GEMMS = (("cell/wx", 1024, 32, 128, None, True),
+             ("cell/wh", 1024, 128, 128, None, False),
+             ("rnn head", 1024, 128, 7, None, True))
+RNN_GEMM_REPEATS = {"cell/wx": 9, "cell/wh": 9, "rnn head": 1}
 
 
-def _gemm_bound_ms(m, k, n, shift):
-    byts = m * k + k * n + 4 * n + m * n * (1 if shift is not None else 4)
+def _gemm_bound_ms(m, k, n, shift, bias=True):
+    byts = m * k + k * n + (4 * n if bias else 0) \
+        + m * n * (1 if shift is not None else 4)
     t_bytes = byts / HBM_BYTES_PER_S
     t_ops = 2.0 * m * n * k / INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -640,9 +687,9 @@ def phase_gemm(rng):
         return a.cuda(), k_major(b.cuda()), bias.cuda()
 
     worst = 0
-    # the path's six shapes, then ragged M/N/K: K of the tiny model (24,
-    # 8, 16), odd K, M = 1
-    shapes = [s[1:4] for s in PATH_GEMMS] + [
+    # the paths' shapes (CNN and RNN), then ragged M/N/K: K of the tiny
+    # models (24, 8, 16), odd K, M = 1
+    shapes = [s[1:4] for s in PATH_GEMMS + RNN_GEMMS] + [
         (1, 1, 1), (17, 33, 9), (1000, 100, 70), (4099, 200, 130),
         (1, 256, 7), (1, 96, 64), (2304, 24, 16), (300, 8, 7),
         (1024, 16, 7), (77, 512, 300)]
@@ -666,10 +713,11 @@ def phase_gemm(rng):
         print(f"int8_gemm refuses a row-major b: {e}")
     else:
         require(False, "int8_gemm took a row-major b")
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    by = set()
-    for name, m, k, n, shift in PATH_GEMMS:
+    def timed(name, m, k, n, shift, with_bias):
+        """One path GEMM timed beside its plain version, torch._int_mm on
+        both B layouts and its bound; returns the numbers by key."""
         a, b, bias = operands(m, k, n)
+        bias = bias if with_bias else None
         # torch._int_mm (the raw int32 product only) needs N % 8 == 0:
         # the head's 7 columns are padded to 8 for the yardstick, which
         # is timed on a row-major and on a K-major B, the faster kept
@@ -684,6 +732,8 @@ def phase_gemm(rng):
         def plain():
             return int8_matmul_ref(a, b, bias, shift)
 
+        diff = max_abs_diff(kern(), plain())
+        require(diff == 0, f"int8_gemm {name}: max|diff| {diff}")
         lib_ms = {}
         for layout, bl in (("row-major", b_row), ("K-major", b_col)):
             try:
@@ -695,25 +745,43 @@ def phase_gemm(rng):
             lib_ms[layout] = device_ms(lambda bl=bl: torch._int_mm(a, bl))
         require(bool(lib_ms), "torch._int_mm took neither layout")
         ms, plain_ms = device_ms(kern), device_ms(plain)
-        bound, bb = _gemm_bound_ms(m, k, n, shift)
-        by.add(bb)
+        bound, bb = _gemm_bound_ms(m, k, n, shift, with_bias)
         lib = min(lib_ms.values())
         libs = ", ".join(f"{lay} {t:.5f} ms" for lay, t in lib_ms.items())
-        print(f"int8_gemm {name} [{m},{k}]x[{k},{n}] tile "
-              f"{TILES[gemm_tile(m, n, sms)]}: kernel {ms:.5f} ms, "
-              f"plain {plain_ms:.5f} ms, torch._int_mm {libs} (device "
-              f"time, graph replay); eager kernel call "
+        print(f"int8_gemm {name} [{m},{k}]x[{k},{n}] "
+              f"{'bias' if with_bias else 'no bias'}, shift {shift}, tile "
+              f"{TILES[gemm_tile(m, n, sms)]}: max|diff|={diff}; kernel "
+              f"{ms:.5f} ms, plain {plain_ms:.5f} ms, torch._int_mm {libs} "
+              f"(device time, graph replay); eager kernel call "
               f"{host_ms(kern):.5f} ms; bound {bound:.6f} ms ({bb}, "
-              f"{bound / ms:.3f} of it)")
+              f"{bound / ms:.3f} of it); kernel / _int_mm {ms / lib:.3f}")
         sweep = ", ".join(
             f"{bm}x{bn} "
             f"{device_ms(lambda i=i: int8_gemm(a, b, bias, shift, i)):.5f}"
             for i, (bm, bn) in enumerate(TILES))
         print(f"  tile sweep ({name}, ms): {sweep}")
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("bound_ms", bound), ("library_ms", lib)):
-            total[key] += v
-    print(f"int8_gemm per chunk (six GEMMs): kernel {total['ms']:.5f} ms, "
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "library_ms": lib, "bound_by": bb}
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    by = set()
+    for name, m, k, n, shift, with_bias in PATH_GEMMS:
+        row = timed(name, m, k, n, shift, with_bias)
+        by.add(row["bound_by"])
+        for key in total:
+            total[key] += row[key]
+    rnn = dict.fromkeys(total, 0.0)
+    for name, m, k, n, shift, with_bias in RNN_GEMMS:
+        row = timed(name, m, k, n, shift, with_bias)
+        for key in rnn:
+            rnn[key] += RNN_GEMM_REPEATS[name] * row[key]
+    print(f"int8_gemm per RNN chunk (9 x cell/wx + 9 x cell/wh + head = 19 "
+          f"GEMMs): kernel {rnn['ms']:.5f} ms, plain {rnn['plain_ms']:.5f} "
+          f"ms, torch._int_mm {rnn['library_ms']:.5f} ms (the faster layout "
+          f"of each), bound {rnn['bound_ms']:.6f} ms "
+          f"({rnn['bound_ms'] / rnn['ms']:.3f} of it); kernel / _int_mm "
+          f"{rnn['ms'] / rnn['library_ms']:.3f}")
+    print(f"int8_gemm per CNN chunk (six GEMMs): kernel {total['ms']:.5f} ms, "
           f"plain {total['plain_ms']:.5f} ms, torch._int_mm "
           f"{total['library_ms']:.5f} ms (the faster layout of each), "
           f"bound {total['bound_ms']:.6f} ms "
@@ -930,36 +998,24 @@ def graph_vs_eager(g, e, stream, what, parts=None):
     return runs[1]
 
 
-def phase_slice(args):
-    from repro_torch.configs.fenix_models import fenix_cnn
-    from repro_torch.core.data_engine.decision_tree import (fit_tree,
-                                                            tree_arrays)
-    from repro_torch.core.data_engine.state import EngineConfig
-    from repro_torch.core.model_engine import serving
-    from repro_torch.core.model_engine.inference import EngineModel
-    from repro_torch.data.synthetic_traffic import (make_flows,
-                                                    packet_stream,
-                                                    windows_from_flows)
+def gemms_per_chunk(mcfg):
+    """INT8 GEMM launches of one served chunk: each conv and FC layer and
+    the head (CNN); the two cell GEMMs of each step and the head (RNN)."""
+    if mcfg.kind == "rnn":
+        return 2 * mcfg.seq_len + 1
+    return len(mcfg.conv_filters) + len(mcfg.fc_dims) + 1
 
-    batch, cpe = 4096, 8
-    t0 = time.perf_counter()
-    flows = make_flows("iscx", max(64, args.packets // 200),
-                       seed=args.seed)
-    stream = packet_stream(flows, limit=args.packets)
+
+def drive_model(model, mcfg, stream, batch, cpe):
+    """The main path of one served model: the trace replayed on the
+    device driver with each gate kernel, as CUDA graphs (captured on a
+    warm-up prefix) and eagerly, each kernel count at 0 before each
+    replay; graph == eager (verdicts, stats, final tensors, counts) ==
+    the plain backends on the card; packets/s of graph and eager in
+    turns.  Returns the systems, the runs and the main path's counts."""
     n = len(stream["ts_us"])
-    print(f"trace: {n} packets from {len(flows)} flows "
-          f"({time.perf_counter() - t0:.1f} s to make)")
-    if args.model_dir:
-        qp, mcfg = serving.load_quantized(args.model_dir)
-    else:
-        mcfg = fenix_cnn()
-        qp = seeded_qparams(mcfg, args.seed, _calib_windows(flows, 512, 9))
-    print(f"model: {mcfg.name} conv={mcfg.conv_filters} fc={mcfg.fc_dims} "
-          f"embed={mcfg.embed_dim} seq={mcfg.seq_len} "
-          f"shifts={qp['cfg_shifts']}")
-    model = EngineModel(mcfg, serving.qparams_from_numpy(qp, "cuda"))
     chunks = -(-n // batch)
-    base = (model, stream, "cuda", batch, cpe)
+    per = gemms_per_chunk(mcfg)
     gates = ("cuda", "cuda_prng")
     systems = {(gate, step): make_system(model, "cuda", batch, cpe,
                                          gate_backend=gate,
@@ -984,9 +1040,9 @@ def phase_slice(args):
 
     # the main path: the graph replays, each kernel count at 0 before it
     want = {"cuda": {"fused_gate": chunks, "fused_gate_prng": 0,
-                     "int8_gemm": 6 * chunks, "decode_attention": 0},
+                     "int8_gemm": per * chunks, "decode_attention": 0},
             "cuda_prng": {"fused_gate": 0, "fused_gate_prng": chunks,
-                          "int8_gemm": 6 * chunks, "decode_attention": 0}}
+                          "int8_gemm": per * chunks, "decode_attention": 0}}
     res, counted = {}, {}
     for gate in gates:
         for step in ("graph", "eager"):
@@ -1035,7 +1091,8 @@ def phase_slice(args):
           f"packets/s; inferences {stats['inferences']}, granted "
           f"{stats['granted']}, classified {stats['classified_pkts']}")
     print(f"launches on the main path: {launches} (chunks {chunks}, "
-          f"6 x chunks = {6 * chunks}), the same under graph and eager")
+          f"{per} x chunks = {per * chunks}), the same under graph and "
+          "eager")
     require(v_k.shape == (n,) and v_k.dtype == np.int32,
             f"verdicts {v_k.shape} {v_k.dtype}")
     require(v_k.min() >= -1 and v_k.max() < mcfg.num_classes,
@@ -1044,6 +1101,45 @@ def phase_slice(args):
             "the replay served no inference")
     print(f"verdict classes: {np.bincount(v_k + 1).tolist()} (index 0 = "
           "unclassified)")
+
+    return {"systems": systems, "plain": plain, "res": res,
+            "launches": launches, "rate": rate}
+
+
+def phase_slice(args):
+    from repro_torch.configs.fenix_models import fenix_cnn
+    from repro_torch.core.data_engine.decision_tree import (fit_tree,
+                                                            tree_arrays)
+    from repro_torch.core.data_engine.state import EngineConfig
+    from repro_torch.core.model_engine import serving
+    from repro_torch.core.model_engine.inference import EngineModel
+    from repro_torch.data.synthetic_traffic import (make_flows,
+                                                    packet_stream,
+                                                    windows_from_flows)
+
+    batch, cpe = 4096, 8
+    t0 = time.perf_counter()
+    flows = make_flows("iscx", max(64, args.packets // 200),
+                       seed=args.seed)
+    stream = packet_stream(flows, limit=args.packets)
+    n = len(stream["ts_us"])
+    print(f"trace: {n} packets from {len(flows)} flows "
+          f"({time.perf_counter() - t0:.1f} s to make)")
+    if args.model_dir:
+        qp, mcfg = serving.load_quantized(args.model_dir)
+    else:
+        mcfg = fenix_cnn()
+        qp = seeded_qparams(mcfg, args.seed, _calib_windows(flows, 512, 9))
+    print(f"model: {mcfg.name} conv={mcfg.conv_filters} fc={mcfg.fc_dims} "
+          f"embed={mcfg.embed_dim} seq={mcfg.seq_len} "
+          f"shifts={qp['cfg_shifts']}")
+    model = EngineModel(mcfg, serving.qparams_from_numpy(qp, "cuda"))
+    chunks = -(-n // batch)
+    base = (model, stream, "cuda", batch, cpe)
+    gates = ("cuda", "cuda_prng")
+    d = drive_model(model, mcfg, stream, batch, cpe)
+    systems, launches, rate = d["systems"], d["launches"], d["rate"]
+    v_k, sys_k, sec_k = d["res"][("cuda", "graph")]
 
     # two run_trace calls in a row on new systems (the graph system
     # captures in the first), each with a ragged tail
@@ -1149,7 +1245,10 @@ def phase_slice(args):
         for step in ("graph", "eager"):
             profile_replay(systems[(gate, step)], stream, chunks,
                            f"gate {gate}, {step}")
-    return launches, n / sec_k
+    ctx = {"flows": flows, "stream": stream, "model": model,
+           "systems": systems, "batch": batch, "cpe": cpe,
+           "rate": {k: max(v) for k, v in rate.items()}}
+    return launches, ctx
 
 
 def _launches(avgs):
@@ -1266,6 +1365,266 @@ def profile_replay(sys_, stream, chunks, what):
     for a in host[:10]:
         print(f"  host x{a.count:6d}  self cpu "
               f"{a.self_cpu_time_total / 1e3:9.3f} ms  {a.key[:60]}")
+
+
+# -- phase 4b ---------------------------------------------------------------
+
+def seeded_rnn_qparams(mcfg, seed, calib):
+    """Random int8 weights in ``quantize_traffic``'s RNN layout, with the
+    cell's shifts chosen on a calibration batch: each cell GEMM's 99th
+    percentile of |accumulator| lands near 512 after its shift
+    (``shift_x``, ``shift_h``), and ``lut_preshift`` puts the 99th
+    percentile of |pre| near index 32 of the tanh LUT (whose step is
+    1/16: tanh(2)), so h neither vanishes nor sits at +-127.  The LUT
+    holds tanh on a 2^-7 grid.  The head's bias centres the classes'
+    logits on the same batch.  Returns the qparams and the shares of
+    h's entries at 0 and at +-127 on the batch."""
+    from repro_torch.kernels.int8_matmul.ops import int8_matmul
+    from repro_torch.models.traffic import bucketize
+
+    rng = np.random.default_rng(seed + 1)
+    e, u, steps = mcfg.embed_dim, mcfg.rnn_units, mcfg.seq_len
+
+    def w8(*shape):
+        return rng.integers(-127, 128, shape).astype(np.int8)
+
+    def q99(t):
+        return float(np.percentile(np.abs(t.numpy()), 99))
+
+    def shift_for(t, target):
+        return max(0, round(math.log2(max(q99(t), 1.0) / target)))
+
+    qp = {"embed_len/table": w8(mcfg.len_buckets, e),
+          "embed_ipd/table": w8(mcfg.ipd_buckets, e),
+          "cell/wx": w8(2 * e, u), "cell/wh": w8(u, u)}
+    ids = bucketize(torch.from_numpy(calib), mcfg).long().transpose(0, 1)
+    x = torch.cat([torch.from_numpy(qp["embed_len/table"])[ids[..., 0]],
+                   torch.from_numpy(qp["embed_ipd/table"])[ids[..., 1]]],
+                  dim=-1)                                  # [T, M, 2E]
+    wx, wh = (torch.from_numpy(qp[k]) for k in ("cell/wx", "cell/wh"))
+    accx = torch.stack([int8_matmul(x[t], wx, None, None, backend="ref")
+                        for t in range(steps)])
+    scale = int(np.median(np.abs(accx.numpy()))) + 1
+    qp["cell/b"] = rng.integers(-scale, scale + 1, u).astype(np.int32)
+    accx = accx + torch.from_numpy(qp["cell/b"])
+    sx = shift_for(accx, 512)
+    idx = np.arange(-256, 256)
+    qp["tanh_lut"] = np.clip(np.round(np.tanh(idx / 16) * 128), -127,
+                             127).astype(np.int8)
+    lut = torch.from_numpy(qp["tanh_lut"])
+
+    def recur(sh, lp):
+        h = torch.zeros((x.shape[1], u), dtype=torch.int8)
+        acch_all, pre_all = [], []
+        for t in range(steps):
+            acch = int8_matmul(h, wh, None, None, backend="ref")
+            pre = (accx[t] >> sx) + (acch >> sh)
+            h = lut[(torch.clamp(pre >> lp, -256, 255) + 256).long()]
+            acch_all.append(acch)
+            pre_all.append(pre)
+        return h, torch.stack(acch_all), torch.stack(pre_all)
+
+    sh, lp = 0, shift_for(accx >> sx, 32)
+    for _ in range(3):              # the shifts and h settle together
+        _, acch, pre = recur(sh, lp)
+        sh, lp = shift_for(acch, 512), shift_for(pre, 32)
+    h, _, _ = recur(sh, lp)
+    hv = h.to(torch.int32).abs()
+    shares = (float((hv == 0).float().mean()),
+              float((hv == 127).float().mean()))
+    qp.update({"cell/shift_x": sx, "cell/shift_h": sh,
+               "cell/lut_preshift": lp})
+    head = w8(u, mcfg.num_classes)
+    acc = int8_matmul(h, torch.from_numpy(head), None, None, backend="ref")
+    qp["head/w"] = head
+    qp["head/b"] = (-acc.to(torch.float64).mean(dim=0)).round().numpy() \
+        .astype(np.int32)
+    qp["head/shift"] = 0
+    qp["cfg_shifts"] = {"shift_x": sx, "shift_h": sh, "lut_preshift": lp}
+    return qp, shares
+
+
+def phase_rnn(args, ctx):
+    """4b. The full-width FENIX-RNN on phase 4's trace: the main path of
+    ``drive_model`` (19 INT8 GEMMs a chunk), the card (graph) against the
+    CPU (eager) on a prefix of four chunks, and the replays under the
+    profiler.  Returns (the main path's int8_gemm launches, the model,
+    its graph system under gate "cuda")."""
+    from repro_torch.configs.fenix_models import fenix_rnn
+    from repro_torch.core.model_engine import serving
+    from repro_torch.core.model_engine.inference import EngineModel
+
+    flows, stream = ctx["flows"], ctx["stream"]
+    batch, cpe = ctx["batch"], ctx["cpe"]
+    n = len(stream["ts_us"])
+    chunks = -(-n // batch)
+    mcfg = fenix_rnn()
+    qp, (zero, sat) = seeded_rnn_qparams(mcfg, args.seed,
+                                         _calib_windows(flows, 1024, 9))
+    print(f"model: {mcfg.name} embed={mcfg.embed_dim} "
+          f"units={mcfg.rnn_units} seq={mcfg.seq_len} "
+          f"classes={mcfg.num_classes} shifts={qp['cfg_shifts']}; on the "
+          f"calibration batch h is 0 in {zero:.3f} and +-127 in {sat:.3f} "
+          "of its entries")
+    require(zero < 0.5 and sat < 0.5, f"h at 0 in {zero}, at +-127 in "
+            f"{sat} of its entries")
+    model = EngineModel(mcfg, serving.qparams_from_numpy(qp, "cuda"))
+    d = drive_model(model, mcfg, stream, batch, cpe)
+    v_k, sys_k, _ = d["res"][("cuda", "graph")]
+    require(len(np.unique(v_k[v_k >= 0])) > 1,
+            "the RNN replay gave one class only")
+    pre = {k: v[:4 * batch] for k, v in stream.items()}
+    v_gpu, sys_gpu, _ = replay(model, pre, "cuda", batch, cpe)
+    model_cpu = copy.deepcopy(model).to("cpu")
+    v_cpu, sys_cpu, _ = replay(model_cpu, pre, "cpu", batch, cpe)
+    same_run((v_gpu, sys_gpu), (v_cpu, sys_cpu), "RNN prefix: card vs CPU")
+    same_carry(sys_gpu, sys_cpu, "RNN prefix: card (graph) vs CPU (eager)")
+    print(f"RNN prefix of {4 * batch} packets: card (graph) == CPU (eager):"
+          " verdicts, stats, final tensors")
+    for gate in ("cuda", "cuda_prng"):
+        for step in ("graph", "eager"):
+            profile_replay(d["systems"][(gate, step)], stream, chunks,
+                           f"RNN, gate {gate}, {step}")
+    return (d["launches"]["int8_gemm"], model,
+            d["systems"][("cuda", "graph")])
+
+
+# -- phase 4c ---------------------------------------------------------------
+
+def phase_oracle(ctx, rnn_model, rnn_sys):
+    """4c. Oracle payloads (``oracle_windows=`` from the trace's flows)
+    on the CNN and the RNN: graph == eager on the whole trace (the same
+    kernel counts as without them), the card's graph == its host driver
+    (fast) == the CPU (eager) on a prefix with a ragged tail, and the
+    replay rate beside the rate without an oracle, in turns."""
+    flows, stream = ctx["flows"], ctx["stream"]
+    batch, cpe = ctx["batch"], ctx["cpe"]
+    n = len(stream["ts_us"])
+    chunks = -(-n // batch)
+    oracle = [np.stack([f.pkt_len, f.ipd_us], -1).astype(np.int32)
+              for f in flows]
+    kw = dict(sys_kw=dict(oracle_windows=oracle))
+    pre = {k: v[:4 * batch + 1000] for k, v in stream.items()}
+    warm = {k: v[:(cpe + 1) * batch] for k, v in stream.items()}
+    for name, model, plain_sys in (
+            ("CNN", ctx["model"], ctx["systems"][("cuda", "graph")]),
+            ("RNN", rnn_model, rnn_sys)):
+        per = gemms_per_chunk(model.cfg)
+        g = make_system(model, "cuda", batch, cpe, **kw)
+        e = make_system(model, "cuda", batch, cpe, step_backend="eager",
+                        **kw)
+        run(g, warm)                                       # capture
+        for sys_ in (g, e):
+            _, _, counts = counted_run(sys_, stream)
+            require(counts["fused_gate"] == chunks
+                    and counts["int8_gemm"] == per * chunks,
+                    f"{name} oracle: launches {counts}")
+            require(sys_.capture_s == 0.0, f"{name} oracle: a new capture")
+        v_g = graph_vs_eager(g, e, stream, f"{name} oracle")
+        v_plain = run(plain_sys, stream)[0]
+        print(f"{name} oracle payloads, {n} packets: graph == eager "
+              f"(verdicts, stats, final tensors; launches {counts}); "
+              f"{int((v_g != v_plain).sum())} verdicts differ from the "
+              "replay without them")
+        v_gp, _ = run(g, pre)
+        v_h, sys_h, _ = replay(model, pre, "cuda", batch, cpe,
+                               driver="host", **kw)
+        same_run((v_gp, g), (v_h, sys_h), f"{name} oracle: graph vs host")
+        v_c, sys_c, _ = replay(copy.deepcopy(model).to("cpu"), pre, "cpu",
+                               batch, cpe, **kw)
+        same_run((v_gp, g), (v_c, sys_c), f"{name} oracle: card vs CPU")
+        same_carry(g, sys_c, f"{name} oracle: card vs CPU")
+        print(f"{name} oracle prefix of {len(pre['ts_us'])} packets "
+              "(ragged tail): card graph == host driver (fast) on the "
+              "card == CPU eager")
+        rates = {"oracle": [], "none": []}
+        for which in ("none", "oracle", "oracle", "none"):
+            sys_ = g if which == "oracle" else plain_sys
+            rates[which].append(n / run(sys_, stream)[1])
+        print(f"{name} replay (graph, gate cuda) with oracle payloads "
+              f"{', '.join(f'{r:.1f}' for r in rates['oracle'])} packets/s"
+              f", without {', '.join(f'{r:.1f}' for r in rates['none'])} "
+              "packets/s (in turns: none, oracle, oracle, none; with the "
+              "oracle's payloads built and staged in each run)")
+
+
+# -- phase 4d ---------------------------------------------------------------
+
+def phase_capture(ctx):
+    """4d. Capture replay: phase 4's flows written as a pcap with its
+    label sidecar (``synthesize_pcap``, 1000 packets past the trace: two
+    streamed blocks and a ragged tail), ingested back to the source
+    stream in every column, then streamed by ``run_trace`` on the CNN
+    system whose graphs phase 4 captured: ``TraceSpec`` with overlap on
+    and off and a bare path string, each == the in-memory replay of the
+    same stream (verdicts, stats, final tensors), with no new capture, 0
+    host syncs (the loop runs under sync-debug "error") and the kernel
+    counts of the chunks.  Prints the pcap's bytes and the parse-only,
+    streaming and in-memory rates."""
+    import tempfile
+    import types
+
+    from repro_torch.data import trace_ingest as ti
+
+    flows, batch = ctx["flows"], ctx["batch"]
+    sys_ = ctx["systems"][("cuda", "graph")]
+    n_cap = len(ctx["stream"]["ts_us"]) + 1000
+    chunks = -(-n_cap // batch)
+    per = gemms_per_chunk(ctx["model"].cfg)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = Path(tmp) / "trace.pcap"
+        t0 = time.perf_counter()
+        source = ti.synthesize_pcap(flows, path, limit=n_cap)
+        synth_s = time.perf_counter() - t0
+        require(len(source["ts_us"]) == n_cap, "the capture is short")
+        t0 = time.perf_counter()
+        got = ti.ingest_pcap(path)
+        ingest_s = time.perf_counter() - t0
+        require(sorted(got) == sorted(source), "ingested columns differ")
+        for k in source:
+            require(got[k].dtype == source[k].dtype
+                    and np.array_equal(got[k], source[k]),
+                    f"ingest: column {k} differs from the source stream")
+        print(f"capture: {n_cap} packets, {path.stat().st_size} bytes of "
+              f"pcap ({synth_s:.2f} s to write); ingest {ingest_s:.2f} s; "
+              "ingested stream == source stream in every column and dtype")
+        v_mem, _ = run(sys_, source)          # the in-memory replay
+        mem = types.SimpleNamespace(state=sys_.state, queues=sys_.queues,
+                                    _dl=sys_._dl, stats=dict(sys_.stats))
+        want = {"fused_gate": chunks, "fused_gate_prng": 0,
+                "int8_gemm": per * chunks, "decode_attention": 0}
+        traces = {"overlap on": ti.TraceSpec(path),
+                  "overlap off": ti.TraceSpec(path, overlap=False),
+                  "in memory": source, "path string": str(path)}
+        rates = {}
+        # in turns; "parse only" runs TraceSpec.iter_chunks alone
+        for what in ("parse only", "overlap on", "overlap off", "in memory",
+                     "in memory", "overlap off", "overlap on", "parse only",
+                     "path string"):
+            if what == "parse only":
+                t0 = time.perf_counter()
+                cnt = sum(len(c["ts_us"])
+                          for c in ti.TraceSpec(path).iter_chunks())
+                sec = time.perf_counter() - t0
+                require(cnt == n_cap, f"parsed {cnt} packets")
+            else:
+                zero_counts()
+                v, sec = run(sys_, traces[what])
+                counts = read_counts()
+                same_run((v, sys_), (v_mem, mem), f"{what} vs in memory")
+                same_carry(sys_, mem, f"{what} vs in memory")
+                require(sys_.capture_s == 0.0 and sys_.host_syncs == 0,
+                        f"{what}: a capture or a host sync")
+                require(counts == want, f"{what}: launches {counts}; want "
+                        f"{want}")
+            rates.setdefault(what, []).append(n_cap / sec)
+    for what, r in rates.items():
+        print(f"capture {what}: {', '.join(f'{x:.1f}' for x in r)} "
+              "packets/s (in turns: parse only, overlap on, off, in memory, "
+              "in memory, off, on, parse only, path string)")
+    print(f"streamed replays (overlap on, off, a path string) == in-memory "
+          f"replay (verdicts, stats, final tensors); no capture; 0 host "
+          f"syncs; launches {want} each")
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -1798,16 +2157,38 @@ def main():
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
-    phase_environment()
+    seconds = {}
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    phase("1 environment", phase_environment)
     rng = np.random.default_rng(args.seed)
-    rows = {**phase_gate(rng), **phase_select(rng),
-            "int8_gemm": phase_gemm(rng)}
-    launches = phase_select_sweep(rng)
-    slice_launches, _ = phase_slice(args)
+    rows = {**phase("2 gate", phase_gate, rng),
+            **phase("2 select", phase_select, rng),
+            "int8_gemm": phase("2 gemm", phase_gemm, rng)}
+    launches = phase("3 select sweep", phase_select_sweep, rng)
+    slice_launches, ctx = phase("4 slice (CNN)", phase_slice, args)
     launches.update(slice_launches)
-    rows["decode_attention"] = phase_attention(
-        rng, args.prompt_len + args.new_tokens)
-    launches["decode_attention"] = phase_lm(args)
+    rnn_gemms, rnn_model, rnn_sys = phase("4b RNN", phase_rnn, args, ctx)
+    launches["int8_gemm"] += rnn_gemms
+    print(f"int8_gemm launches on the main paths: CNN "
+          f"{slice_launches['int8_gemm']} + RNN {rnn_gemms}")
+    phase("4c oracle payloads", phase_oracle, ctx, rnn_model, rnn_sys)
+    del rnn_model, rnn_sys
+    phase("4d capture replay", phase_capture, ctx)
+    del ctx
+    rows["decode_attention"] = phase(
+        "5 attention", phase_attention, rng,
+        args.prompt_len + args.new_tokens)
+    launches["decode_attention"] = phase("6 LM", phase_lm, args)
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in seconds.items())
+          + f"; total {sum(seconds.values()):.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": launches[name], **rows[name]}
                for name, src, tpu in KERNEL_ROWS]

@@ -30,6 +30,24 @@ Port of ``repro/core/fenix.py``, single pipe, with its two drivers:
   is staged on the device once, a chunk per contiguous block.
   ``"eager"`` (the default on the CPU) runs the same body op by op, as
   does the ragged tail chunk on either backend.
+
+  With oracle payloads (``oracle_windows=``, a flow's true feature
+  sequence each) every packet's ring window comes from
+  ``synthetic_traffic.oracle_payloads``, staged beside the packed chunks
+  and copied into a second fixed input buffer before each replay; the
+  step enqueues it in place of the flow table's ring.
+
+  A capture path or a ``trace_ingest.TraceSpec`` streams (when the system
+  has no oracle; with one, it is loaded whole, as the reference does):
+  blocks of ``control_plane_every x 4`` full chunks are parsed and
+  staged while the graphs replay the block before (``TraceSpec.overlap``:
+  a producer thread and a queue of two blocks; otherwise in line), and
+  the ragged tail runs eagerly.  A block goes to the card through a
+  pinned host buffer, copied with ``non_blocking=True`` on the
+  producer's own copy stream; the compute stream waits on the copy's
+  event, so the host never waits for the card inside the loop (see
+  ``_Stager`` for the waits the producer makes).  Each full chunk
+  replays the chunk graphs the system already holds.
 * **host** (``driver="host"``; ``exact=True`` for the per-packet scan
   admission): the batch-at-a-time ``step`` loop with a Python list of
   in-flight results and the control plane called from the host each
@@ -37,15 +55,18 @@ Port of ``repro/core/fenix.py``, single pipe, with its two drivers:
   batch's grants, slots, hashes and payloads back by design; its tensors
   live on the same device as the device driver's.
 
-The multi-pipe and engine-farm drivers, capture-path and ``TraceSpec``
-traces, and oracle payloads (``oracle_windows=``) are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+The multi-pipe and engine-farm drivers are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import queue as queue_mod
+import threading
+import time
+import warnings
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +82,8 @@ from repro_torch.core.model_engine import delay_line as dl
 from repro_torch.core.model_engine import serving
 from repro_torch.core.model_engine import vector_io as vio
 from repro_torch.core.model_engine.inference import EngineModel
+from repro_torch.data.synthetic_traffic import oracle_payloads, ring_window
+from repro_torch.data.trace_ingest import TraceSpec
 
 I32 = torch.int32
 
@@ -158,9 +181,10 @@ def _make_single_step(ecfg: EngineConfig, iocfg: vio.IOConfig,
         now = ts[-1]
         state, dline = dl.deliver(state, dline, now, ecfg.n_slots)
         state, out = de.process_batch_fast(state, chunk, ecfg)
+        # oracle payloads, when the chunk carries them, replace the ring's
+        payload = chunk.get("payload", out["payload"])
         queues = vio.enqueue_device(queues, iocfg, out["granted"],
-                                    out["slot"], out["hash"],
-                                    out["payload"])
+                                    out["slot"], out["hash"], payload)
         verdict = out["verdict"]
         n_tree = torch.zeros((), dtype=I32, device=ts.device)
         if tree is not None:
@@ -186,10 +210,37 @@ def _make_single_step(ecfg: EngineConfig, iocfg: vio.IOConfig,
 _I32_KEYS = ("ts_us", "pkt_len")
 
 
-def _unpack(packed: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """[len(PKT_KEYS), n] int64 -> the chunk dict the step takes."""
-    return {k: packed[j].to(I32) if k in _I32_KEYS else packed[j]
-            for j, k in enumerate(PKT_KEYS)}
+def _unpack(packed: torch.Tensor, payload: Optional[torch.Tensor]
+            ) -> Dict[str, torch.Tensor]:
+    """[len(PKT_KEYS), n] int64 (and the chunk's oracle payloads [n, win,
+    dim] int32, or None) -> the chunk dict the step takes."""
+    chunk = {k: packed[j].to(I32) if k in _I32_KEYS else packed[j]
+             for j, k in enumerate(PKT_KEYS)}
+    if payload is not None:
+        chunk["payload"] = payload
+    return chunk
+
+
+def _pack(stream: Dict[str, np.ndarray], lo: int, hi: int, out=None
+          ) -> np.ndarray:
+    """Packets [lo, hi) of ``stream`` as the packed chunks' rows [F, hi -
+    lo] int64 (F = len(PKT_KEYS)), written into ``out`` when given."""
+    if out is None:
+        out = np.empty((len(PKT_KEYS), hi - lo), np.int64)
+    for j, k in enumerate(PKT_KEYS):
+        out[j] = np.asarray(stream[k][lo:hi]).astype(_PKT_DTYPES[k])
+    return out
+
+
+def _pack_block(stream: Dict[str, np.ndarray], steps: int, batch: int,
+                out: np.ndarray) -> np.ndarray:
+    """The first ``steps`` full chunks of ``stream`` as packed chunks
+    [steps, F, batch] int64, written into ``out``: a chunk is one
+    contiguous block."""
+    for j, k in enumerate(PKT_KEYS):
+        out[:, j, :] = np.asarray(stream[k][:steps * batch]).astype(
+            _PKT_DTYPES[k]).reshape(steps, batch)
+    return out
 
 
 # the buffers a chunk step's warm-up before capture must not advance
@@ -213,16 +264,89 @@ def _make_chunk_step(step_fn):
     cp)`` runs ``step_fn`` on the carry held in ``bufs`` (``"state"``,
     ``"queues"``, ``"dl"``), leaves the new carry in the same tensors,
     adds the chunk's stats into ``bufs["stats"]`` and returns its
-    verdicts."""
+    verdicts; ``payload`` (oracle payloads) replaces the ring's."""
 
-    def chunk_step(bufs, packed: torch.Tensor, cp: bool) -> torch.Tensor:
+    def chunk_step(bufs, packed: torch.Tensor, cp: bool,
+                   payload: Optional[torch.Tensor] = None) -> torch.Tensor:
         carry = (bufs["state"], bufs["queues"], bufs["dl"])
-        new, verdict, stats = step_fn(carry, _unpack(packed), cp)
+        new, verdict, stats = step_fn(carry, _unpack(packed, payload), cp)
         _store(carry, new)
         bufs["stats"] += stats
         return verdict
 
     return chunk_step
+
+
+class _Stager:
+    """Moves the packed blocks of a streamed trace to the device.
+
+    On CUDA a block goes through one of ``slots`` pinned host buffers
+    into the device buffer of the same slot, copied with
+    ``non_blocking=True`` on the stager's own copy stream, made current
+    in whichever thread stages (the current stream is per thread: without
+    it the copies would queue on the default stream behind the replays).
+    The consumer makes the compute stream wait on ``copied[slot]``
+    (``ready``: a device-side wait, none on the host) and records
+    ``consumed[slot]`` once the block's replays are enqueued (``done``).
+
+    Before it refills a slot the stager waits on the host until the
+    slot's last copy has finished (its pinned buffer is then free to
+    overwrite; the one host wait of a streamed replay, made by the
+    producer, never by the loop that enqueues the replays), and its copy
+    stream waits on the device for ``consumed[slot]`` (the device buffer
+    is then free).  The producer stages at most ``queue + 1`` blocks
+    ahead of the one the consumer holds, so with ``slots = queue + 2`` a
+    slot's ``consumed`` event is always recorded before the slot comes
+    round again.  On the CPU ``stage`` returns the block itself."""
+
+    def __init__(self, device: torch.device, shape: Tuple[int, ...],
+                 slots: int):
+        self.device = device
+        self.slots = slots
+        self.k = 0
+        if device.type == "cuda":
+            self.stream = torch.cuda.Stream(device)
+            self.host = [torch.empty(shape, dtype=torch.int64,
+                                     pin_memory=True) for _ in range(slots)]
+            self.dev = [torch.empty(shape, dtype=torch.int64, device=device)
+                        for _ in range(slots)]
+            self.copied = [torch.cuda.Event() for _ in range(slots)]
+            self.consumed = [torch.cuda.Event() for _ in range(slots)]
+
+    def stage(self, shape: Tuple[int, ...], fill) -> Tuple[torch.Tensor,
+                                                           int]:
+        """``fill(array)`` writes a block of ``shape`` (int64) into the
+        next slot's host buffer; returns (the block on the device, its
+        slot; -1 on the CPU)."""
+        if self.device.type != "cuda":
+            arr = np.empty(shape, np.int64)
+            fill(arr)
+            return torch.from_numpy(arr), -1
+        s = self.k % self.slots
+        self.k += 1
+        while not self.copied[s].query():   # host wait: the slot's last copy
+            time.sleep(5e-5)
+        n = int(np.prod(shape))
+        host = self.host[s].view(-1)[:n].view(shape)
+        fill(host.numpy())
+        dev = self.dev[s].view(-1)[:n].view(shape)
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(self.consumed[s])
+            dev.copy_(host, non_blocking=True)
+            self.copied[s].record(self.stream)
+        return dev, s
+
+    def ready(self, slot: int) -> None:
+        """The current stream waits for ``slot``'s copy (on the device)."""
+        if slot >= 0:
+            torch.cuda.current_stream(self.device).wait_event(
+                self.copied[slot])
+
+    def done(self, slot: int) -> None:
+        """Every use of ``slot``'s device block is enqueued."""
+        if slot >= 0:
+            self.consumed[slot].record(
+                torch.cuda.current_stream(self.device))
 
 
 class FenixSystem:
@@ -234,6 +358,10 @@ class FenixSystem:
     (``EngineModel`` or ``ByLenModel``); ``None`` builds ``cfg.model``.
     ``tree``: switch decision-tree arrays (``decision_tree.tree_arrays``)
     for packets of flows without a verdict, walked ``tree_depth`` levels.
+    ``oracle_windows``: each flow's true [n_f, feat_dim] feature sequence
+    (by ``flow_idx``); in fast mode a stream that carries ``flow_idx`` /
+    ``flow_pos`` then enqueues the oracle's ring windows instead of the
+    flow table's.
     """
 
     def __init__(self, cfg: FenixConfig, model=None,
@@ -245,10 +373,6 @@ class FenixSystem:
             raise NotImplementedError(
                 f"driver={cfg.driver!r} is not ported yet: "
                 f"{_NOT_PORTED[cfg.driver]}")
-        if oracle_windows is not None:
-            raise NotImplementedError(
-                "oracle_windows= (oracle payloads) is not ported yet "
-                "(ROADMAP.md, 'Modules to port')")
         if cfg.gate_backend is not None:
             cfg = dataclasses.replace(
                 cfg, engine=dataclasses.replace(
@@ -272,6 +396,7 @@ class FenixSystem:
         self.tree = (None if tree is None else
                      {k: v.to(self.device) for k, v in tree.items()})
         self.tree_depth = tree_depth
+        self.oracle = oracle_windows
         self.n_est = n_est
         self.q_est_pps = q_est_pps
         self.step_backend = resolve_step_backend(cfg.step_backend,
@@ -280,11 +405,14 @@ class FenixSystem:
             cfg.engine, cfg.io, cfg.loop_latency_us, model, self.tree,
             tree_depth))
         # the device driver's carry, chunk and verdict buffers (allocated
-        # at its first run), its chunk graphs by the cp flag and their
-        # memory pool; capture seconds of the last run_trace
+        # at its first run), its chunk graphs by the cp flag, whether they
+        # read the oracle-payload buffer, and their memory pool; the
+        # streaming driver's stager; capture seconds of the last run_trace
         self._bufs: Optional[Dict] = None
         self._graphs: Dict[bool, _graph.Graph] = {}
+        self._graphs_payload = False
         self._pool = None
+        self._stager: Optional[_Stager] = None
         self.capture_s = 0.0
         self.reset()
 
@@ -332,10 +460,18 @@ class FenixSystem:
                                                tree_depth=self.tree_depth)
         granted = out["granted"].cpu().numpy()
         slot = out["slot"].cpu().numpy()
+        feats = out["payload"].cpu().numpy()[granted]
+        if not cfg.exact and self.oracle is not None and \
+                "flow_idx" in packets:
+            fi = packets["flow_idx"][granted]
+            fp = packets["flow_pos"][granted]
+            win = feats.shape[1]
+            feats = np.stack([
+                ring_window(self.oracle[int(a)], int(b), win)
+                for a, b in zip(fi, fp)]) if len(fi) else feats
         self.queues = vio.enqueue_batch(
             self.queues, cfg.io, slot[granted],
-            out["hash"].cpu().numpy()[granted],
-            out["payload"].cpu().numpy()[granted])
+            out["hash"].cpu().numpy()[granted], feats)
         # the Model Engine serves a batch bounded by its service rate V
         # (vio.step_budget, the device driver's own formula)
         budget = int(vio.step_budget(
@@ -413,19 +549,62 @@ class FenixSystem:
         self._dl_dirty = True
 
     # -- full-trace drivers -------------------------------------------------
-    def run_trace(self, trace: Dict[str, np.ndarray]
-                  ) -> Dict[str, np.ndarray]:
-        """Replay a packet-stream dict (``synthetic_traffic.packet_stream``
-        layout) on the configured driver; returns {"verdict": [n] int32}
-        in arrival order."""
-        if not isinstance(trace, dict):
-            raise NotImplementedError(
-                "run_trace takes a packet-stream dict; capture paths and "
-                "TraceSpec streaming are not ported yet (ROADMAP.md, "
-                "'Modules to port')")
+    def run_trace(self, trace=None, *, stream=None, labels_by_flow=None,
+                  source=None, adapter=None, trace_labels="auto",
+                  limit: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Replay a trace on the configured driver; returns {"verdict": [n]
+        int32} in arrival order.
+
+        ``trace`` is a packet-stream dict (``synthetic_traffic.
+        packet_stream`` or ``trace_ingest.load_stream`` layout), a capture
+        path (pcap or CSV, ingested with default settings) or a
+        ``trace_ingest.TraceSpec`` with its adapter / labels / limit /
+        chunking / overlap options.  On the device driver a path or a
+        TraceSpec streams (module docstring) unless the system has oracle
+        payloads; the host driver loads it whole.  ``stream=``,
+        ``source=``, ``adapter=``, ``trace_labels=``, ``limit=`` and
+        ``labels_by_flow=`` are deprecated spellings of the same (a
+        ``DeprecationWarning``), as in the reference."""
+        trace = self._resolve_trace(trace, stream, labels_by_flow, source,
+                                    adapter, trace_labels, limit)
+        if isinstance(trace, TraceSpec) and self.cfg.driver == "device" \
+                and self.oracle is None:
+            return self._run_trace_device_stream(trace)
+        stream = trace if isinstance(trace, dict) else trace.load()
         if self.cfg.driver == "host":
-            return self._run_trace_host(trace)
-        return self._run_trace_device(trace)
+            return self._run_trace_host(stream)
+        return self._run_trace_device(stream)
+
+    @staticmethod
+    def _resolve_trace(trace, stream, labels_by_flow, source, adapter,
+                       trace_labels, limit):
+        """Map run_trace's argument surface onto one dict-or-TraceSpec."""
+        used = [name for name, passed in
+                (("stream", stream is not None),
+                 ("source", source is not None),
+                 ("adapter", adapter is not None),
+                 ("trace_labels", trace_labels != "auto"),
+                 ("limit", limit is not None),
+                 ("labels_by_flow", labels_by_flow is not None)) if passed]
+        if used:
+            warnings.warn(
+                "run_trace(" + "=..., ".join(used) + "=...) is "
+                "deprecated; pass run_trace(trace=<packet-stream dict | "
+                "capture path | TraceSpec>)", DeprecationWarning,
+                stacklevel=3)
+        given = [t for t in (trace, stream, source) if t is not None]
+        if len(given) != 1:
+            raise ValueError(
+                "run_trace needs exactly one trace: trace= (a "
+                "packet-stream dict, a capture path, or a TraceSpec); "
+                "stream=/source= are its deprecated spellings")
+        trace = given[0]
+        if isinstance(trace, (dict, TraceSpec)):
+            return trace
+        # a capture path (or open file object), with any deprecated
+        # per-call options folded in
+        return TraceSpec(trace, adapter=adapter, labels=trace_labels,
+                         limit=limit)
 
     def _run_trace_host(self, stream: Dict[str, np.ndarray]
                         ) -> Dict[str, np.ndarray]:
@@ -441,24 +620,33 @@ class FenixSystem:
         return {"verdict": verdicts}
 
     def _stage(self, stream: Dict[str, np.ndarray], n_chunks: int
-               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                          Optional[torch.Tensor], Optional[torch.Tensor]]:
         """The trace on the device, packed: full chunks [n_chunks, F, B]
         int64 (a chunk is one contiguous block) and the ragged tail [F,
-        rest] (None without one), F = len(PKT_KEYS)."""
+        rest] (None without one), F = len(PKT_KEYS); with oracle payloads
+        also theirs, [n_chunks, B, win, dim] and [rest, win, dim] int32
+        (else None)."""
         B = self.cfg.batch_size
-        cols = np.stack([np.asarray(stream[k]).astype(_PKT_DTYPES[k])
-                         .astype(np.int64) for k in PKT_KEYS])
-        full = cols[:, :n_chunks * B].reshape(len(PKT_KEYS), n_chunks, B)
-        chunks = torch.from_numpy(np.ascontiguousarray(
-            full.transpose(1, 0, 2))).to(self.device)
-        rest = cols[:, n_chunks * B:]
-        tail = (torch.from_numpy(np.ascontiguousarray(rest)).to(self.device)
-                if rest.shape[1] else None)
-        return chunks, tail
+        n = len(stream["ts_us"])
+        full = _pack_block(stream, n_chunks, B,
+                           np.empty((n_chunks, len(PKT_KEYS), B), np.int64))
+        chunks = torch.from_numpy(full).to(self.device)
+        tail = (torch.from_numpy(_pack(stream, n_chunks * B, n))
+                .to(self.device) if n > n_chunks * B else None)
+        if self.oracle is None or "flow_idx" not in stream:
+            return chunks, tail, None, None
+        pay = torch.from_numpy(oracle_payloads(
+            self.oracle, stream["flow_idx"], stream["flow_pos"],
+            self.cfg.io.feat_len)).to(self.device)
+        return (chunks, tail,
+                pay[:n_chunks * B].view(n_chunks, B, *pay.shape[1:]),
+                pay[n_chunks * B:] if tail is not None else None)
 
     def _load_bufs(self) -> Dict:
         """The device driver's buffers, holding the system's carry: the
-        carry tensors are allocated once and copied into at each run."""
+        carry tensors are allocated once and copied into at each run; a
+        system with oracle payloads also holds a chunk's payload buffer."""
         cfg = self.cfg
         if self._bufs is None:
             self._bufs = {
@@ -471,6 +659,10 @@ class FenixSystem:
                                      dtype=torch.int64, device=self.device),
                 "verdict": torch.zeros(cfg.batch_size, dtype=I32,
                                        device=self.device)}
+            if self.oracle is not None:
+                self._bufs["payload"] = torch.zeros(
+                    (cfg.batch_size, cfg.io.feat_len, cfg.io.feat_dim),
+                    dtype=I32, device=self.device)
         bufs = self._bufs
         for name, src in (("state", self.state), ("queues", self.queues),
                           ("dl", self._dl)):
@@ -479,16 +671,21 @@ class FenixSystem:
         bufs["stats"].zero_()
         return bufs
 
-    def _ensure_graphs(self, bufs: Dict, chunks: torch.Tensor,
-                       flags) -> None:
+    def _ensure_graphs(self, bufs: Dict, chunk: torch.Tensor,
+                       payload: Optional[torch.Tensor], flags) -> None:
         """Capture the chunk step for each cp flag in ``flags`` not yet
-        captured (the warm-up reads the trace's first chunk, on copies of
-        the carry and the stats); adds the seconds to ``capture_s``.  The
-        graphs are captured again once the model's or the tree's tensors
-        have moved."""
-        if any(g.stale() for g in self._graphs.values()):
+        captured (the warm-up reads ``chunk`` and ``payload``, on copies
+        of the carry and the stats); adds the seconds to ``capture_s``.
+        The graphs read the payload buffer when ``payload`` is given.
+        They are captured again once the model's or the tree's tensors
+        have moved, or when the payload source changes (an oracle
+        system's trace without ``flow_idx`` enqueues the ring's)."""
+        with_pay = payload is not None
+        if with_pay != self._graphs_payload or any(
+                g.stale() for g in self._graphs.values()):
             self._graphs.clear()
             self._pool = None     # a pool outlives no graph of its own
+        self._graphs_payload = with_pay
         model, tree = self.model, self.tree
 
         def reads():    # what the step reads, without a cycle to ``self``
@@ -499,45 +696,37 @@ class FenixSystem:
                 continue
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            bufs["chunk"].copy_(chunks[0])
+            bufs["chunk"].copy_(chunk)
+            if with_pay:
+                bufs["payload"].copy_(payload)
 
             def body(b, cp=cp):
-                b["verdict"].copy_(self._chunk_step(b, b["chunk"], cp))
+                b["verdict"].copy_(self._chunk_step(
+                    b, b["chunk"], cp, b["payload"] if with_pay else None))
 
             self._graphs[cp] = _graph.capture(
                 body, bufs, self.device, pool=self._pool,
                 scratch=_CARRY_SCRATCH, reads=reads)
             self.capture_s += self._graphs[cp].seconds
 
-    def _run_trace_device(self, stream: Dict[str, np.ndarray]
-                          ) -> Dict[str, np.ndarray]:
-        cfg = self.cfg
-        n = len(stream["ts_us"])
-        B, cpe = cfg.batch_size, cfg.control_plane_every
-        n_chunks = n // B
-        n_batches = n_chunks + (1 if n_chunks * B < n else 0)
-        chunks, tail = self._stage(stream, n_chunks)
-        self._sync_inflight_to_device()
-        bufs = self._load_bufs()
-        cps = [(i + 1) % cpe == 0 for i in range(n_chunks)]
-        graphs = self.step_backend == "graph"
-        self.capture_s = 0.0
-        if graphs:
-            self._ensure_graphs(bufs, chunks, sorted(set(cps)))
-        verd = torch.empty((n_chunks, B), dtype=I32, device=self.device)
-        verd_tail = None
-        with no_host_sync(self.device):
-            for i, cp in enumerate(cps):
-                if graphs:
-                    bufs["chunk"].copy_(chunks[i])
-                    self._graphs[cp].replay()
-                    verd[i].copy_(bufs["verdict"])
-                else:
-                    verd[i].copy_(self._chunk_step(bufs, chunks[i], cp))
-            if tail is not None:
-                verd_tail = self._chunk_step(bufs, tail,
-                                             n_batches % cpe == 0)
-        # the system's own carry: copies, so a later replay moves nothing
+    def _replay(self, bufs: Dict, chunk: torch.Tensor, cp: bool,
+                payload: Optional[torch.Tensor], out: torch.Tensor) -> None:
+        """One full chunk on the step backend, its verdicts into ``out``:
+        a copy into the chunk (and payload) buffer and a graph launch, or
+        the step body run eagerly."""
+        if self.step_backend == "graph":
+            bufs["chunk"].copy_(chunk)
+            if payload is not None:
+                bufs["payload"].copy_(payload)
+            self._graphs[cp].replay()
+            out.copy_(bufs["verdict"])
+        else:
+            out.copy_(self._chunk_step(bufs, chunk, cp, payload))
+
+    def _finish(self, bufs: Dict, n: int, n_batches: int,
+                parts: List[torch.Tensor]) -> Dict[str, np.ndarray]:
+        """End a device run: the carry back into the system (copies, so a
+        later replay moves nothing), the stats read once, the verdicts."""
         self.state, self.queues, self._dl = (
             _graph.clone(bufs[k]) for k in ("state", "queues", "dl"))
         self._dl_dirty = True
@@ -551,6 +740,186 @@ class FenixSystem:
         self.stats["dropped_inflight"] = int(self._dl["dropped"])
         self.stats["served_per_engine"][0] += int(stat[1])
         self.stats["engine_q_depth_hist"][0][0] += n_batches
-        parts = [verd.reshape(-1)] + ([] if verd_tail is None
-                                      else [verd_tail])
+        if not parts:
+            return {"verdict": np.full(0, -1, np.int32)}
         return {"verdict": torch.cat(parts).cpu().numpy().astype(np.int32)}
+
+    def _run_trace_device(self, stream: Dict[str, np.ndarray]
+                          ) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        n = len(stream["ts_us"])
+        B, cpe = cfg.batch_size, cfg.control_plane_every
+        n_chunks = n // B
+        n_batches = n_chunks + (1 if n_chunks * B < n else 0)
+        chunks, tail, pay, pay_tail = self._stage(stream, n_chunks)
+        self._sync_inflight_to_device()
+        bufs = self._load_bufs()
+        cps = [(i + 1) % cpe == 0 for i in range(n_chunks)]
+        self.capture_s = 0.0
+        if self.step_backend == "graph" and n_chunks:
+            self._ensure_graphs(bufs, chunks[0],
+                                None if pay is None else pay[0],
+                                sorted(set(cps)))
+        verd = torch.empty((n_chunks, B), dtype=I32, device=self.device)
+        parts = [verd.reshape(-1)]
+        with no_host_sync(self.device):
+            for i, cp in enumerate(cps):
+                self._replay(bufs, chunks[i], cp,
+                             None if pay is None else pay[i], verd[i])
+            if tail is not None:
+                parts.append(self._chunk_step(bufs, tail,
+                                              n_batches % cpe == 0,
+                                              pay_tail))
+        return self._finish(bufs, n, n_batches, parts)
+
+    # full chunks of a streamed block: control_plane_every x this many
+    # windows; and the blocks a producer thread holds staged ahead
+    _STAGE_WINDOWS = 4
+    _STAGE_QUEUE = 2
+
+    def _run_trace_device_stream(self, spec: TraceSpec
+                                 ) -> Dict[str, np.ndarray]:
+        """The device driver over a capture that is never resident whole:
+        blocks of full chunks are parsed and staged (``_staged_blocks``)
+        while the chunk graphs replay the block before; the ragged tail
+        runs eagerly.  The host never waits for the card inside the loop
+        (it runs under ``no_host_sync``): the compute stream waits on each
+        block's copy event, the verdicts stay on the card until the end,
+        and the stats are read once there.  A system without chunk graphs
+        captures them on the first block, before the producer starts."""
+        cfg = self.cfg
+        B, cpe = cfg.batch_size, cfg.control_plane_every
+        W = cpe * self._STAGE_WINDOWS
+        if self._stager is None:
+            self._stager = _Stager(self.device, (W, len(PKT_KEYS), B),
+                                   self._STAGE_QUEUE + 2)
+        stager = self._stager
+        self._sync_inflight_to_device()
+        bufs = self._load_bufs()
+        self.capture_s = 0.0
+        parts: List[torch.Tensor] = []
+        n = n_batches = 0
+        blocks = self._staged_blocks(spec, W)
+        try:
+            item = next(blocks, None)
+            if item is not None and item[0] == "block" \
+                    and self.step_backend == "graph":
+                stager.ready(item[2])
+                self._ensure_graphs(bufs, item[1][0], None, sorted(
+                    {(i + 1) % cpe == 0 for i in range(W)}))
+            with no_host_sync(self.device):
+                while item is not None:
+                    kind, block, slot = item
+                    stager.ready(slot)
+                    if kind == "block":
+                        verd = torch.empty((block.shape[0], B), dtype=I32,
+                                           device=self.device)
+                        for i in range(block.shape[0]):
+                            n_batches += 1
+                            self._replay(bufs, block[i],
+                                         n_batches % cpe == 0, None,
+                                         verd[i])
+                        parts.append(verd.reshape(-1))
+                        n += block.shape[0] * B
+                    else:                       # the tail: < B packets
+                        n_batches += 1
+                        parts.append(self._chunk_step(
+                            bufs, block, n_batches % cpe == 0))
+                        n += block.shape[1]
+                    stager.done(slot)
+                    item = next(blocks, None)
+        finally:
+            blocks.close()
+        return self._finish(bufs, n, n_batches, parts)
+
+    def _stage_gen(self, spec: TraceSpec, W: int):
+        """Parse the capture chunk-wise and re-batch it into staged
+        ("block", [steps <= W, F, B] int64, slot) items plus one final
+        ("tail", [F, < B] int64, slot); each is on its way to the device
+        (``_Stager.stage``) when yielded."""
+        B = self.cfg.batch_size
+        F = len(PKT_KEYS)
+        stager = self._stager
+        pend: Dict[str, List[np.ndarray]] = {k: [] for k in PKT_KEYS}
+        pend_n = 0
+
+        def emit(cols, steps):
+            dev, slot = stager.stage((steps, F, B), lambda a: _pack_block(
+                cols, steps, B, a))
+            return "block", dev, slot
+
+        for raw in spec.iter_chunks():
+            for k in PKT_KEYS:
+                pend[k].append(np.asarray(raw[k]))
+            pend_n += len(raw["ts_us"])
+            while pend_n >= W * B:
+                cols = {k: np.concatenate(pend[k]) for k in PKT_KEYS}
+                yield emit(cols, W)
+                pend = {k: [cols[k][W * B:]] for k in PKT_KEYS}
+                pend_n -= W * B
+        if pend_n:
+            cols = {k: np.concatenate(pend[k]) for k in PKT_KEYS}
+            steps = pend_n // B
+            if steps:
+                yield emit(cols, steps)
+            if pend_n > steps * B:
+                dev, slot = stager.stage(
+                    (F, pend_n - steps * B),
+                    lambda a: _pack(cols, steps * B, pend_n, out=a))
+                yield "tail", dev, slot
+
+    def _staged_blocks(self, spec: TraceSpec, W: int
+                       ) -> Iterator[Tuple[str, torch.Tensor, int]]:
+        """Yield ``_stage_gen`` items: the first staged in line (the
+        caller may capture graphs on it before anything else touches the
+        card), the rest in line too unless ``spec.overlap``, and then from
+        a producer thread through a bounded queue, so block k+1 is parsed
+        and staged while the caller replays block k.  The producer's
+        exception is raised here, on the consumer's side."""
+        gen = self._stage_gen(spec, W)
+        first = next(gen, None)
+        if first is None:
+            return
+        yield first
+        if not spec.overlap:
+            yield from gen
+            return
+        q: queue_mod.Queue = queue_mod.Queue(maxsize=self._STAGE_QUEUE)
+        stop = threading.Event()
+        err: List[BaseException] = []
+
+        def produce():
+            try:
+                for item in gen:
+                    while not stop.is_set():
+                        try:
+                            q.put(item, timeout=0.1)
+                            break
+                        except queue_mod.Full:
+                            continue
+                    if stop.is_set():
+                        return
+            except BaseException as e:  # raised on the consumer side
+                err.append(e)
+            finally:
+                while not stop.is_set():    # sentinel, unless aborting
+                    try:
+                        q.put(None, timeout=0.1)
+                        break
+                    except queue_mod.Full:
+                        continue
+
+        t = threading.Thread(target=produce, daemon=True,
+                             name="fenix-trace-ingest")
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                yield item
+        finally:
+            stop.set()
+            t.join()
+        if err:
+            raise err[0]

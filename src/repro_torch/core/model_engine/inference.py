@@ -1,4 +1,5 @@
-"""DNN Inference Module (§5.2): the quantized CNN on the INT8 GEMM.
+"""DNN Inference Module (§5.2): the quantized FENIX-CNN or FENIX-RNN
+on the INT8 GEMM.
 
 Port of ``EngineModel`` and ``ByLenModel`` from
 ``repro/core/model_engine/inference.py``.  ``EngineModel`` is an
@@ -27,7 +28,8 @@ def _buffer_name(key: str) -> str:
 
 
 class EngineModel(nn.Module):
-    """A quantized traffic model serving on the INT8 GEMM.
+    """A quantized traffic model (``cfg.kind`` "cnn" or "rnn") serving
+    on the INT8 GEMM.
 
     ``qparams``: the port's integer model (``serving.qparams_from_numpy``)
     — tensors become buffers, the shifts stay Python ints.  ``backend``

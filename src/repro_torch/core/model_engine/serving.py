@@ -36,6 +36,8 @@ _SENTINEL = "COMPLETE"
 
 def _is_gemm_weight(key: str) -> bool:
     layer, _, leaf = key.partition("/")
+    if layer == "cell":                  # the RNN cell's two GEMM weights
+        return leaf in ("wx", "wh")
     return leaf == "w" and (layer == "head"
                             or re.fullmatch(r"(conv|fc)\d+", layer)
                             is not None)
@@ -45,11 +47,12 @@ def qparams_from_numpy(qp: Dict, device=None) -> Dict:
     """The reference's quantized params (``quantize_traffic`` output or a
     loaded checkpoint, as numpy arrays) -> the port's integer model: the
     same keys, arrays as int8/int32 tensors on ``device``, 0-d entries
-    (shifts, the pool multiplier) as Python ints, ``cfg_shifts`` nested
-    as a dict of ints.
+    (shifts, the pool multiplier, the RNN's ``cell/lut_preshift``) as
+    Python ints, ``cfg_shifts`` nested as a dict of ints.
 
-    The GEMM weights (``conv*/w`` [kk,Cin,Cout], ``fc*/w`` and ``head/w``
-    [K,N]) keep their shapes and values but are views of K-major buffers
+    The GEMM weights (``conv*/w`` [kk,Cin,Cout], ``fc*/w``, ``head/w``
+    and the RNN cell's ``cell/wx`` [2E,U] and ``cell/wh`` [U,U]) keep
+    their shapes and values but are views of K-major buffers
     (``ops.k_major``): the reduction dimension is contiguous, the layout
     the INT8 kernel reads, so each GEMM takes its weight as it is (a conv
     weight's [kk*Cin, Cout] reshape is a view).  The packing runs once

@@ -1,13 +1,13 @@
 """Class-conditioned synthetic network traffic (ISCXVPN2016 / USTC-TFC
 analogues), numpy only.
 
-The port's own copy of ``make_flows``, ``packet_stream``, ``ring_window``
-and ``windows_from_flows`` from ``repro/data/synthetic_traffic.py``, so a
-trace and its training windows can be made on a machine without the
-reference's dependencies.  Given the same arguments both
-produce the same packets.  Each class is a parametric flow generator
+The port's own copy of ``repro/data/synthetic_traffic.py``, so a trace,
+its oracle payloads and its training windows can be made on a machine
+without the reference's dependencies.  Given the same arguments both
+produce the same arrays.  Each class is a parametric flow generator
 over packet lengths and inter-packet delays; class imbalance follows the
-paper's Table 1.
+paper's Table 1 (``class_weights`` gives the §6 over/under-sampling
+weights).
 """
 
 from __future__ import annotations
@@ -134,6 +134,107 @@ def make_flows(task: str, n_flows: int, seed: int = 0,
     return flows
 
 
+def uniform_flow_stream(n_pkts: int, n_flows: int, seed: int = 0,
+                        gap_us: int = 10) -> Dict[str, np.ndarray]:
+    """Interleaved multi-packet flows at a fixed aggregate rate.
+
+    A structureless load generator (vs the class-conditioned ``make_flows``
+    path): ``n_flows`` random persistent 5-tuples with per-flow-constant
+    packet lengths, arrivals uniform at ``1e6 / gap_us`` offered pps.
+    Flows persist, so the flow table, backlog counters, and probability
+    gate see realistic per-flow state.  Used by the engine-farm benchmarks
+    and CI smokes; includes ``flow_idx`` for per-flow assertions.
+    """
+    rng = np.random.default_rng(seed)
+    five = {k: rng.integers(1, 2**31, n_flows).astype(np.uint32)
+            for k in ("src_ip", "dst_ip")}
+    five["src_port"] = rng.integers(1, 65536, n_flows).astype(np.uint32)
+    five["dst_port"] = rng.integers(1, 65536, n_flows).astype(np.uint32)
+    five["proto"] = rng.integers(6, 18, n_flows).astype(np.uint32)
+    lens = (40 + rng.integers(0, 1400, n_flows)).astype(np.int32)
+    fidx = rng.integers(0, n_flows, n_pkts).astype(np.int32)
+    stream = {k: v[fidx] for k, v in five.items()}
+    stream["pkt_len"] = lens[fidx]
+    stream["ts_us"] = np.sort(
+        rng.integers(0, n_pkts * gap_us, n_pkts)).astype(np.int32)
+    stream["flow_idx"] = fidx
+    return stream
+
+
+def ring_window(feats: np.ndarray, end: int, win: int) -> np.ndarray:
+    """Window ENDING at packet `end` inclusive, front-padded with zeros —
+    exactly what the switch ring buffer holds when packet `end` arrives."""
+    lo = max(0, end + 1 - win)
+    w = feats[lo:end + 1]
+    if len(w) < win:
+        w = np.concatenate([np.zeros((win - len(w), feats.shape[1]),
+                                     feats.dtype), w])
+    return w
+
+
+def oracle_payloads(oracle: List[np.ndarray], flow_idx: np.ndarray,
+                    flow_pos: np.ndarray, win: int) -> np.ndarray:
+    """Ground-truth ring window for EVERY packet of a stream, vectorized.
+
+    ``oracle[f]`` is flow f's [n_f, feat_dim] feature sequence; packet i of
+    the stream gets ``ring_window(oracle[flow_idx[i]], flow_pos[i], win)``.
+    Returns [n, win, feat_dim] int32 — the device trace driver gathers
+    granted packets' windows from this array instead of re-deriving them
+    per batch on the host.  The packets are grouped by flow with one
+    stable sort, so the work is linear in the stream (the reference
+    masks the whole stream once per flow); the result is the same.
+    """
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    flow_idx = np.asarray(flow_idx)
+    flow_pos = np.asarray(flow_pos)
+    feat_dim = oracle[0].shape[1] if len(oracle) else 2
+    out = np.zeros((len(flow_idx), win, feat_dim), np.int32)
+    order = np.argsort(flow_idx, kind="stable")
+    flows, starts = np.unique(flow_idx[order], return_index=True)
+    for fi, lo, hi in zip(flows, starts, np.append(starts[1:], len(order))):
+        rows = order[lo:hi]
+        feats = np.asarray(oracle[int(fi)], np.int32)
+        padded = np.concatenate(
+            [np.zeros((win - 1, feats.shape[1]), np.int32), feats])
+        sw = sliding_window_view(padded, win, axis=0)   # [n_f, feat, win]
+        out[rows] = np.transpose(sw[flow_pos[rows]], (0, 2, 1))
+    return out
+
+
+def windows_from_flows(flows: List[Flow], win: int = 9,
+                       stride: int = 4, max_windows_per_flow: int = 16,
+                       seed: int = 0
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Ring-aligned sliding windows (paper §6): payload [N, win, 2].
+
+    Windows end at sampled packet positions and are front-padded, matching
+    the deployed Buffer-Manager semantics (F1..F8 history + F9 current).
+    """
+    rng = np.random.default_rng(seed)
+    ps, ls, fs = [], [], []
+    for fi, f in enumerate(flows):
+        feats = np.stack([f.pkt_len, f.ipd_us], axis=-1)   # [n,2]
+        n = len(f.pkt_len)
+        ends = list(range(1, n, stride))
+        if len(ends) > max_windows_per_flow:
+            ends = list(rng.choice(ends, max_windows_per_flow,
+                                   replace=False))
+        for e in ends:
+            ps.append(ring_window(feats, e, win))
+            ls.append(f.label)
+            fs.append(fi)
+    return (np.stack(ps).astype(np.int32), np.asarray(ls, np.int32),
+            np.asarray(fs, np.int32))
+
+
+def class_weights(labels: np.ndarray, n_classes: int) -> np.ndarray:
+    """Inverse-frequency weights (the paper's over/under-sampling, §6)."""
+    cnt = np.bincount(labels, minlength=n_classes).astype(np.float64)
+    w = np.where(cnt > 0, len(labels) / (n_classes * np.maximum(cnt, 1)), 0.0)
+    return w[labels]
+
+
 def packet_stream(flows: List[Flow], limit: Optional[int] = None
                   ) -> Dict[str, np.ndarray]:
     """Interleave flows into one time-ordered packet stream (Data Engine)."""
@@ -172,36 +273,12 @@ def packet_stream(flows: List[Flow], limit: Optional[int] = None
     return out
 
 
-def ring_window(feats: np.ndarray, end: int, win: int) -> np.ndarray:
-    """Window ENDING at packet `end` inclusive, front-padded with zeros —
-    exactly what the switch ring buffer holds when packet `end` arrives."""
-    lo = max(0, end + 1 - win)
-    w = feats[lo:end + 1]
-    if len(w) < win:
-        w = np.concatenate([np.zeros((win - len(w), feats.shape[1]),
-                                     feats.dtype), w])
-    return w
-
-
-def windows_from_flows(flows: List[Flow], win: int = 9,
-                       stride: int = 4, max_windows_per_flow: int = 16,
-                       seed: int = 0
-                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Ring-aligned sliding windows (paper §6): (payload [N, win, 2],
-    label [N], flow index [N]).  Windows end at sampled packet positions
-    and are front-padded, as the Buffer Manager holds them."""
+def train_test_split(x, y, f, test_frac: float = 0.2, seed: int = 0):
+    """Split BY FLOW (no window leakage between train and test)."""
     rng = np.random.default_rng(seed)
-    ps, ls, fs = [], [], []
-    for fi, f in enumerate(flows):
-        feats = np.stack([f.pkt_len, f.ipd_us], axis=-1)   # [n,2]
-        n = len(f.pkt_len)
-        ends = list(range(1, n, stride))
-        if len(ends) > max_windows_per_flow:
-            ends = list(rng.choice(ends, max_windows_per_flow,
-                                   replace=False))
-        for e in ends:
-            ps.append(ring_window(feats, e, win))
-            ls.append(f.label)
-            fs.append(fi)
-    return (np.stack(ps).astype(np.int32), np.asarray(ls, np.int32),
-            np.asarray(fs, np.int32))
+    flow_ids = np.unique(f)
+    rng.shuffle(flow_ids)
+    n_test = max(1, int(len(flow_ids) * test_frac))
+    test_flows = set(flow_ids[:n_test].tolist())
+    mask = np.asarray([fi in test_flows for fi in f])
+    return (x[~mask], y[~mask], f[~mask]), (x[mask], y[mask], f[mask])

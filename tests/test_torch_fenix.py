@@ -1,7 +1,8 @@
 """The port's replay of the conformance trace is bit-identical to the
 reference's device AND host drivers (verdicts, stats dict, host_syncs,
-final LUT, bucket and flow table), for ByLenModel and for int8_cnn_tiny
-with weights carried across; plus the port's import and device guards.
+final LUT, bucket and flow table), for ByLenModel, int8_cnn_tiny and
+int8_rnn_tiny with weights carried across; plus the port's import and
+device guards.
 """
 
 import os
@@ -19,7 +20,8 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from _torch_parity import assert_same  # noqa: E402
-from repro.configs.fenix_models import fenix_cnn_tiny  # noqa: E402
+from repro.configs.fenix_models import (fenix_cnn_tiny,  # noqa: E402
+                                        fenix_rnn_tiny)
 from repro.core.fenix import FenixConfig as JFenixConfig  # noqa: E402
 from repro.core.fenix import FenixSystem as JFenixSystem  # noqa: E402
 from repro.core.model_engine.inference import (  # noqa: E402
@@ -29,7 +31,7 @@ from repro.data.synthetic_traffic import (make_flows,  # noqa: E402
 from repro.models import traffic as jtraffic  # noqa: E402
 from repro.quant.quantize import quantize_traffic  # noqa: E402
 from repro_torch.configs.fenix_models import (  # noqa: E402
-    fenix_cnn_tiny as t_fenix_cnn_tiny)
+    fenix_cnn_tiny as t_fenix_cnn_tiny, fenix_rnn_tiny as t_fenix_rnn_tiny)
 from repro_torch.core.fenix import FenixConfig, FenixSystem  # noqa: E402
 from repro_torch.core.model_engine.inference import (  # noqa: E402
     ByLenModel, EngineModel)
@@ -63,6 +65,26 @@ def tiny_int8():
     return JEngineModel(cfg, qp), port
 
 
+@pytest.fixture(scope="module")
+def tiny_rnn():
+    """int8_rnn_tiny, made as ``tiny_int8``."""
+    cfg = fenix_rnn_tiny()
+    x, _, _ = windows_from_flows(make_flows("iscx", 60, seed=3))
+    qp = quantize_traffic(jtraffic.init(cfg, seed=0), cfg,
+                          jnp.asarray(x[:256]))
+    port = EngineModel(t_fenix_rnn_tiny(),
+                       qparams_from_numpy(jax.tree.map(np.asarray, qp),
+                                          "cpu"))
+    return JEngineModel(cfg, qp), port
+
+
+def _models(model_name, tiny_int8, tiny_rnn):
+    """(reference model, port model) of a served-model name."""
+    return {"bylen": (JByLenModel(), ByLenModel()),
+            "int8_cnn_tiny": tiny_int8,
+            "int8_rnn_tiny": tiny_rnn}[model_name]
+
+
 _cache = {}
 
 
@@ -79,10 +101,11 @@ def _reference(trace, driver, model_name, jmodel):
 
 
 @pytest.mark.parametrize("driver", ["device", "host"])
-@pytest.mark.parametrize("model_name", ["bylen", "int8_cnn_tiny"])
-def test_replay_matches_reference(trace, tiny_int8, driver, model_name):
-    jmodel, tmodel = ((JByLenModel(), ByLenModel())
-                      if model_name == "bylen" else tiny_int8)
+@pytest.mark.parametrize("model_name", ["bylen", "int8_cnn_tiny",
+                                        "int8_rnn_tiny"])
+def test_replay_matches_reference(trace, tiny_int8, tiny_rnn, driver,
+                                  model_name):
+    jmodel, tmodel = _models(model_name, tiny_int8, tiny_rnn)
     v_ref, s_ref, syncs_ref, st_ref = _reference(trace, driver, model_name,
                                                  jmodel)
     port = FenixSystem(FenixConfig(batch_size=BATCH,
@@ -184,9 +207,13 @@ def test_unported_paths_raise(tiny_int8):
                dict(driver="farm", num_engines=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FenixSystem(FenixConfig(**kw), ByLenModel(), device="cpu")
-    sys_ = FenixSystem(FenixConfig(), ByLenModel(), device="cpu")
-    with pytest.raises(NotImplementedError, match="TraceSpec"):
-        sys_.run_trace("capture.pcap")
+    from repro_torch.core.model_engine.serving import build_model
+
+    for name in ("int8_cnn_tiny", "int8_rnn"):     # training is not ported
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(name, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            FenixSystem(FenixConfig(model=name), device="cpu")
     with pytest.raises(ValueError, match="unknown gate_backend"):
         FenixConfig(gate_backend="pallas")
     with pytest.raises(ValueError, match="unknown matmul_backend"):
@@ -203,9 +230,8 @@ def _cut(trace, lo, hi):
     return {k: v[lo:hi] for k, v in trace.items()}
 
 
-def _systems(model_name, tiny_int8, batch, cpe):
-    jmodel, tmodel = ((JByLenModel(), ByLenModel())
-                      if model_name == "bylen" else tiny_int8)
+def _systems(models, batch, cpe):
+    jmodel, tmodel = models
     ref = JFenixSystem(JFenixConfig(batch_size=batch,
                                     control_plane_every=cpe,
                                     driver="device"), jmodel)
@@ -226,13 +252,15 @@ def _assert_carry_same(ref, port, where):
 # (batch, cpe): a ragged tail that ends a T_w window (350 x 5 + 50, the
 # sixth batch), and a tail that does not after two windows (128 x 14 + 8)
 @pytest.mark.parametrize("batch,cpe", [(350, 3), (128, 4)])
-@pytest.mark.parametrize("model_name", ["bylen", "int8_cnn_tiny"])
+@pytest.mark.parametrize("model_name", ["bylen", "int8_cnn_tiny",
+                                        "int8_rnn_tiny"])
 def test_chunk_step_matches_reference_across_windows_and_tail(
-        trace, tiny_int8, model_name, batch, cpe):
+        trace, tiny_int8, tiny_rnn, model_name, batch, cpe):
     """The in-place chunk step, run eagerly, against the reference's
     jitted scan + tail step: verdicts, stats, tables, queues and delay
     line, bit for bit."""
-    ref, port = _systems(model_name, tiny_int8, batch, cpe)
+    ref, port = _systems(_models(model_name, tiny_int8, tiny_rnn), batch,
+                         cpe)
     v_ref = np.asarray(ref.run_trace(dict(trace))["verdict"])
     v = port.run_trace(dict(trace))["verdict"]
     assert np.array_equal(v, v_ref)
@@ -241,12 +269,14 @@ def test_chunk_step_matches_reference_across_windows_and_tail(
     assert ref.stats["inferences"] > 0
 
 
-@pytest.mark.parametrize("model_name", ["bylen", "int8_cnn_tiny"])
-def test_two_run_traces_in_a_row_match_reference(trace, tiny_int8,
+@pytest.mark.parametrize("model_name", ["bylen", "int8_cnn_tiny",
+                                        "int8_rnn_tiny"])
+def test_two_run_traces_in_a_row_match_reference(trace, tiny_int8, tiny_rnn,
                                                  model_name):
     """Two replays on one system: the second starts from the carry the
     first left, as the reference's donated carry does."""
-    ref, port = _systems(model_name, tiny_int8, BATCH, CPE)
+    ref, port = _systems(_models(model_name, tiny_int8, tiny_rnn), BATCH,
+                         CPE)
     for lo, hi in ((0, 1000), (1000, LIMIT)):
         v_ref = np.asarray(ref.run_trace(_cut(trace, lo, hi))["verdict"])
         assert np.array_equal(port.run_trace(_cut(trace, lo, hi))
@@ -259,7 +289,7 @@ def test_host_step_then_device_run_trace_matches_reference(trace,
     """Host steps, then a device replay: the in-flight results of the
     steps go into the device carry, and the replay matches the
     reference's."""
-    ref, port = _systems("int8_cnn_tiny", tiny_int8, BATCH, CPE)
+    ref, port = _systems(tiny_int8, BATCH, CPE)
     for lo in (0, BATCH, 2 * BATCH):
         r = ref.step(_cut(trace, lo, lo + BATCH))
         p = port.step(_cut(trace, lo, lo + BATCH))

@@ -718,3 +718,169 @@ def test_serving_engine_cuda_matches_ref_on_card(cuda_device):
         launched = decode_attention_kernel.launches - before
         assert launched == (cfg.num_layers * 5 if backend == "cuda" else 0)
     assert torch.equal(out["ref"], out["cuda"])
+
+
+# -- the FENIX-RNN, oracle payloads and capture streaming on the card --------
+
+
+def _rnn_model(lut_preshift=1, seed=0):
+    """Random int8 weights in quantize_traffic's RNN layout (tiny RNN),
+    held K-major as the serving path holds them."""
+    from repro_torch.configs.fenix_models import fenix_rnn_tiny
+
+    cfg = fenix_rnn_tiny()
+    rng = np.random.default_rng(seed)
+    e, u = cfg.embed_dim, cfg.rnn_units
+
+    def w8(*shape):
+        return rng.integers(-127, 128, shape, dtype=np.int8)
+
+    lut = np.clip(np.round(np.tanh(np.arange(-256, 256) / 16) * 128), -127,
+                  127).astype(np.int8)
+    qp = {"embed_len/table": w8(cfg.len_buckets, e),
+          "embed_ipd/table": w8(cfg.ipd_buckets, e),
+          "cell/wx": w8(2 * e, u), "cell/wh": w8(u, u),
+          "cell/b": rng.integers(-3000, 3000, u, dtype=np.int32),
+          "cell/shift_x": 6, "cell/shift_h": 7,
+          "cell/lut_preshift": lut_preshift, "tanh_lut": lut,
+          "head/w": w8(u, cfg.num_classes),
+          "head/b": rng.integers(-500, 500, cfg.num_classes,
+                                 dtype=np.int32),
+          "head/shift": 0, "cfg_shifts": {}}
+    return EngineModel(cfg, qparams_from_numpy(qp))
+
+
+# the full-width FENIX-RNN's GEMMs at 1024 served lanes: the step's input
+# GEMM (K = 32, one k-tile), its recurrent GEMM and the head
+@pytest.mark.parametrize("shape", [(1024, 32, 128), (1024, 128, 128),
+                                   (1024, 128, 7), (77, 32, 128)])
+def test_int8_gemm_at_the_rnn_shapes(shape, cuda_device):
+    """Raw int32 output with and without bias (no shift), as the cell
+    runs it, and every shift, at max |diff| = 0."""
+    rng = np.random.default_rng(sum(shape) + 1)
+    m, k, n = shape
+    a, b = (torch.from_numpy(rng.integers(-128, 128, s, dtype=np.int8)
+                             ).to(cuda_device) for s in ((m, k), (k, n)))
+    b = mm_ops.k_major(b)
+    bias = torch.from_numpy(rng.integers(-40_000, 40_000, n,
+                                         dtype=np.int32)).to(cuda_device)
+    for shift in (None, 0, 8):
+        for bb in (None, bias):
+            ref = mm_ops.int8_matmul(a, b, bb, shift, backend="ref")
+            got = int8_gemm(a, b, bb, shift)
+            torch.cuda.synchronize()
+            assert got.dtype == ref.dtype
+            assert_same(ref, got, f"{shape} shift={shift} bias="
+                                  f"{bb is not None}")
+
+
+def test_cuda_right_shift_by_zero_and_negative_counts(cuda_device):
+    """An RNN's lut_preshift may be 0 or negative: ``>>`` by such a count
+    on the card gives the CPU's result (a negative count sign-fills)."""
+    x = torch.tensor([-5, -4, -1, 0, 3, 2**31 - 1, -2**31],
+                     dtype=torch.int32)
+    for count in (0, -1, -2, 31, 40):
+        want = x >> count
+        assert torch.equal((x.to(cuda_device) >> count).cpu(), want), count
+        got = x.to(cuda_device) >> torch.full((7,), count, dtype=torch.int32,
+                                              device=cuda_device)
+        assert torch.equal(got.cpu(), want), count
+    assert (x.to(cuda_device) >> -1).cpu().tolist() == [-1, -1, -1, 0, 0, 0,
+                                                         -1]
+
+
+@pytest.mark.parametrize("lut_preshift", [1, 0, -1])
+def test_rnn_replay_graph_eager_plain_and_cpu(lut_preshift, cuda_device):
+    """The tiny RNN served on the card: graph == eager == plain backends
+    == the CPU (verdicts, stats, final tensors), 19 INT8 GEMMs a chunk
+    (the tail's included)."""
+    stream = packet_stream(make_flows("iscx", 40, seed=7), limit=1800)
+    model = _rnn_model(lut_preshift)
+    runs = {}
+    for name, kw, dev in (("cpu", {}, "cpu"),
+                          ("ref", dict(gate_backend="ref",
+                                       matmul_backend="ref"), cuda_device),
+                          ("eager", dict(step_backend="eager"), cuda_device),
+                          ("graph", {}, cuda_device)):
+        gemms = int8_gemm.launches
+        sys_ = FenixSystem(FenixConfig(batch_size=256,
+                                       control_plane_every=3, **kw),
+                           model if dev != "cpu" else _rnn_model(
+                               lut_preshift).to("cpu"), device=dev)
+        runs[name] = (sys_.run_trace(dict(stream))["verdict"], sys_)
+        want = 8 * (2 * 9 + 1) if name in ("eager", "graph") else 0
+        assert int8_gemm.launches - gemms == want, name
+        assert sys_.host_syncs == 0
+    v_cpu, s_cpu = runs["cpu"]
+    for name in ("ref", "eager", "graph"):
+        v, s = runs[name]
+        assert np.array_equal(v, v_cpu), name
+        assert s.stats == s_cpu.stats, name
+        for part in ("state", "queues", "_dl"):
+            assert_same(getattr(s_cpu, part), getattr(s, part),
+                        f"{name} {part}")
+    assert s_cpu.stats["inferences"] > 0
+
+
+def test_oracle_replay_graph_matches_eager_and_host(cuda_device):
+    """Oracle payloads on the card: graph == eager == the host driver
+    (fast) == the CPU, over two run_trace calls with ragged tails and a
+    third without ``flow_idx`` (the ring's payloads: the graphs are
+    captured again without the payload buffer)."""
+    flows = make_flows("iscx", 40, seed=7)
+    stream = packet_stream(flows, limit=1800)
+    oracle = [np.stack([f.pkt_len, f.ipd_us], -1).astype(np.int32)
+              for f in flows]
+    parts = [{k: v[lo:hi] for k, v in stream.items()}
+             for lo, hi in ((0, 1100), (1100, 1800))]
+    parts.append({k: v for k, v in stream.items() if k != "flow_idx"})
+    runs = {}
+    for name, kw, dev in (("cpu", {}, "cpu"),
+                          ("host", dict(driver="host"), cuda_device),
+                          ("eager", dict(step_backend="eager"), cuda_device),
+                          ("graph", {}, cuda_device)):
+        sys_ = FenixSystem(FenixConfig(batch_size=256,
+                                       control_plane_every=3, **kw),
+                           _tiny_model(), device=dev, oracle_windows=oracle)
+        runs[name] = ([sys_.run_trace(p)["verdict"] for p in parts], sys_)
+    v_cpu, s_cpu = runs["cpu"]
+    for name in ("host", "eager", "graph"):
+        v, s = runs[name]
+        for a, b in zip(v, v_cpu):
+            assert np.array_equal(a, b), name
+        assert s.stats == s_cpu.stats, name
+    assert s_cpu.stats["inferences"] > 0
+
+
+def test_streaming_replay_matches_in_memory_on_card(tmp_path, cuda_device):
+    """A pcap streamed in blocks (overlap on and off, and a bare path) on
+    a system whose graphs an in-memory replay captured: no new capture,
+    0 host syncs, the in-memory replay's verdicts, stats and carry."""
+    from repro_torch.data import trace_ingest as ti
+
+    flows = make_flows("iscx", 40, seed=7)
+    pcap = tmp_path / "t.pcap"
+    source = ti.synthesize_pcap(flows, pcap, limit=2500)
+    sys_ = FenixSystem(FenixConfig(batch_size=128, control_plane_every=2),
+                       _tiny_model(), device=cuda_device)
+    v_mem = sys_.run_trace(dict(source))["verdict"]
+    mem = {k: _clone_dict(getattr(sys_, k)) for k in ("state", "queues",
+                                                      "_dl")}
+    stats = dict(sys_.stats)
+    for trace in (ti.TraceSpec(pcap, chunk_pkts=300),
+                  ti.TraceSpec(pcap, chunk_pkts=300, overlap=False),
+                  str(pcap)):
+        sys_.reset()
+        before = (fused_gate.launches, int8_gemm.launches)
+        v = sys_.run_trace(trace)["verdict"]
+        assert (fused_gate.launches - before[0],
+                int8_gemm.launches - before[1]) == (20, 60)
+        assert np.array_equal(v, v_mem)
+        assert sys_.stats == stats
+        assert sys_.capture_s == 0.0 and sys_.host_syncs == 0
+        for k, d in mem.items():
+            assert_same(d, getattr(sys_, k), k)
+
+
+def _clone_dict(d):
+    return {k: v.clone() for k, v in d.items()}
