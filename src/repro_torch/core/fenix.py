@@ -122,7 +122,8 @@ class FenixConfig:
     # fused-admission backend for the whole data plane: "cuda" |
     # "cuda_prng" | "ref"; None keeps engine.gate_backend
     gate_backend: Optional[str] = None
-    # serving model: "bylen" or an int8_* name (served from model_dir)
+    # serving model: "bylen" or an int8_* name (served from model_dir,
+    # else the default trained on the synthetic corpus, on the device)
     model: str = "bylen"
     model_dir: Optional[str] = None
     # int8-GEMM backend of the serving model: "cuda" | "ref"

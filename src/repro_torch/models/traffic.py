@@ -1,7 +1,18 @@
-"""Feature bucketization of the FENIX traffic classifiers (§6).
+"""FENIX traffic classifiers (paper §6, §7.1 schemes a/b/d/e).
 
-Port of ``bucketize`` from ``repro/models/traffic.py``.  The float model
-and its training are not ported yet (ROADMAP, training slice).
+Port of ``repro/models/traffic.py``: the feature bucketization and the
+float models that train (the quantized INT8 path is
+``quant/quantize.py``).
+
+FENIX-CNN: embeddings -> 3 conv1d layers (64,128,256 filters, k=3, relu)
+           -> global average pool -> FC 512 -> FC 256 -> classes.
+FENIX-RNN: embeddings -> custom RNN cell (128 units, tanh) -> dense output.
+
+``init`` makes the reference Registrar's numpy draws and casts them to
+float32, so its params are bit for bit the reference's.  The forward is
+plain PyTorch, op for op the reference's: ``_conv1d`` is im2col and an
+einsum (as the int8 path), the RNN a Python loop over the window's
+steps (the reference's ``lax.scan``).
 
 The reference's ipd bucket is ``2 * floor(log2(1 + float32(ipd)))``,
 and ``jnp.log2`` is ``log(x) / log(2)`` in float32 through XLA's own
@@ -17,12 +28,17 @@ two up to 2^31.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.fenix_models import TrafficModelConfig
+from repro_torch.models.param import Registrar
+
+F32 = torch.float32
 
 # (first, last, step, value): float32 values f = 1 + float32(ipd) for
 # which the reference's floor(log2(f)) is `value`, not the exponent of f
@@ -77,3 +93,120 @@ def bucketize(payload: torch.Tensor, cfg: TrafficModelConfig,
     lg = torch.where(keys[pos] == bits, vals[pos], lg)
     ip = torch.clamp(2 * lg, 0, cfg.ipd_buckets - 1)
     return torch.stack([ln, ip], dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_params(reg: Registrar, cfg: TrafficModelConfig) -> None:
+    e = cfg.embed_dim
+    reg.param("embed_len/table", (cfg.len_buckets, e), ("vocab", "embed"),
+              scale=0.5, dtype=F32)
+    reg.param("embed_ipd/table", (cfg.ipd_buckets, e), ("vocab", "embed"),
+              scale=0.5, dtype=F32)
+    d_in = 2 * e
+    if cfg.kind == "cnn":
+        c_prev = d_in
+        for i, ch in enumerate(cfg.conv_filters):
+            reg.param(f"conv{i}/w", (cfg.conv_kernel, c_prev, ch),
+                      ("conv", "embed", "ffn"), scale=(cfg.conv_kernel
+                                                       * c_prev) ** -0.5,
+                      dtype=F32)
+            reg.param(f"conv{i}/b", (ch,), ("ffn",), init="zeros", dtype=F32)
+            c_prev = ch
+        f_prev = c_prev
+        for i, fc in enumerate(cfg.fc_dims):
+            reg.param(f"fc{i}/w", (f_prev, fc), ("embed", "ffn"),
+                      scale=f_prev ** -0.5, dtype=F32)
+            reg.param(f"fc{i}/b", (fc,), ("ffn",), init="zeros", dtype=F32)
+            f_prev = fc
+        reg.param("head/w", (f_prev, cfg.num_classes), ("embed", "classes"),
+                  scale=f_prev ** -0.5, dtype=F32)
+        reg.param("head/b", (cfg.num_classes,), ("classes",), init="zeros",
+                  dtype=F32)
+    else:  # rnn
+        u = cfg.rnn_units
+        reg.param("cell/wx", (d_in, u), ("embed", "ffn"), scale=d_in ** -0.5,
+                  dtype=F32)
+        reg.param("cell/wh", (u, u), ("ffn", "ffn"), scale=u ** -0.5,
+                  dtype=F32)
+        reg.param("cell/b", (u,), ("ffn",), init="zeros", dtype=F32)
+        reg.param("head/w", (u, cfg.num_classes), ("embed", "classes"),
+                  scale=u ** -0.5, dtype=F32)
+        reg.param("head/b", (cfg.num_classes,), ("classes",), init="zeros",
+                  dtype=F32)
+
+
+def init(cfg: TrafficModelConfig, seed: int = 0,
+         device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The float params on ``device`` (``cuda`` unless the caller names
+    another)."""
+    reg = Registrar(abstract=False, seed=seed, dtype=F32,
+                    device=resolve_device(device))
+    init_params(reg, cfg)
+    return reg.params
+
+
+# ---------------------------------------------------------------------------
+# Float forward (training / fp oracle)
+# ---------------------------------------------------------------------------
+
+
+def embed_ids(params: Dict, ids: torch.Tensor) -> torch.Tensor:
+    """ids [..., T, 2] -> [..., T, 2E] float."""
+    ids = ids.long()
+    el = F.embedding(ids[..., 0], params["embed_len/table"])
+    ei = F.embedding(ids[..., 1], params["embed_ipd/table"])
+    return torch.cat([el, ei], dim=-1)
+
+
+def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+            ) -> torch.Tensor:
+    """'same' conv1d via im2col (mirrors the int8 path exactly)."""
+    k = w.shape[0]
+    pad = k // 2
+    s = x.shape[1]
+    xp = F.pad(x, (0, 0, pad, k - 1 - pad))
+    cols = torch.stack([xp[:, i:i + s] for i in range(k)], dim=2)
+    return torch.einsum("bskc,kcf->bsf", cols, w) + b
+
+
+def apply(params: Dict, cfg: TrafficModelConfig, payload: torch.Tensor,
+          ipd_log2: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+          ) -> torch.Tensor:
+    """payload [B,T,2] int32 -> logits [B,classes] (float path).
+    ``ipd_log2`` as in :func:`bucketize` (a captured train step must be
+    given it: building it copies from the host)."""
+    ids = bucketize(payload, cfg, ipd_log2)
+    x = embed_ids(params, ids)                        # [B,T,2E]
+    if cfg.kind == "cnn":
+        for i in range(len(cfg.conv_filters)):
+            x = torch.relu(_conv1d(x, params[f"conv{i}/w"],
+                                   params[f"conv{i}/b"]))
+        x = torch.mean(x, dim=1)                      # global average pool
+        for i in range(len(cfg.fc_dims)):
+            x = torch.relu(x @ params[f"fc{i}/w"] + params[f"fc{i}/b"])
+        return x @ params["head/w"] + params["head/b"]
+    # rnn: the reference's lax.scan over the steps
+    h = torch.zeros((x.shape[0], cfg.rnn_units), dtype=x.dtype,
+                    device=x.device)
+    for t in range(x.shape[1]):
+        h = torch.tanh(x[:, t] @ params["cell/wx"] + h @ params["cell/wh"]
+                       + params["cell/b"])
+    return h @ params["head/w"] + params["head/b"]
+
+
+def loss_fn(params: Dict, cfg: TrafficModelConfig, batch: Dict,
+            ipd_log2: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Weighted NLL (mean over the batch) and accuracy."""
+    logits = apply(params, cfg, batch["payload"], ipd_log2)
+    labels = batch["label"].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[:, None])[:, 0]
+    w = batch.get("weight")
+    loss = torch.mean(nll * w) if w is not None else torch.mean(nll)
+    acc = torch.mean((torch.argmax(logits, -1) == labels).to(F32))
+    return loss, {"acc": acc}

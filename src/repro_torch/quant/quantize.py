@@ -1,7 +1,18 @@
-"""Integer-only inference of the quantized traffic models (§6).
+"""Post-training INT8 fixed-point quantization of the traffic models,
+and their integer-only inference (paper §6).
 
-Port of ``int8_apply`` from ``repro/quant/quantize.py``, both branches,
-every GEMM on ``kernels/int8_matmul``:
+Port of ``repro/quant/quantize.py``.  Power-of-two scales everywhere: an
+activation x is held as x_q = round(x * 2^sa) int8, a weight as w_q =
+round(w * 2^sw); a layer's int32 accumulator carries scale 2^(sa_in+sw)
+and is requantized to the next activation grid by one right shift.
+``quantize_traffic`` picks each grid from the absmax at every site of a
+float forward over a calibration batch (``_collect_activations``, on the
+params' device) and does the rest in numpy, as the reference does; it
+returns the reference's numpy layout (the checkpoint form, which
+``serving.qparams_from_numpy`` turns into the serving model).
+
+``int8_apply`` runs the integer path, both branches, every GEMM on
+``kernels/int8_matmul``:
 
 * CNN: embedding gather, im2col conv layers with ReLU, an integer mean
   pool ``(sum * mult) >> 15``, the FC layers and the int32 head;
@@ -14,8 +25,6 @@ every GEMM on ``kernels/int8_matmul``:
   sign-fills (-1 for a negative value, 0 otherwise), in PyTorch on the
   CPU and on CUDA as in XLA.
 
-The quantizer itself (``quantize_traffic``) is not ported yet (ROADMAP).
-
 ``qp`` is the port's integer model (``serving.qparams_from_numpy``):
 int8/int32 tensors for weights, biases and tables, Python ints for the
 per-layer shifts and the pool multiplier, so no shift is read back from
@@ -26,6 +35,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.fenix_models import TrafficModelConfig
@@ -33,6 +43,155 @@ from repro_torch.kernels.int8_matmul.ops import int8_conv1d, int8_matmul
 from repro_torch.models import traffic
 
 I32 = torch.int32
+
+
+def _shift_for(absmax: float) -> int:
+    """Largest s with absmax * 2^s <= 127 (decimal point position)."""
+    absmax = max(float(absmax), 1e-8)
+    return int(np.floor(np.log2(127.0 / absmax)))
+
+
+def _q(x: np.ndarray, shift: int, dtype=np.int8) -> np.ndarray:
+    lim = 127 if dtype == np.int8 else 2**31 - 1
+    return np.clip(np.round(np.asarray(x, np.float64) * (1 << shift)
+                            if shift >= 0 else
+                            np.asarray(x, np.float64) / (1 << -shift)),
+                   -lim, lim).astype(dtype)
+
+
+def quantize_array(x: np.ndarray, shift: int, dtype=np.int8) -> np.ndarray:
+    """Fixed-point quantize: ``round(x * 2^shift)`` saturated to dtype
+    (``shift`` is the decimal-point position; negative shifts divide)."""
+    return _q(x, shift, dtype)
+
+
+def dequantize_array(x_q: np.ndarray, shift: int) -> np.ndarray:
+    """Inverse grid map: ``x_q * 2^-shift`` (float64)."""
+    return np.asarray(x_q, np.float64) * (2.0 ** -shift)
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.array(t)
+
+
+@torch.no_grad()
+def _collect_activations(params: Dict, cfg: TrafficModelConfig,
+                         payloads: torch.Tensor) -> Dict[str, float]:
+    """Float forward, recording absmax at every quantization site."""
+    sites: Dict[str, float] = {}
+
+    def rec(name, x):
+        sites[name] = max(sites.get(name, 0.0),
+                          float(torch.max(torch.abs(x))))
+        return x
+
+    ids = traffic.bucketize(payloads, cfg)
+    x = rec("embed", traffic.embed_ids(params, ids))
+    if cfg.kind == "cnn":
+        for i in range(len(cfg.conv_filters)):
+            x = rec(f"conv{i}", torch.relu(traffic._conv1d(
+                x, params[f"conv{i}/w"], params[f"conv{i}/b"])))
+        x = rec("pool", torch.mean(x, dim=1))
+        for i in range(len(cfg.fc_dims)):
+            x = rec(f"fc{i}", torch.relu(
+                x @ params[f"fc{i}/w"] + params[f"fc{i}/b"]))
+        rec("head", x @ params["head/w"] + params["head/b"])
+    else:
+        h = torch.zeros((x.shape[0], cfg.rnn_units), dtype=x.dtype,
+                        device=x.device)
+        pres = []
+        for t in range(x.shape[1]):
+            pre = x[:, t] @ params["cell/wx"] + h @ params["cell/wh"] \
+                + params["cell/b"]
+            h = torch.tanh(pre)
+            pres.append(pre)
+        rec("cell_pre", torch.stack(pres))
+        rec("cell", h)
+        rec("head", h @ params["head/w"] + params["head/b"])
+    return sites
+
+
+def quantize_traffic(params: Dict, cfg: TrafficModelConfig,
+                     calib_payloads) -> Dict:
+    """The integer model, in the reference's numpy layout: int8
+    weights/tables, int32 biases, per-layer shifts as 0-d int32 arrays,
+    ``cfg_shifts`` a dict of them.  ``params`` are the float params
+    (tensors on any device, or arrays); the calibration forward runs on
+    their device."""
+    first = next(iter(params.values()))
+    dev = first.device if isinstance(first, torch.Tensor) else "cpu"
+    params = {k: _np(v) for k, v in params.items()}
+    sites = _collect_activations(
+        {k: torch.from_numpy(v).to(dev) for k, v in params.items()}, cfg,
+        torch.from_numpy(_np(calib_payloads)).to(dev))
+    sa: Dict[str, int] = {k: min(_shift_for(v), 12)
+                          for k, v in sites.items()}
+    qp: Dict = {"cfg_shifts": sa}
+
+    def qlayer(name, w, b, sa_in, sa_out):
+        sw = min(_shift_for(np.max(np.abs(w))), 12)
+        qp[f"{name}/w"] = _q(w, sw)
+        qp[f"{name}/b"] = _q(b, sa_in + sw, np.int32)
+        shift = sa_in + sw - sa_out
+        if shift < 0:
+            raise ValueError(f"{name}: negative requantization shift "
+                             f"{shift} (sa_in {sa_in}, sw {sw}, sa_out "
+                             f"{sa_out})")
+        qp[f"{name}/shift"] = shift
+
+    se = sa["embed"]
+    qp["embed_len/table"] = _q(params["embed_len/table"], se)
+    qp["embed_ipd/table"] = _q(params["embed_ipd/table"], se)
+    if cfg.kind == "cnn":
+        prev = "embed"
+        for i in range(len(cfg.conv_filters)):
+            qlayer(f"conv{i}", params[f"conv{i}/w"], params[f"conv{i}/b"],
+                   sa[prev], sa[f"conv{i}"])
+            prev = f"conv{i}"
+        # integer mean over T: (sum * mult) >> 15, then rescale to pool grid
+        sa["pool"] = sa[prev]
+        qp["pool/mult"] = np.int32(round((1 << 15) / cfg.seq_len))
+        prev = "pool"
+        for i in range(len(cfg.fc_dims)):
+            qlayer(f"fc{i}", params[f"fc{i}/w"], params[f"fc{i}/b"],
+                   sa[prev], sa[f"fc{i}"])
+            prev = f"fc{i}"
+        qlayer("head", params["head/w"], params["head/b"], sa[prev],
+               max(sa["head"], 0))
+    else:
+        # RNN: both matmuls accumulate on the cell_pre grid
+        sa_pre = sa["cell_pre"]
+        sh = sa["cell"]
+        swx = min(_shift_for(np.max(np.abs(params["cell/wx"]))), 12)
+        swh = min(_shift_for(np.max(np.abs(params["cell/wh"]))), 12)
+        qp["cell/wx"] = _q(params["cell/wx"], swx)
+        qp["cell/wh"] = _q(params["cell/wh"], swh)
+        qp["cell/b"] = _q(params["cell/b"], sa["embed"] + swx, np.int32)
+        qp["cell/shift_x"] = sa["embed"] + swx - sa_pre
+        qp["cell/shift_h"] = sh + swh - sa_pre
+        if qp["cell/shift_x"] < 0 or qp["cell/shift_h"] < 0:
+            raise ValueError(f"cell: negative requantization shift "
+                             f"{qp['cell/shift_x']}, {qp['cell/shift_h']}")
+        # tanh LUT: index = clip(pre_q >> (sa_pre-4), -256, 255)
+        idx = np.arange(-256, 256)
+        lut_in = idx / (1 << 4)                      # pre at scale 2^-4
+        qp["tanh_lut"] = _q(np.tanh(lut_in), sh)
+        qp["cell/lut_preshift"] = sa_pre - 4
+        qlayer("head", params["head/w"], params["head/b"], sh,
+               max(sa["head"], 0))
+
+    # the reference's jnp.asarray of each leaf: the 0-d ones as int32
+    def leaf(v):
+        return np.asarray(v, np.int32) if np.ndim(v) == 0 else v
+
+    return {k: {kk: leaf(vv) for kk, vv in v.items()}
+            if isinstance(v, dict) else leaf(v) for k, v in qp.items()}
+
+
+# ---------------------------------------------------------------------------
+# Integer-only inference (mirrors traffic.apply layer-for-layer)
+# ---------------------------------------------------------------------------
 
 
 def int8_apply(qp: Dict, cfg: TrafficModelConfig, payload: torch.Tensor,

@@ -230,8 +230,12 @@ def test_load_quantized_reads_reference_checkpoint(tmp_path):
     assert model.cfg.num_classes == 5
     with pytest.raises(FileNotFoundError):
         serving.load_quantized(tmp_path / "missing")
-    with pytest.raises(NotImplementedError, match="training"):
-        serving.build_model("int8_cnn", device="cpu")
+    # without model_dir the factory trains the default instance (the
+    # tiny CNN here) and serves it
+    default = serving.build_model("int8_cnn_tiny", device="cpu")
+    assert isinstance(default, serving.EngineModel)
+    assert default.cfg.num_classes == 7 and default.cfg.kind == "cnn"
+    assert default.infer(torch.from_numpy(x[:8])).shape == (8,)
 
 
 def _packet(pk, i, conv):

@@ -202,18 +202,21 @@ def test_gate_backend_cuda_on_cpu_tensors_raises(trace):
         sys_.run_trace(dict(trace))
 
 
-def test_unported_paths_raise(tiny_int8):
+def test_unported_paths_raise(tiny_int8, trace):
     for kw in (dict(driver="pipes", num_pipes=2),
                dict(driver="farm", num_engines=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FenixSystem(FenixConfig(**kw), ByLenModel(), device="cpu")
     from repro_torch.core.model_engine.serving import build_model
 
-    for name in ("int8_cnn_tiny", "int8_rnn"):     # training is not ported
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(name, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FenixSystem(FenixConfig(model=name), device="cpu")
+    for name in ("int8_cnn_tiny", "int8_rnn_tiny"):  # the default trains
+        model = build_model(name, device="cpu")
+        assert isinstance(model, EngineModel)
+        sys_ = FenixSystem(FenixConfig(model=name, batch_size=BATCH),
+                           device="cpu")
+        assert sys_.model.cfg == model.cfg
+        v = sys_.run_trace({k: v[:600] for k, v in trace.items()})["verdict"]
+        assert v.shape == (600,) and sys_.stats["inferences"] > 0
     with pytest.raises(ValueError, match="unknown gate_backend"):
         FenixConfig(gate_backend="pallas")
     with pytest.raises(ValueError, match="unknown matmul_backend"):

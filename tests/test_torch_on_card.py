@@ -884,3 +884,82 @@ def test_streaming_replay_matches_in_memory_on_card(tmp_path, cuda_device):
 
 def _clone_dict(d):
     return {k: v.clone() for k, v in d.items()}
+
+
+# -- training (the train step's graph, evaluate_quantized's kernel) ----------
+
+
+def _trainer_pair(name, dev, steps):
+    """A graph and an eager trainer of a tiny model from one init, each
+    with its batches drawn from the same seed."""
+    from repro_torch.configs import fenix_models
+    from repro_torch.data.synthetic_traffic import (class_weights,
+                                                    windows_from_flows)
+    from repro_torch.models import traffic
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           batch_iterator)
+
+    mcfg = getattr(fenix_models, name)()
+    x, y, _ = windows_from_flows(make_flows("iscx", 80, seed=3))
+    w = class_weights(y, mcfg.num_classes)
+    table = traffic.ipd_log2_table(dev)
+    params = traffic.init(mcfg, seed=0, device=dev)
+    out = {}
+    for step in ("graph", "eager"):
+        cfg = TrainerConfig(total_steps=steps, log_every=1,
+                            step_backend=step,
+                            opt=OptConfig(lr=3e-3, warmup_steps=3,
+                                          total_steps=steps))
+        out[step] = (Trainer(lambda p, b: traffic.loss_fn(p, mcfg, b, table),
+                             params, cfg, device=dev),
+                     batch_iterator(x, y, 256, seed=1, weights=w,
+                                    device=dev))
+    return out
+
+
+@pytest.mark.parametrize("name", ["fenix_cnn_tiny", "fenix_rnn_tiny"])
+def test_train_step_graph_matches_eager(name, cuda_device):
+    """The train step replayed as a CUDA graph against the same step run
+    eagerly, from one init over the same batches: every step's metrics,
+    the params, moments and counter bit for bit; then a batch of NaN
+    weights leaves the graph trainer's state as it was."""
+    pair = _trainer_pair(name, cuda_device, 12)
+    for step, (t, batches) in pair.items():
+        t.run(batches)
+        assert t.step == 12 and t.step_backend == step
+    (g, gb), (e, _) = pair["graph"], pair["eager"]
+    assert g.capture_s > 0 and e.capture_s == 0
+    assert g.metrics_log == e.metrics_log
+    assert_same(g.params, e.params)
+    assert_same(g.opt_state, e.opt_state)
+    before = {"p": {k: v.clone() for k, v in g.params.items()},
+              "m": {k: v.clone() for k, v in g.opt_state["m"].items()},
+              "step": g.opt_state["step"].clone()}
+    saved = gb.data["weight"].clone()
+    gb.data["weight"].fill_(float("nan"))
+    metrics = g._train_step(gb, next(gb))
+    assert torch.isnan(metrics).any()
+    assert_same(before, {"p": g.params, "m": g.opt_state["m"],
+                         "step": g.opt_state["step"]})
+    gb.data["weight"].copy_(saved)
+    g.run(gb, steps=2)
+    assert g.step == 14 and int(g.opt_state["step"]) == 14
+
+
+def test_evaluate_quantized_cuda_matches_ref(cuda_device):
+    """A tiny CNN trained on the card (the train step's graph by
+    default), quantized, and evaluated with the INT8 kernel and with the
+    plain backend: the same predictions."""
+    from repro_torch.core.model_engine import serving
+    from repro_torch.data.synthetic_traffic import windows_from_flows
+
+    mcfg = serving.model_config("int8_rnn_tiny")
+    flows = make_flows("iscx", 120, seed=5, min_per_class=10)
+    params, qp, m = serving.train_quantized(mcfg, flows, steps=60, seed=5)
+    assert all(v.is_cuda for v in params.values())
+    x, y, _ = windows_from_flows(flows, seed=9)
+    r_k = serving.evaluate_quantized(qp, mcfg, x, y, backend="cuda")
+    r_r = serving.evaluate_quantized(qp, mcfg, x, y, backend="ref")
+    assert np.array_equal(r_k["pred"], r_r["pred"])
+    assert r_k["confusion"] == r_r["confusion"]
