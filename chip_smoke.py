@@ -100,6 +100,21 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    ``examples/fenix_e2e.py``): graph == eager on both gate kernels ==
    plain backends, packets/s beside verdict coverage, per-packet accuracy
    and flow macro-F1.
+4f. The multi-pipe driver (P=4, the Tofino's four ingress pipelines)
+   and the engine farm (P=4 x E=4) on phase 4's trace and full-width
+   CNN, batch 4096 a pipe: each gate kernel on graphs and eagerly, ==
+   the plain backends (verdicts, stats, stacked state, queues, delay
+   lines, engine queues); one gate launch a step whatever P (plus one a
+   pipe's tail) and six GEMM launches (one flattened call a layer), 0
+   host syncs; packets/s in turns, capture seconds, served_per_engine,
+   the tails' share of the replay; one profile each (graph and eager) on
+   the trace cut to whole batches a pipe (at most 4 launch calls a step
+   on graphs); P=1 pipes == phase 4's device replay, E=1 farm == P=4
+   pipes, and the card == the CPU on a prefix with ragged tails.  Phase
+   2 holds the pipe-batched gates (P in 1-8, n up to 2^20, the bucket
+   binding in one pipe only) to their plain versions and to one launch
+   a pipe, and times them at [4, 4096] beside four one-pipe launches;
+   the GEMM's step shapes (M x 4, M x 16) are timed beside _int_mm.
 5. GQA decode attention (``decode_attention``) against its plain version
    in float32 and bfloat16, head dims 16-256, groups 1, 4, 5, 8, ragged
    lengths with 1, S and an empty row (which must give 0), at the
@@ -130,8 +145,9 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    generate, gated ``serve_requests`` through ``ServeGate`` (one graph
    for its one shape), and the reduced model on the card against the CPU.
 7. Each phase's seconds and the total, the ``kernels`` JSON line
-   (``int8_gemm``'s launches count the CNN's and the RNN's main paths and
-   the trained models' replays),
+   (``int8_gemm``'s launches count the CNN's and the RNN's main paths,
+   the trained models' replays and the pipes and farm paths; the
+   ``*_pipes`` rows are the pipe-batched gates of 4f),
    then the last line: ``{"ok": true, "device": {"platform": "gpu",
    ...}}``.
 
@@ -613,6 +629,158 @@ def phase_gate(rng):
     return out[4096]
 
 
+# the pipe-batched gates: P pipes' batches in one launch (the multi-pipe
+# driver's step), each pipe its own LUT, registers and key
+PIPE_GATE_PIPES = (1, 2, 4, 8)
+PIPE_GATE_SIZES = (1, 1000, 1024, 4096, 8192, 3 * 8192 + 5, 1 << 20)
+PIPE_BIND_SIZES = (4096, 8192, 3 * 8192 + 5, 1 << 20)
+
+
+def _pipe_gate_case(rng, pipes, n, dev, cost, cap, bind=None):
+    """P pipes' cases stacked: lanes [P, n], LUT [P, 64, 32], registers
+    [P], keys [P, 2], each pipe drawn on its own.  With ``bind`` = q, pipe
+    q's batch is a binding one (_binding_gate_case, BIND_COST/BIND_CAP)
+    and every other pipe's bucket is full, so only pipe q binds."""
+    cases = []
+    for q in range(pipes):
+        if bind is None:
+            c = _gate_case(rng, n, dev, cost, cap)
+        elif q == bind:
+            c = _binding_gate_case(rng, n, dev)
+        else:
+            c = _gate_case(rng, n, dev, BIND_COST, BIND_CAP)
+            c["bucket"].fill_(BIND_CAP)
+        c["key"] = _key(rng)
+        cases.append(c)
+    return {k: torch.stack([c[k] for c in cases]).contiguous()
+            for k in cases[0]}
+
+
+def pipe_gate_check(c, worst, cost, cap):
+    """Both fused kernels on the stacked case ``c`` in one launch each,
+    against the plain versions over [P, n] and against one launch a pipe
+    of the same kernel; raises ``worst``'s max |diff| per kernel.  Returns
+    {kernel: (selected [P], granted [P])} of the plain version."""
+    from repro_torch.kernels.rate_gate import ref
+    from repro_torch.kernels.rate_gate.kernel import (fused_gate,
+                                                      fused_gate_prng)
+    from repro_torch.kernels.rate_gate.ops import fused_admission
+
+    kw = dict(cost_us=cost, bucket_cap_us=cap)
+    lanes = (c["t_i"], c["c_i"], c["ts"])
+    args = (*lanes, c["lut"], c["bucket"], c["t_last"])
+    prob = ref.lut_prob(c["lut"], c["t_i"], c["c_i"], 10, 0)
+    out = {}
+    for name, backend, draws, kern in (
+            ("fused_gate", "cuda", dict(rand16=c["rand16"]), fused_gate),
+            ("fused_gate_prng", "cuda_prng", dict(key=c["key"]),
+             fused_gate_prng)):
+        plain = fused_admission(*args, backend="ref", **draws, **kw)
+        before = kern.launches
+        got = fused_admission(*args, backend=backend, **draws, **kw)
+        require(kern.launches == before + 1,
+                f"{name}: {kern.launches - before} launches for "
+                f"{c['t_i'].shape[0]} pipes")
+        one = [fused_admission(*(x[q] for x in args), backend=backend,
+                               **{k: v[q] for k, v in draws.items()}, **kw)
+               for q in range(c["t_i"].shape[0])]
+        worst[name] = max(
+            worst[name], max_abs_diff(plain[0], got[0]),
+            max_abs_diff(plain[1], got[1]),
+            max_abs_diff(torch.stack([o[0] for o in one]), got[0]),
+            max_abs_diff(torch.stack([o[1] for o in one]), got[1]))
+        rand = c["rand16"] if name == "fused_gate" \
+            else ref.draw_rand16(c["key"], prob.shape[-1], 16)
+        out[name] = ((rand < prob).sum(-1).tolist(),
+                     plain[0].sum(-1).tolist())
+    return out
+
+
+def _pipe_gate_bound(pipes, n, draw):
+    byts, ops = _gate_bytes_ops(n, draw)
+    return _bound_ms(pipes * byts, pipes * ops)
+
+
+def phase_pipe_gate(rng):
+    """The fused gates over a leading pipe dimension (one launch for P
+    pipes' batches) against their plain versions and one launch a pipe,
+    P in PIPE_GATE_PIPES at PIPE_GATE_SIZES and on batches where the
+    bucket binds in one pipe only; then timed at the pipes driver's shape
+    [4, 4096] beside four one-pipe launches and the bytes bound.  Returns
+    the kernels-line rows of the pipe-batched form."""
+    from repro_torch.kernels.rate_gate import ref
+    from repro_torch.kernels.rate_gate.kernel import (fused_gate,
+                                                      fused_gate_prng)
+
+    cost, cap = 2, 128
+    worst = {"fused_gate": 0, "fused_gate_prng": 0}
+    for pipes in PIPE_GATE_PIPES:
+        for n in PIPE_GATE_SIZES:
+            if pipes * n > 1 << 22:
+                continue
+            c = _pipe_gate_case(rng, pipes, n, "cuda", cost, cap)
+            res = pipe_gate_check(c, worst, cost, cap)
+        print(f"pipe-batched fused gates P={pipes}, n up to "
+              f"{PIPE_GATE_SIZES[-1]}: max|diff| {worst} (plain == one "
+              "launch for all pipes == one launch a pipe)")
+    for pipes in (2, 4, 8):
+        for n in PIPE_BIND_SIZES:
+            bind = int(rng.integers(0, pipes))
+            c = _pipe_gate_case(rng, pipes, n, "cuda", BIND_COST, BIND_CAP,
+                                bind=bind)
+            res = pipe_gate_check(c, worst, BIND_COST, BIND_CAP)
+            for name, (sel, granted) in res.items():
+                denied = [s_ - g for s_, g in zip(sel, granted)]
+                require(0.1 * sel[bind] < denied[bind] < 0.9 * sel[bind]
+                        and sum(denied) == denied[bind],
+                        f"{name} P={pipes} n={n}: the bucket binds in pipe "
+                        f"{bind} only? denied {denied} of {sel}")
+        print(f"pipe-batched fused gates P={pipes}, bucket binding in one "
+              f"pipe: max|diff| {worst} (denied {denied})")
+    for name, w in worst.items():
+        require(w == 0, f"pipe-batched {name} vs plain max|diff| {w}")
+
+    pipes, n = 4, 4096
+    c = _pipe_gate_case(rng, pipes, n, "cuda", cost, cap)
+    t_ref = torch.where(c["t_last"] == 0, c["ts"][:, 0], c["t_last"])
+    burst0 = torch.clamp_max(c["bucket"], cap)
+    regs = (c["bucket"], c["t_last"])
+    lanes = (c["t_i"], c["c_i"], c["ts"])
+    kkw = dict(t_shift=10, c_shift=0, cost_us=cost, bucket_cap_us=cap)
+    rows = {}
+    for name, kern, draws, plain, draw in (
+            ("fused_gate", fused_gate, c["rand16"],
+             lambda: ref.fused_admission_ref(*lanes, c["lut"], c["rand16"],
+                                             burst0, t_ref, 10, 0, cost,
+                                             cap), False),
+            ("fused_gate_prng", fused_gate_prng, c["key"],
+             lambda: ref.fused_admission_prng_ref(*lanes, c["lut"],
+                                                  c["key"], burst0, t_ref,
+                                                  10, 0, cost, cap, 16),
+             True)):
+        xkw = dict(kkw, prob_bits=16) if draw else kkw
+        split = [tuple(x[q] for x in (*lanes, draws, c["lut"], *regs))
+                 for q in range(pipes)]
+
+        def batched(kern=kern, draws=draws, xkw=xkw):
+            return kern(*lanes, draws, c["lut"], *regs, **xkw)
+
+        def one_a_pipe(kern=kern, split=split, xkw=xkw):
+            return [kern(*a, **xkw) for a in split]
+
+        bound, by = _pipe_gate_bound(pipes, n, draw)
+        ms, ms4, plain_ms = (device_ms(batched), device_ms(one_a_pipe),
+                             device_ms(plain))
+        print(f"{name} [{pipes}, {n}]: one launch {ms:.5f} ms, {pipes} "
+              f"one-pipe launches {ms4:.5f} ms ({ms4 / ms:.2f}x), plain "
+              f"{plain_ms:.5f} ms (device time, graph replay); bound "
+              f"{bound:.7f} ms ({by}); launches so far {kern.launches}")
+        rows[name + "_pipes"] = {
+            "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+    return rows
+
+
 def phase_select(rng):
     """Both selection-only kernels against their plain versions; returns
     {"rate_gate": row, "rate_gate_prng": row} at n=4096."""
@@ -810,6 +978,23 @@ def phase_gemm(rng):
           f"bound {total['bound_ms']:.6f} ms "
           f"({total['bound_ms'] / total['ms']:.3f} of it); launches so far "
           f"{int8_gemm.launches}")
+    # the pipes and farm steps serve every pipe's (engine's) lanes in one
+    # flattened GEMM a layer: M times P (P x E)
+    for scale, what in ((PIPES, f"pipes step (P={PIPES})"),
+                        (PIPES * ENGINES,
+                         f"farm step (P={PIPES} x E={ENGINES})")):
+        step = dict.fromkeys(total, 0.0)
+        for name, m, k, n, shift, with_bias in PATH_GEMMS:
+            row = timed(f"{name} x{scale}", m * scale, k, n, shift,
+                        with_bias)
+            for key in step:
+                step[key] += row[key]
+        print(f"int8_gemm per {what} (six GEMMs, M x {scale}): kernel "
+              f"{step['ms']:.5f} ms, plain {step['plain_ms']:.5f} ms, "
+              f"torch._int_mm {step['library_ms']:.5f} ms, bound "
+              f"{step['bound_ms']:.6f} ms "
+              f"({step['bound_ms'] / step['ms']:.3f} of it); kernel / "
+              f"_int_mm {step['ms'] / step['library_ms']:.3f}")
     return {"max_abs_err": worst, **total,
             "bound_by": "bytes" if by == {"bytes"} else "operations"}
 
@@ -1163,6 +1348,9 @@ def phase_slice(args):
     d = drive_model(model, mcfg, stream, batch, cpe)
     systems, launches, rate = d["systems"], d["launches"], d["rate"]
     v_k, sys_k, sec_k = d["res"][("cuda", "graph")]
+    # the device replay phase 4f holds the pipes driver at P=1 to
+    device_run = (v_k, copy.deepcopy(sys_k.stats),
+                  {k: v.clone() for k, v in sys_k.state.items()})
 
     # two run_trace calls in a row on new systems (the graph system
     # captures in the first), each with a ragged tail
@@ -1270,7 +1458,8 @@ def phase_slice(args):
                            f"gate {gate}, {step}")
     ctx = {"flows": flows, "stream": stream, "model": model,
            "systems": systems, "batch": batch, "cpe": cpe,
-           "rate": {k: max(v) for k, v in rate.items()}}
+           "rate": {k: max(v) for k, v in rate.items()},
+           "device_run": device_run}
     return launches, ctx
 
 
@@ -1340,10 +1529,10 @@ def graph_device_s(graph, reps):
 
 
 def profile_replay(sys_, stream, chunks, what):
-    """One replay under torch.profiler: device busy time and idle share
-    (against the profiled replay, profiler overhead included, and against
-    the same replay timed just before without the profiler), host launch
-    calls and copies per chunk,
+    """One replay under torch.profiler (the system's reset before it, not
+    in it): device busy time and idle share (against the profiled replay,
+    profiler overhead included, and against the same replay timed just
+    before without the profiler), host launch calls and copies per chunk,
     the top device kernels and the host ops by count.  On a graph system
     the busy time is also read with CUDA events around back-to-back
     replays of its chunk graph, as a cross-check; the profile must hold
@@ -1353,9 +1542,10 @@ def profile_replay(sys_, stream, chunks, what):
 
     sec_plain = run(sys_, stream)[1]
     zero_counts()
+    sys_.reset()              # outside the profile: it is not the replay's
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
-        sec = run(sys_, stream)[1]
+        sec = run(sys_, stream, reset=False)[1]
     avgs = prof.key_averages()
     kern = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
                   key=_dev_us, reverse=True)
@@ -1367,8 +1557,6 @@ def profile_replay(sys_, stream, chunks, what):
     n_ops = sum(a.count for a in host if a.key.startswith("aten::"))
     note = ""
     if sys_.step_backend == "graph":
-        require(n_launch / chunks <= 4, f"{what}: {n_launch} launch calls "
-                f"for {chunks} chunks")
         g = sys_._graphs[False]
         ev = chunks * graph_device_s(g.graph, 20)
         sys_.reset()          # the extra replays moved the carry buffers
@@ -1388,6 +1576,9 @@ def profile_replay(sys_, stream, chunks, what):
     for a in host[:10]:
         print(f"  host x{a.count:6d}  self cpu "
               f"{a.self_cpu_time_total / 1e3:9.3f} ms  {a.key[:60]}")
+    if sys_.step_backend == "graph":
+        require(n_launch / chunks <= 4, f"{what}: {n_launch} launch calls "
+                f"for {chunks} chunks")
 
 
 # -- phase 4b ---------------------------------------------------------------
@@ -2022,6 +2213,226 @@ def phase_training(ctx):
     return gemms
 
 
+# -- phase 4f ---------------------------------------------------------------
+
+PIPES, ENGINES = 4, 4        # a Tofino's four ingress pipelines; 4 engines
+
+
+def same_pipes_carry(a, b, what):
+    """Identical final stacked state, queues and delay lines (and the
+    farm's engine queues) of two pipes / farm systems."""
+    names = ("pstate", "pqueues", "pdl") + (("eq",) if a._use_farm else ())
+    for name in names:
+        x, y = getattr(a, name), getattr(b, name)
+        require(sorted(x) == sorted(y), f"{what}: {name} keys differ")
+        for k in x:
+            require(torch.equal(x[k].cpu(), y[k].cpu()),
+                    f"{what}: {name}[{k!r}] differs")
+
+
+def _rounds(sys_, stream):
+    """(uniform steps, pipes with a tail) of a pipes / farm replay."""
+    _, _, counts = sys_._route_pipes(stream)
+    b = sys_.cfg.batch_size
+    return int((counts // b).max()), int((counts % b > 0).sum())
+
+
+def _tail_free(sys_, stream):
+    """``stream`` with each pipe's last (< batch) packets dropped: every
+    step of its replay is a uniform one (a graph replay on graphs)."""
+    order, starts, counts = sys_._route_pipes(stream)
+    b = sys_.cfg.batch_size
+    keep = np.concatenate([order[st:st + c // b * b]
+                           for st, c in zip(starts, counts)])
+    keep.sort()
+    return {k: np.asarray(v)[keep] for k, v in stream.items()}
+
+
+def drive_pipes(model, stream, batch, cpe, driver, num_pipes, num_engines):
+    """The pipes or farm driver's main path on the trace: each gate
+    kernel on graphs (captured on a warm-up prefix) and eagerly, each
+    kernel count at 0 before each replay: one gate launch a uniform step
+    whatever P plus one a tail, six GEMM launches a step (one flattened
+    call a layer); graph == eager (verdicts, stats, final tensors,
+    counts) == the plain backends; packets/s of graph and eager in turns;
+    the profiles.  Returns the systems and the main path's counts."""
+    n = len(stream["ts_us"])
+    kw = dict(driver=driver, num_pipes=num_pipes, num_engines=num_engines)
+    gates = ("cuda", "cuda_prng")
+    systems = {(gate, step): make_system(model, "cuda", batch, cpe,
+                                         gate_backend=gate,
+                                         step_backend=step, **kw)
+               for gate in gates for step in ("graph", "eager")}
+    plain = make_system(model, "cuda", batch, cpe, gate_backend="ref",
+                        matmul_backend="ref", **kw)
+    what = f"{driver} P={num_pipes}" + (f" x E={num_engines}"
+                                        if driver == "farm" else "")
+    steps, tails = _rounds(plain, stream)
+    per = gemms_per_chunk(model.cfg)
+    warm = {k: v[:(cpe + 1) * batch * num_pipes] for k, v in stream.items()}
+    for sys_ in (*systems.values(), plain):
+        run(sys_, warm)
+    for gate in gates:
+        g = systems[(gate, "graph")]
+        require(sorted(g._graphs) == [False, True], f"{what}: graphs")
+        print(f"{what} capture (gate {gate}): both step graphs in "
+              f"{g.capture_s:.4f} s, outside every timed replay")
+    want = {"cuda": {"fused_gate": steps + tails, "fused_gate_prng": 0,
+                     "int8_gemm": per * (steps + tails),
+                     "decode_attention": 0},
+            "cuda_prng": {"fused_gate": 0, "fused_gate_prng": steps + tails,
+                          "int8_gemm": per * (steps + tails),
+                          "decode_attention": 0}}
+    res, counted = {}, {}
+    for gate in gates:
+        for step in ("graph", "eager"):
+            sys_ = systems[(gate, step)]
+            v, sec, counted[(gate, step)] = counted_run(sys_, stream)
+            require(counted[(gate, step)] == want[gate],
+                    f"{what}: launches {counted[(gate, step)]} for {steps} "
+                    f"steps and {tails} tails (gate {gate}, {step}); want "
+                    f"{want[gate]}")
+            require(sys_.host_syncs == 0 and sys_.capture_s == 0.0,
+                    f"{what} gate {gate} {step}: host syncs or a capture")
+            res[(gate, step)] = (v, sys_, sec)
+        same_run(res[(gate, "graph")], res[(gate, "eager")],
+                 f"{what} gate {gate}: graph vs eager")
+        same_pipes_carry(res[(gate, "graph")][1], res[(gate, "eager")][1],
+                         f"{what} gate {gate}: graph vs eager")
+    v_r, _, launches_r = counted_run(plain, stream)
+    require(not any(launches_r.values()),
+            f"{what}: the plain-backend replay launched {launches_r}")
+    v_k, sys_k, _ = res[("cuda", "graph")]
+    same_run((v_k, sys_k), (v_r, plain), f"{what}: gate cuda vs plain")
+    same_pipes_carry(sys_k, plain, f"{what}: gate cuda vs plain")
+    same_run(res[("cuda_prng", "graph")], (v_k, sys_k),
+             f"{what}: gate cuda_prng vs cuda")
+    st = sys_k.stats
+    require(v_k.shape == (n,) and v_k.min() >= -1
+            and v_k.max() < model.cfg.num_classes, f"{what}: verdicts")
+    require(st["inferences"] > 0 and st["classified_pkts"] > 0
+            and st["dropped_eq"] == 0, f"{what}: stats {st}")
+    print(f"{what}: graph == eager == plain backends (verdicts, stats, "
+          f"state, queues, delay lines{', engine queues' if driver == 'farm' else ''}) "
+          f"for gate cuda and cuda_prng; 0 host syncs; {steps} uniform "
+          f"steps + {tails} tails: launches {counted[('cuda', 'graph')]} "
+          f"(one gate launch a step and a tail, {per} GEMMs each)")
+    print(f"{what} stats: inferences {st['inferences']}, granted "
+          f"{st['granted']}, classified {st['classified_pkts']}/{n}, "
+          f"served_per_engine {st['served_per_engine']}, dropped_q "
+          f"{st['dropped_q']}, dropped_inflight {st['dropped_inflight']}, "
+          f"engine_q_depth_hist {st['engine_q_depth_hist']}")
+    rate = {}
+    for gate in gates:
+        for step in ("eager", "graph", "graph", "eager"):
+            sec = run(systems[(gate, step)], stream)[1]
+            rate.setdefault((gate, step), []).append(n / sec)
+        print(f"{what} replay (gate {gate}): graph "
+              f"{', '.join(f'{r:.1f}' for r in rate[(gate, 'graph')])} "
+              f"packets/s; eager "
+              f"{', '.join(f'{r:.1f}' for r in rate[(gate, 'eager')])} "
+              "packets/s (in turns: eager, graph, graph, eager)")
+    # the profiles, on the trace cut to whole batches a pipe (a replay of
+    # uniform steps only: the tails run eagerly, apart from the graphs)
+    free = _tail_free(plain, stream)
+    steps_f, tails_f = _rounds(plain, free)
+    require(tails_f == 0, f"{what}: the tail-free trace has tails")
+    sec_t = run(systems[("cuda", "graph")], stream)[1]
+    sec_f = run(systems[("cuda", "graph")], free)[1]
+    print(f"{what}: the trace's {tails} tails take "
+          f"{sec_t - sec_f * steps / steps_f:.4f} s of the {sec_t:.4f} s "
+          f"replay (graph, gate cuda; the same trace without them "
+          f"{sec_f:.4f} s for {steps_f} steps)")
+    for gate in gates:
+        for step in ("graph", "eager"):
+            profile_replay(systems[(gate, step)], free, steps_f,
+                           f"{what}, gate {gate}, {step}, no tails")
+    return {"systems": systems, "res": res, "launches": counted,
+            "steps": steps, "tails": tails}
+
+
+def phase_pipes(ctx):
+    """4f. The multi-pipe driver (P=4) and the engine farm (P=4 x E=4) on
+    phase 4's trace and full-width CNN: each gate kernel, graph == eager
+    == plain; P=1 pipes == phase 4's device replay; E=1 farm == P=4
+    pipes; the card == the CPU on a prefix with ragged tails.  Returns the
+    launches of the pipe-batched gate and of the GEMM on both main
+    paths."""
+    stream, model = ctx["stream"], ctx["model"]
+    batch, cpe = ctx["batch"], ctx["cpe"]
+    out = {}
+    for driver, engines in (("pipes", 1), ("farm", ENGINES)):
+        d = drive_pipes(model, stream, batch, cpe, driver, PIPES, engines)
+        out[driver] = d
+        del d["systems"]
+
+    # P=1 pipes == the device driver's replay of phase 4
+    v_dev, stats_dev, state_dev = ctx["device_run"]
+    one = make_system(model, "cuda", batch, cpe, driver="pipes",
+                      num_pipes=1)
+    run(one, {k: v[:(cpe + 1) * batch] for k, v in stream.items()})
+    v_one = run(one, stream)[0]
+    require(np.array_equal(v_one, v_dev) and one.stats == stats_dev,
+            "pipes P=1 vs the device driver: verdicts or stats differ")
+    for k, v in state_dev.items():
+        require(torch.equal(one.pstate[k][0], v),
+                f"pipes P=1 vs the device driver: state {k!r} differs")
+    print("pipes P=1 (graph) == phase 4's device replay (verdicts, stats, "
+          "state) on the card")
+    del one
+
+    # E=1 farm == P=4 pipes
+    farm1 = make_system(model, "cuda", batch, cpe, driver="farm",
+                        num_pipes=PIPES, num_engines=1)
+    pipes = make_system(model, "cuda", batch, cpe, driver="pipes",
+                        num_pipes=PIPES)
+    runs = [(run(x, stream)[0], x) for x in (farm1, pipes)]
+    same_run(*runs, f"farm E=1 vs pipes P={PIPES}")
+    for name in ("pstate", "pqueues", "pdl"):
+        for k, v in getattr(pipes, name).items():
+            require(torch.equal(getattr(farm1, name)[k], v),
+                    f"farm E=1 vs pipes: {name}[{k!r}] differs")
+    print(f"farm P={PIPES} x E=1 == pipes P={PIPES} (verdicts, stats, "
+          "state, queues, delay lines) on the card")
+    del farm1, pipes
+
+    # the card (graph) against the CPU (eager) on a prefix with tails and
+    # a T_w window's end (the batched LUT rebuild on both)
+    pre = {k: v[:int((cpe + 0.3) * PIPES * batch)]
+           for k, v in stream.items()}
+    model_cpu = copy.deepcopy(model).to("cpu")
+    for driver, engines in (("pipes", 1), ("farm", ENGINES)):
+        sides = {}
+        for dev, m in (("cuda", model), ("cpu", model_cpu)):
+            sys_ = make_system(m, dev, batch, cpe, driver=driver,
+                               num_pipes=PIPES, num_engines=engines)
+            t0 = time.perf_counter()
+            sides[dev] = (run(sys_, pre)[0], sys_,
+                          time.perf_counter() - t0)
+        steps, tails = _rounds(sides["cpu"][1], pre)
+        require(tails > 0 and steps >= cpe,
+                f"{driver}: the prefix has {steps} steps, {tails} tails")
+        same_run(sides["cuda"][:2], sides["cpu"][:2],
+                 f"{driver}: card vs CPU prefix")
+        same_pipes_carry(sides["cuda"][1], sides["cpu"][1],
+                         f"{driver}: card vs CPU prefix")
+        print(f"{driver} (E={engines}) prefix of {len(pre['ts_us'])} "
+              f"packets ({steps} steps, {tails} tails): card (graph, "
+              f"{sides['cuda'][2]:.3f} s with capture) == CPU (eager, "
+              f"{sides['cpu'][2]:.3f} s): verdicts, stats, final tensors")
+    del model_cpu
+    counts = {}
+    for driver in ("pipes", "farm"):
+        c = out[driver]["launches"]
+        counts[driver] = {
+            "fused_gate": c[("cuda", "graph")]["fused_gate"],
+            "fused_gate_prng": c[("cuda_prng", "graph")]["fused_gate_prng"],
+            "int8_gemm": c[("cuda", "graph")]["int8_gemm"]}
+    print(f"launches on the pipes and farm main paths (graph): {counts}")
+    return {k: sum(c[k] for c in counts.values())
+            for k in ("fused_gate", "fused_gate_prng", "int8_gemm")}
+
+
 # -- phase 5 ----------------------------------------------------------------
 
 # Tolerance of the kernel against its plain version, element by element:
@@ -2541,6 +2952,12 @@ KERNEL_ROWS = (
      "src/repro/kernels/int8_matmul/kernel.py:61"),
     ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
      "src/repro/kernels/decode_attention/kernel.py:71"),
+    # the fused gates over a leading pipe dimension (the pipes and farm
+    # drivers' launch: one for every pipe's batch), timed at [4, 4096]
+    ("fused_gate_pipes", "src/repro_torch/csrc/fused_gate.cu",
+     "src/repro/kernels/rate_gate/kernel.py:191"),
+    ("fused_gate_prng_pipes", "src/repro_torch/csrc/fused_gate.cu",
+     "src/repro/kernels/rate_gate/kernel.py:171"),
 )
 
 
@@ -2564,6 +2981,7 @@ def main():
     phase("1 environment", phase_environment)
     rng = np.random.default_rng(args.seed)
     rows = {**phase("2 gate", phase_gate, rng),
+            **phase("2 gate pipes", phase_pipe_gate, rng),
             **phase("2 select", phase_select, rng),
             "int8_gemm": phase("2 gemm", phase_gemm, rng)}
     launches = phase("3 select sweep", phase_select_sweep, rng)
@@ -2580,6 +2998,12 @@ def main():
     launches["int8_gemm"] += trained_gemms
     print(f"int8_gemm launches of the trained models' replays: "
           f"{trained_gemms}")
+    pipe_launches = phase("4f pipes and farm", phase_pipes, ctx)
+    launches["fused_gate_pipes"] = pipe_launches["fused_gate"]
+    launches["fused_gate_prng_pipes"] = pipe_launches["fused_gate_prng"]
+    launches["int8_gemm"] += pipe_launches["int8_gemm"]
+    print(f"int8_gemm launches of the pipes and farm main paths: "
+          f"{pipe_launches['int8_gemm']}")
     del ctx
     rows["decode_attention"] = phase(
         "5 attention", phase_attention, rng,

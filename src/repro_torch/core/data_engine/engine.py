@@ -7,6 +7,9 @@ becomes a Python loop over the batch, several hundred small tensor ops
 a packet, most of them the rate limiter's threefry draws), and
 ``process_batch_fast`` the vectorized fast path with
 ``_first_occurrence`` and the sort/segment ``_running_count``.
+``process_pipes_fast`` runs the fast path of P pipes in one pass over
+their [P * n] lanes (the reference vmaps ``process_batch_fast`` over a
+stacked state); one pipe's is ``process_batch_fast``.
 
 The reference writes the flow table with ``.at[slot].set`` where a batch
 may hold several packets of one slot; XLA on the CPU lets the last write
@@ -119,65 +122,106 @@ def process_batch_fast(state: Dict, packets: Dict, cfg: EngineConfig
     (uint32 values in int64), ts_us, pkt_len (int32).  Returns (state',
     outputs) with outputs granted [n] bool, slot [n] int32, hash [n]
     int64, payload [n, ring_depth+1, feat_dim] int32, verdict [n] int32
-    and is_new [n] bool, equal to the reference's leaf for leaf.
+    and is_new [n] bool, equal to the reference's leaf for leaf.  It is
+    :func:`process_pipes_fast` of one pipe.
     """
-    n = packets["ts_us"].shape[0]
+    states, outs = process_pipes_fast(
+        {k: v[None] for k, v in state.items()},
+        {k: v[None] for k, v in packets.items()}, cfg)
+    return ({k: v[0] for k, v in states.items()},
+            {k: v[0] for k, v in outs.items()})
+
+
+def process_pipes_fast(states: Dict, packets: Dict, local_cfg: EngineConfig
+                       ) -> Tuple[Dict, Dict]:
+    """The fast path of P pipes in one pass: ``states`` is a stacked [P,
+    ...] state (``state.init_pipes_state``), ``packets`` [P, n] tensors,
+    pipe p's batch on pipe p's table, bucket and key with the local
+    config, as the reference's vmap of ``process_batch_fast`` runs them.
+
+    The [P * n] lanes run as one batch over the flattened global table:
+    lane (p, i) addresses global slot ``p * n_slots + slot`` (its pipe's
+    own table, whatever its hash), so no slot is shared across pipes and
+    the first/last-lane and running-count passes see each pipe's lanes in
+    the pipe's own order.  Returns (states', outputs [P, n, ...])."""
+    cfg = local_cfg
+    pipes, n = packets["ts_us"].shape
+    ls = cfg.n_slots
     ts = packets["ts_us"].to(I32)
     h = hash_five_tuple(packets["src_ip"], packets["dst_ip"],
                         packets["src_port"], packets["dst_port"],
                         packets["proto"])
-    slot = h & (cfg.n_slots - 1)                    # int64 index
-    stored = state["hash"][slot]
-    is_new = _first_occurrence(slot, cfg.n_slots) \
+    slot = h & (ls - 1)                             # int64, the pipe's own
+    gslot = slot.reshape(-1)
+    if pipes > 1:
+        gslot = (slot + ls * torch.arange(pipes, device=slot.device)[:, None]
+                 ).reshape(-1)
+
+    def table(k):                                   # [P * n_slots, ...]
+        return states[k].reshape((pipes * ls,) + states[k].shape[2:])
+
+    def lanes(x):                                   # [P * n, ...] -> [P, n]
+        return x.reshape((pipes, n) + x.shape[1:])
+
+    stored = lanes(table("hash")[gslot])
+    is_new = lanes(_first_occurrence(gslot, pipes * ls)) \
         & ((stored == 0) | (stored != h))
-    run = _running_count(slot)
-    t_i = torch.clamp_min(ts - state["bklog_t"][slot], 0)
-    c_i = torch.clamp_min(state["bklog_n"][slot], 0) + run
-    key, sub = prng.split(state["rng_key"])
+    run = lanes(_running_count(gslot))
+    t_i = torch.clamp_min(ts - lanes(table("bklog_t")[gslot]), 0)
+    c_i = torch.clamp_min(lanes(table("bklog_n")[gslot]), 0) + run
+    keys = prng.split(states["rng_key"])
+    key, sub = keys[:, 0], keys[:, 1].contiguous()
     if resolve_backend(cfg.gate_backend, ts, "gate_backend") == "cuda_prng":
-        # the kernel draws randint(sub, (n,), ...) itself
-        granted, bucket_new = rl.admit_batch(state, cfg, t_i, c_i, ts,
+        # the kernel draws randint(sub, (n,), ...) itself, pipe by pipe
+        granted, bucket_new = rl.admit_batch(states, cfg, t_i, c_i, ts,
                                              key=sub)
     else:
         rand = prng.randint(sub, n, 0, 1 << cfg.lut.prob_bits)
-        granted, bucket_new = rl.admit_batch(state, cfg, t_i, c_i, ts,
+        granted, bucket_new = rl.admit_batch(states, cfg, t_i, c_i, ts,
                                              rand16=rand)
-    s = dict(state)
+    s = dict(states)
     s["rng_key"] = key
     s["bucket"] = bucket_new
-    s["t_last"] = ts[-1]
-    s["granted"] = state["granted"] + granted.sum(dtype=I32)
+    s["t_last"] = ts[:, -1].contiguous()      # a register the gate reads
+    s["granted"] = states["granted"] + granted.sum(-1, dtype=I32)
     # features + mirror payloads from the PRE-update ring (F1..F8 then
     # F9); ipd is 0 for flows new to the table
     known = (stored != 0) & (stored == h)
-    ipd = torch.where(known, torch.clamp_min(ts - state["last_ts"][slot],
-                                             0), 0).to(I32)
+    ipd = torch.where(known, torch.clamp_min(
+        ts - lanes(table("last_ts")[gslot]), 0), 0).to(I32)
     feat = torch.stack([packets["pkt_len"].to(I32), ipd], dim=-1)
-    idx = state["buff_idx"][slot].long()
+    feat = feat.reshape(pipes * n, -1)
+    idx = table("buff_idx")[gslot].long()
     depth = cfg.ring_depth
     order = torch.remainder(
         idx[:, None] + torch.arange(depth, device=idx.device)[None], depth)
-    seq = torch.take_along_dim(state["ring"][slot], order[..., None], dim=1)
+    seq = torch.take_along_dim(table("ring")[gslot], order[..., None],
+                               dim=1)
     payload = torch.cat([seq, feat[:, None]], dim=1)
     # flow-table bulk update, last write per slot wins: every lane writes
     # the value of the last lane of its slot (see the module docstring)
-    last = _last_lane(slot, cfg.n_slots)
-    s["hash"] = state["hash"].index_put((slot,), h[last])
-    s["ring"] = state["ring"].index_put((slot, idx), feat[last])
+    last = _last_lane(gslot, pipes * ls)
+    hf, tsf, gf = h.reshape(-1), ts.reshape(-1), granted.reshape(-1)
+
+    def put(k, index, values):
+        s[k] = table(k).index_put(index, values).view(states[k].shape)
+
+    put("hash", (gslot,), hf[last])
+    put("ring", (gslot, idx), feat[last])
     nxt = torch.where(idx + 1 == depth, 0, idx + 1).to(I32)
-    s["buff_idx"] = state["buff_idx"].index_put((slot,), nxt)
-    s["last_ts"] = state["last_ts"].index_put((slot,), ts[last])
-    added = state["bklog_n"].index_add(0, slot,
-                                       torch.ones_like(ts))
-    g_last = granted[last]
-    s["bklog_n"] = added.index_put((slot,),
-                                   torch.where(g_last, 0, added[slot]))
-    s["bklog_t"] = state["bklog_t"].index_put(
-        (slot,), torch.where(g_last, ts[last], state["bklog_t"][slot]))
-    s["flow_cnt"] = state["flow_cnt"] + is_new.sum(dtype=I32)
-    s["win_pkt_cnt"] = state["win_pkt_cnt"] + n
-    cls = state["cls"][slot]
+    put("buff_idx", (gslot,), nxt)
+    put("last_ts", (gslot,), tsf[last])
+    added = table("bklog_n").index_add(0, gslot, torch.ones_like(tsf))
+    g_last = gf[last]
+    s["bklog_n"] = added.index_put(
+        (gslot,), torch.where(g_last, 0, added[gslot])).view(
+            states["bklog_n"].shape)
+    put("bklog_t", (gslot,), torch.where(g_last, tsf[last],
+                                         table("bklog_t")[gslot]))
+    s["flow_cnt"] = states["flow_cnt"] + is_new.sum(-1, dtype=I32)
+    s["win_pkt_cnt"] = states["win_pkt_cnt"] + n
+    cls = lanes(table("cls")[gslot])
     out = {"granted": granted, "slot": slot.to(I32), "hash": h,
-           "payload": payload, "verdict": torch.where(cls >= 0, cls, -1),
-           "is_new": is_new}
+           "payload": lanes(payload),
+           "verdict": torch.where(cls >= 0, cls, -1), "is_new": is_new}
     return s, out

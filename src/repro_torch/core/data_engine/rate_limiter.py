@@ -1,7 +1,11 @@
 """Rate Limiter (§4.2): probabilistic token bucket, Algorithm 1.
 
-Port of ``step``, ``admit_batch`` and ``control_plane_update`` from
-``repro/core/data_engine/rate_limiter.py``.
+Port of ``step``, ``admit_batch``, ``control_plane_update`` and
+``control_plane_update_pipes`` from
+``repro/core/data_engine/rate_limiter.py``.  ``admit_batch`` and the
+control plane also take a stacked [P, ...] state of the multi-pipe
+driver: one fused admission call for every pipe's batch, and one LUT
+rebuild a pipe from its own window counters.
 """
 
 from __future__ import annotations
@@ -67,7 +71,8 @@ def admit_batch(state: Dict, cfg: EngineConfig, t_i: torch.Tensor,
     against the state's LUT and bucket registers, on the draws
     ``rand16`` or, for ``gate_backend="cuda_prng"``, on those the kernel
     makes from the chunk's threefry subkey ``key``.  Returns (granted [n]
-    bool, bucket_new 0-d int32)."""
+    bool, bucket_new 0-d int32); for a stacked state and lanes [P, n],
+    (granted [P, n], bucket_new [P]) from one call."""
     return fused_admission(
         t_i, c_i, ts, state["lut"], state["bucket"], state["t_last"],
         rand16=rand16, key=key, cost_us=cfg.cost_us,
@@ -85,3 +90,13 @@ def control_plane_update(state: Dict, cfg: EngineConfig) -> Dict:
                                window_us=cfg.window_us,
                                v=cfg.token_rate_per_us, cfg=cfg.lut)
     return ft.window_reset(s, state["t_last"])
+
+
+def control_plane_update_pipes(state: Dict, local_cfg: EngineConfig
+                               ) -> Dict:
+    """The T_w rollover of every pipe of a stacked [P, ...] state: each
+    pipe's LUT from its own window counters and its own rate share
+    (``local_cfg``), each window anchored at the pipe's own clock — the
+    reference's vmap of :func:`control_plane_update`, as one batched
+    rebuild (element for element the same float32 ops)."""
+    return control_plane_update(state, local_cfg)

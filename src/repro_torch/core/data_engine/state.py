@@ -8,6 +8,17 @@ Fields that are uint32 in the reference (``hash``, the threefry key
 ``rng_key``) hold the same values in int64 here: PyTorch's uint32 has
 partial op coverage, and int64 masked with ``& 0xFFFFFFFF`` wraps
 exactly as uint32 does.  Everything else keeps the reference's int32.
+
+Multi-pipeline layout (``num_pipes`` P, a power of two): a flow's global
+slot ``h & (n_slots - 1)`` splits into high bits, the owning pipe
+(``pipe_of_hash``), and low bits, the slot inside that pipe's table
+(``local_engine_config`` shrinks ``n_slots_log2``).  ``init_pipes_state``
+stacks P single-pipe states along a leading dimension, so the stacked
+``[P, n_slots / P]`` table, flattened, is the global table indexed by
+the global slot: the pipes driver runs every pipe's Data Engine in one
+pass over the ``[P * B]`` lanes of a step.  The reference shards that
+leading dimension over a device mesh; here it stays a tensor dimension
+on one device (there is no counterpart of ``pipe_mesh``).
 """
 
 from __future__ import annotations
@@ -15,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import prng
@@ -97,6 +109,63 @@ def init_state(cfg: EngineConfig, n_est: float = 1000.0,
         "denied_tokens": scalar(0),
         "collisions": scalar(0),
     }
+
+
+def farm_engine_config(cfg: EngineConfig, num_engines: int) -> EngineConfig:
+    """The switch-side view of a farm of ``num_engines`` Model Engines:
+    ``cfg`` describes one engine, and the farm's pooled service rate and
+    switch<->FPGA channels are E times larger, so the switch's bucket
+    (admission) refills E times faster.  ``num_engines=1`` returns a
+    config equal to ``cfg``."""
+    if num_engines < 1:
+        raise ValueError(f"num_engines must be >= 1, got {num_engines}")
+    return dataclasses.replace(
+        cfg, fpga_hz=cfg.fpga_hz * num_engines,
+        link_bw_bytes=cfg.link_bw_bytes * num_engines)
+
+
+def local_engine_config(cfg: EngineConfig, num_pipes: int) -> EngineConfig:
+    """One pipeline's view of ``cfg``: ``n_slots / num_pipes`` table
+    entries (the low bits of the global slot) and ``1 / num_pipes`` of the
+    service rate and the channel.  ``num_pipes=1`` returns a config equal
+    to ``cfg``."""
+    if num_pipes < 1 or num_pipes & (num_pipes - 1):
+        raise ValueError(f"num_pipes must be a power of two, got {num_pipes}")
+    p_log2 = num_pipes.bit_length() - 1
+    if p_log2 > cfg.n_slots_log2:
+        raise ValueError(f"num_pipes={num_pipes} exceeds n_slots="
+                         f"{cfg.n_slots}")
+    return dataclasses.replace(
+        cfg, n_slots_log2=cfg.n_slots_log2 - p_log2,
+        fpga_hz=cfg.fpga_hz / num_pipes,
+        link_bw_bytes=cfg.link_bw_bytes / num_pipes)
+
+
+def pipe_of_hash(h, cfg: EngineConfig, num_pipes: int):
+    """The owning pipeline of a flow, the high bits of its global slot:
+    int32, for a numpy array of hashes or a tensor of them (uint32 values
+    held in any integer dtype)."""
+    shift = cfg.n_slots_log2 - (num_pipes.bit_length() - 1)
+    if isinstance(h, torch.Tensor):
+        return ((h & (cfg.n_slots - 1)) >> shift).to(I32)
+    gslot = np.asarray(h).astype(np.int64) & (cfg.n_slots - 1)
+    return (gslot >> shift).astype(np.int32)
+
+
+def init_pipes_state(cfg: EngineConfig, num_pipes: int,
+                     n_est: float = 1000.0, q_est_pps: float = 1e6,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """Stacked per-pipe state: every field of ``init_state`` of the local
+    config (with 1/P of the flow and packet estimates) gains a leading
+    [num_pipes] dimension; pipe p seeds its own key, ``PRNGKey(p)``, so
+    pipe 0 of a one-pipe layout is the single-pipe state."""
+    lcfg = local_engine_config(cfg, num_pipes)
+    one = init_state(lcfg, n_est=n_est / num_pipes,
+                     q_est_pps=q_est_pps / num_pipes, device=device)
+    stacked = {k: torch.stack([v] * num_pipes) for k, v in one.items()}
+    stacked["rng_key"] = torch.stack(
+        [prng.PRNGKey(p, device=device) for p in range(num_pipes)])
+    return stacked
 
 
 def hash_five_tuple(src_ip: torch.Tensor, dst_ip: torch.Tensor,

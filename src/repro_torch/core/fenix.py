@@ -55,8 +55,39 @@ Port of ``repro/core/fenix.py``, single pipe, with its two drivers:
   batch's grants, slots, hashes and payloads back by design; its tensors
   live on the same device as the device driver's.
 
-The multi-pipe and engine-farm drivers are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+* **pipes** (``driver="pipes"``, ``num_pipes`` P, a power of two): the
+  Tofino's P ingress pipelines, each on its own slice of the flow table
+  (the high bits of a flow's global slot, ``state.pipe_of_hash``), its
+  own bucket at 1/P of the rate, its own Vector-I/O ring and delay line,
+  all draining into the one Model Engine: its budget split across the
+  rings by occupancy (``vio.pipe_shares``).  The reference shards the
+  pipes over a device mesh (``pipe_mesh``, ``shard_map``) or, below P
+  devices, ``vmap``s them; that vmap is its semantics and this port's
+  oracle.  Here the pipes are a leading tensor dimension on one device
+  (no mesh): the stacked state [P, ...] runs every pipe's Data Engine in
+  one pass over the step's [P * B] lanes, with one fused-gate launch for
+  all pipes, and the all-gathers are the stacked tensors themselves.
+  ``run_trace`` routes packets to pipes on the host, runs ``max_p
+  (count_p // B)`` uniform steps in lockstep (a pipe whose stream ran
+  out replays a dummy batch with its state frozen: the masked step), and
+  finishes each pipe's tail (< B packets) eagerly through the
+  single-pipe step on that pipe's slice, then rolls the window of every
+  pipe when the tail round ends one.  The uniform steps run as two CUDA
+  graphs on the card (plain and control-plane), both of the masked step:
+  with every pipe active it gives exactly the unmasked step's result, so
+  the pipes still streaming are a fixed input buffer.  ``num_pipes=1`` is
+  the device driver's replay bit for bit.
+* **farm** (``driver="farm"``, ``num_engines`` E): E Model Engines behind
+  the P pipes (``model_engine/engine_farm.py``): admission at E times one
+  engine's rate, the pipes' dequeued lanes routed to the engines' ingress
+  FIFOs by free space, each engine on its own budget, verdicts back
+  through the owning pipe's delay line tagged with the engine, and
+  per-engine served counts and queue-depth samples (kept on the device;
+  the histogram is made once, at the end).  ``num_engines=1`` is the
+  pipes driver bit for bit.
+
+A capture path or a ``TraceSpec`` is loaded whole on the pipes and farm
+drivers, as the reference does: they route globally.
 """
 
 from __future__ import annotations
@@ -77,8 +108,14 @@ from repro_torch._device import (no_host_sync, resolve_device,
 from repro_torch.core.data_engine import engine as de
 from repro_torch.core.data_engine import rate_limiter as rl
 from repro_torch.core.data_engine.decision_tree import predict
-from repro_torch.core.data_engine.state import EngineConfig, init_state
+from repro_torch.core.data_engine.state import (EngineConfig,
+                                                farm_engine_config,
+                                                hash_five_tuple,
+                                                init_pipes_state, init_state,
+                                                local_engine_config,
+                                                pipe_of_hash)
 from repro_torch.core.model_engine import delay_line as dl
+from repro_torch.core.model_engine import engine_farm as farm
 from repro_torch.core.model_engine import serving
 from repro_torch.core.model_engine import vector_io as vio
 from repro_torch.core.model_engine.inference import EngineModel
@@ -96,27 +133,22 @@ _PKT_DTYPES = {"src_ip": np.int64, "dst_ip": np.int64,
                "proto": np.int64, "ts_us": np.int32, "pkt_len": np.int32}
 
 DRIVER_NAMES = ("host", "device", "pipes", "farm")
-_NOT_PORTED = {
-    "pipes": "the multi-pipe driver is a later slice (ROADMAP.md, "
-             "'Modules to port')",
-    "farm": "the engine farm is a later slice (ROADMAP.md, 'Modules to "
-            "port')",
-}
-DEPTH_BUCKETS = 16                 # engine-farm queue-depth histogram width
 
 
 @dataclasses.dataclass
 class FenixConfig:
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
     io: vio.IOConfig = dataclasses.field(default_factory=vio.IOConfig)
-    batch_size: int = 512            # packets per data-engine step
+    batch_size: int = 512            # packets per data-engine step, per pipe
     loop_latency_us: int = 3         # switch->FPGA->switch (Fig. 11)
     control_plane_every: int = 8     # LUT refresh cadence (batches)
     # "auto" resolves as the reference does: farm if num_engines>1, else
-    # pipes if num_pipes>1, else host if exact=True, else device.  "host"
-    # and "device" are ported.
+    # pipes if num_pipes>1, else host if exact=True, else device
     driver: str = "auto"
     exact: bool = False
+    # switch ingress pipelines sharing the Model Engine(s), each with
+    # 1/num_pipes of the slot space and the rate (a power of two); Model
+    # Engines behind the switch, admission scaling with the pool
     num_pipes: int = 1
     num_engines: int = 1
     # fused-admission backend for the whole data plane: "cuda" |
@@ -128,8 +160,8 @@ class FenixConfig:
     model_dir: Optional[str] = None
     # int8-GEMM backend of the serving model: "cuda" | "ref"
     matmul_backend: Optional[str] = None
-    # how the device driver runs its chunk step: "graph" (CUDA graphs,
-    # the default on CUDA) | "eager" (the default on the CPU)
+    # how the device, pipes and farm drivers run their chunk step: "graph"
+    # (CUDA graphs, the default on CUDA) | "eager" (the default on the CPU)
     step_backend: Optional[str] = None
 
     def __post_init__(self):
@@ -167,41 +199,106 @@ def _tree_fill(verdict: torch.Tensor, pkt_len: torch.Tensor, tree: Dict,
     return torch.where(verdict >= 0, verdict, pre), (verdict < 0)
 
 
-def _make_single_step(ecfg: EngineConfig, iocfg: vio.IOConfig,
-                      loop_latency_us: int, model, tree: Optional[Dict],
-                      depth: int):
-    """One chunk of the single-pipe device driver: delivery, the Data
-    Engine, the switch-tree fill, enqueue, the full-budget service
-    epilogue (dequeue, inference, delay-line push) and, when ``cp``, the
-    control-plane rebuild — where the host oracle applies it, between
-    batches."""
+def _make_pipe_local(ecfg: EngineConfig, iocfg: vio.IOConfig,
+                     tree: Optional[Dict], depth: int):
+    """The pipe-local stage of a step: delay-line delivery, the Data
+    Engine, enqueue and the switch-tree fill, on one pipe's carry and
+    chunk ([B] lanes) or on a stack of pipes' ([P, B] lanes: every pipe
+    in one pass, ``de.process_pipes_fast``).  Returns (state, queues,
+    dline, aux): aux holds the verdicts, the batch's first and last
+    timestamps and the granted / classified / tree counts, a pipe's
+    each."""
 
-    def step_fn(carry, chunk: Dict[str, torch.Tensor], cp: bool):
-        state, queues, dline = carry
+    def de_local(state, queues, dline, chunk):
         ts = chunk["ts_us"]
-        now = ts[-1]
+        now = ts[..., -1]
         state, dline = dl.deliver(state, dline, now, ecfg.n_slots)
-        state, out = de.process_batch_fast(state, chunk, ecfg)
+        fast = (de.process_pipes_fast if ts.dim() == 2
+                else de.process_batch_fast)
+        state, out = fast(state, chunk, ecfg)
         # oracle payloads, when the chunk carries them, replace the ring's
         payload = chunk.get("payload", out["payload"])
         queues = vio.enqueue_device(queues, iocfg, out["granted"],
                                     out["slot"], out["hash"], payload)
         verdict = out["verdict"]
-        n_tree = torch.zeros((), dtype=I32, device=ts.device)
+        n_tree = torch.zeros(ts.shape[:-1], dtype=I32, device=ts.device)
         if tree is not None:
             verdict, by_tree = _tree_fill(verdict, chunk["pkt_len"], tree,
                                           depth)
-            n_tree = by_tree.sum(dtype=I32)
-        budget = vio.step_budget(ts[0], now, ecfg.token_rate_per_us,
-                                 iocfg.queue_len)
+            n_tree = by_tree.sum(-1, dtype=I32)
+        aux = {"verdict": verdict, "now": now, "ts_first": ts[..., 0],
+               "granted": out["granted"].sum(-1, dtype=I32),
+               "classified": (verdict >= 0).sum(-1, dtype=I32),
+               "n_tree": n_tree}
+        return state, queues, dline, aux
+
+    return de_local
+
+
+def _make_single_step(ecfg: EngineConfig, iocfg: vio.IOConfig,
+                      loop_latency_us: int, model, tree: Optional[Dict],
+                      depth: int):
+    """One chunk of the single-pipe device driver: the pipe-local stage,
+    the full-budget service epilogue (dequeue, inference, delay-line
+    push) and, when ``cp``, the control-plane rebuild — where the host
+    oracle applies it, between batches.  With a pipe's local config it is
+    also the pipes driver's tail step."""
+    de_local = _make_pipe_local(ecfg, iocfg, tree, depth)
+
+    def step_fn(carry, chunk: Dict[str, torch.Tensor], cp: bool):
+        state, queues, dline, aux = de_local(*carry, chunk)
+        budget = vio.step_budget(aux["ts_first"], aux["now"],
+                                 ecfg.token_rate_per_us, iocfg.queue_len)
         queues, s2, h2, f2, cnt = vio.dequeue_device(queues, iocfg, budget)
         cls = model.infer(f2)
-        dline = dl.push(dline, now + loop_latency_us, s2, h2, cls, cnt)
+        dline = dl.push(dline, aux["now"] + loop_latency_us, s2, h2, cls,
+                        cnt)
         if cp:
             state = rl.control_plane_update(state, ecfg)
-        stats = torch.stack([out["granted"].sum(dtype=I32), cnt,
-                             (verdict >= 0).sum(dtype=I32), n_tree])
-        return (state, queues, dline), verdict, stats
+        stats = torch.stack([aux["granted"], cnt, aux["classified"],
+                             aux["n_tree"]])
+        return (state, queues, dline), aux["verdict"], stats
+
+    return step_fn
+
+
+def _make_pipes_step(cfg: "FenixConfig", lcfg: EngineConfig, model,
+                     tree: Optional[Dict], depth: int):
+    """One step of the pipes driver: P Data Engines feeding the one Model
+    Engine.  ``step_fn(carry, chunk, cp, active=None)`` on the stacked
+    carry (state, queues, dline) and a chunk of [P, B] lanes: the
+    pipe-local stage of every pipe, then the merge — the Model Engine's
+    budget over the union of the pipes' time spans (the global rate,
+    capped at the pipes' total ring space), split across the rings by
+    occupancy — each pipe's dequeue, one inference pass over every
+    pipe's lanes, each pipe's results into its own delay line, and, when
+    ``cp``, every pipe's T_w rebuild (frozen ones too, as the host oracle
+    rolls every window).  ``active`` [P] bool: a pipe not active replays
+    a dummy batch with its state frozen, merge weight 0 and its stats
+    dropped (None: every pipe active, the unmasked step).  Returns
+    (carry', verdicts [P, B], stats [4] summed over the pipes)."""
+    iocfg, pipes = cfg.io, cfg.num_pipes
+    de_local = _make_pipe_local(lcfg, iocfg, tree, depth)
+
+    def step_fn(carry, chunk: Dict[str, torch.Tensor], cp: bool,
+                active: Optional[torch.Tensor] = None):
+        (state, queues, dline), occ, lo, hi, aux = farm.merge_view(
+            de_local(*carry, chunk), carry, active)
+        budget = vio.step_budget(lo.min(), hi.max(),
+                                 cfg.engine.token_rate_per_us,
+                                 pipes * iocfg.queue_len)
+        shares = vio.pipe_shares(occ, budget)
+        queues, s2, h2, f2, cnt = vio.dequeue_pipes(queues, iocfg, shares)
+        cls = model.infer_engines(f2)
+        dline = dl.push_pipes(dline, aux["now"] + cfg.loop_latency_us, s2,
+                              h2, cls, cnt)
+        if cp:
+            state = rl.control_plane_update_pipes(state, lcfg)
+        stats = torch.stack([aux["granted"], cnt, aux["classified"],
+                             aux["n_tree"]])
+        if active is not None:
+            stats = stats * active.to(I32)
+        return (state, queues, dline), aux["verdict"], stats.sum(-1)
 
     return step_fn
 
@@ -245,7 +342,8 @@ def _pack_block(stream: Dict[str, np.ndarray], steps: int, batch: int,
 
 
 # the buffers a chunk step's warm-up before capture must not advance
-_CARRY_SCRATCH = (("state",), ("queues",), ("dl",), ("stats",))
+# (those a system's step has)
+_CARRY_SCRATCH = ("state", "queues", "dl", "eq", "stats", "served")
 
 
 def _store(dst: Tuple[Dict, ...], src: Tuple[Dict, ...]) -> None:
@@ -273,6 +371,33 @@ def _make_chunk_step(step_fn):
         new, verdict, stats = step_fn(carry, _unpack(packed, payload), cp)
         _store(carry, new)
         bufs["stats"] += stats
+        return verdict
+
+    return chunk_step
+
+
+def _make_pipes_chunk_step(step_fn, with_engines: bool):
+    """The in-place step of the pipes and farm drivers, run eagerly and
+    captured as a graph alike: ``chunk_step(bufs, packed, cp, payload)``
+    runs ``step_fn`` on the stacked carry held in ``bufs`` (``"state"``,
+    ``"queues"``, ``"dl"``, and the farm's ``"eq"``) and a packed chunk
+    [F, P, B], masked by the pipes still streaming (``bufs["active"]``),
+    leaves the new carry in the same tensors, adds the stats (and the
+    farm's served counts, ``"served"``) into their sums, writes the
+    farm's queue depths to ``bufs["depth"]`` and returns the verdicts
+    [P, B]."""
+    names = ("state", "queues", "dl") + (("eq",) if with_engines else ())
+
+    def chunk_step(bufs, packed: torch.Tensor, cp: bool,
+                   payload: Optional[torch.Tensor] = None) -> torch.Tensor:
+        carry = tuple(bufs[k] for k in names)
+        new, verdict, stats, *engines = step_fn(
+            carry, _unpack(packed, payload), cp, bufs["active"])
+        _store(carry, new)
+        bufs["stats"] += stats
+        if engines:
+            bufs["served"] += engines[0]
+            bufs["depth"].copy_(engines[1])
         return verdict
 
     return chunk_step
@@ -351,8 +476,8 @@ class _Stager:
 
 
 class FenixSystem:
-    """Stateful co-simulation wrapper (single pipe, host or device
-    driver).
+    """Stateful co-simulation wrapper (host, device, pipes or farm
+    driver: ``cfg.driver``).
 
     ``device``: where the run's tensors live; ``None`` means ``cuda`` and
     raises on a host without it.  ``model``: a serving model object
@@ -370,10 +495,6 @@ class FenixSystem:
                  device=None, oracle_windows=None, n_est: float = 1000.0,
                  q_est_pps: float = 1e6):
         self.device = resolve_device(device)
-        if cfg.driver not in ("host", "device"):
-            raise NotImplementedError(
-                f"driver={cfg.driver!r} is not ported yet: "
-                f"{_NOT_PORTED[cfg.driver]}")
         if cfg.gate_backend is not None:
             cfg = dataclasses.replace(
                 cfg, engine=dataclasses.replace(
@@ -402,11 +523,21 @@ class FenixSystem:
         self.q_est_pps = q_est_pps
         self.step_backend = resolve_step_backend(cfg.step_backend,
                                                  self.device)
-        self._chunk_step = _make_chunk_step(_make_single_step(
-            cfg.engine, cfg.io, cfg.loop_latency_us, model, self.tree,
-            tree_depth))
-        # the device driver's carry, chunk and verdict buffers (allocated
-        # at its first run), its chunk graphs by the cp flag, whether they
+        # the farm rides on the pipes driver's layout; the switch sees the
+        # engine pool's admission (E x one engine), each pipe 1/P of it
+        self._use_farm = cfg.driver == "farm"
+        self._use_pipes = cfg.driver in ("pipes", "farm")
+        self.gcfg = farm_engine_config(cfg.engine, cfg.num_engines)
+        self.lcfg = local_engine_config(self.gcfg, cfg.num_pipes)
+        if self._use_pipes:
+            self._chunk_step, self._tail_step = self._pipes_steps()
+        else:
+            self._chunk_step = _make_chunk_step(_make_single_step(
+                cfg.engine, cfg.io, cfg.loop_latency_us, model, self.tree,
+                tree_depth))
+        # the device (or pipes / farm) driver's carry, chunk and verdict
+        # buffers (allocated at its first run), its chunk graphs by the cp
+        # flag, whether they
         # read the oracle-payload buffer, and their memory pool; the
         # streaming driver's stager; capture seconds of the last run_trace
         self._bufs: Optional[Dict] = None
@@ -416,6 +547,34 @@ class FenixSystem:
         self._stager: Optional[_Stager] = None
         self.capture_s = 0.0
         self.reset()
+
+    def _pipes_steps(self):
+        """(the in-place uniform step, the tail step) of the pipes or farm
+        driver.  The tail step ``tail(carry, chunk)`` runs one pipe's
+        trailing batch on that pipe's carry: (carry', verdicts, stats,
+        lanes per engine or None)."""
+        cfg, lcfg = self.cfg, self.lcfg
+        if not self._use_farm:
+            step = _make_pipes_step(cfg, lcfg, self.model, self.tree,
+                                    self.tree_depth)
+            single = _make_single_step(lcfg, cfg.io, cfg.loop_latency_us,
+                                       self.model, self.tree,
+                                       self.tree_depth)
+
+            def tail(carry, chunk):
+                return (*single(carry, chunk, False), None)
+
+            return _make_pipes_chunk_step(step, False), tail
+        # each engine's budget is one engine's rate; their sum is the
+        # pooled admission rate of gcfg / lcfg
+        de_local = _make_pipe_local(lcfg, cfg.io, self.tree,
+                                    self.tree_depth)
+        args = (cfg.num_pipes, cfg.num_engines, cfg.io,
+                cfg.engine.token_rate_per_us, cfg.loop_latency_us, de_local,
+                self.model)
+        return (_make_pipes_chunk_step(farm.make_farm_step(*args, lcfg),
+                                       True),
+                farm.make_farm_tail(*args))
 
     def reset(self) -> None:
         """Fresh run state (tables, queues, delay line, stats)."""
@@ -429,7 +588,7 @@ class FenixSystem:
                       "dropped_inflight": 0,
                       "served_per_engine": [0] * cfg.num_engines,
                       "dropped_eq": 0,
-                      "engine_q_depth_hist": [[0] * DEPTH_BUCKETS
+                      "engine_q_depth_hist": [[0] * farm.DEPTH_BUCKETS
                                               for _ in
                                               range(cfg.num_engines)]}
         # host-driven control-plane round trips: 0 on the device driver,
@@ -440,12 +599,33 @@ class FenixSystem:
         self._inflight: List[Tuple[int, int, int, int]] = []
         self._dl = dl.init(cfg.io.queue_len, device=self.device)
         self._dl_dirty = False
+        if self._use_pipes:
+            # stacked [num_pipes, ...] switch state, FIFOs and delay lines
+            # (a pipe's line holds up to E engines' results a step)
+            self.pstate = init_pipes_state(self.gcfg, cfg.num_pipes,
+                                           n_est=self.n_est,
+                                           q_est_pps=self.q_est_pps,
+                                           device=self.device)
+            self.pqueues = vio.init_pipes_queues(cfg.io, cfg.num_pipes,
+                                                 device=self.device)
+            self.pdl = dl.init_pipes(cfg.io.queue_len * cfg.num_engines,
+                                     cfg.num_pipes, device=self.device)
+        if self._use_farm:
+            # the engines' ingress FIFOs, on the FPGA side of the link
+            self.eq = vio.init_engine_queues(cfg.io, cfg.num_engines,
+                                             cfg.num_pipes,
+                                             device=self.device)
 
     # -- one simulation step (host driver) ---------------------------------
     def step(self, packets: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """Process one packet batch; returns per-packet verdicts + masks
         (numpy: verdict int32, granted bool, slot int32)."""
         cfg = self.cfg
+        if self._use_pipes:
+            raise RuntimeError(
+                "step() drives the single-pipe host state, which the pipes "
+                "and farm drivers do not keep; use run_trace() with "
+                "driver=\"pipes\" / driver=\"farm\"")
         self._sync_inflight_to_host()
         n = len(packets["ts_us"])
         batch = self._to_device(packets)
@@ -532,6 +712,14 @@ class FenixSystem:
         self.host_syncs += 1
         self.state = rl.control_plane_update(self.state, self.cfg.engine)
 
+    def control_plane_pipes(self) -> None:
+        """The T_w rollover of every pipe, driven from the host: each
+        pipe's LUT from its own window counters, anchored at its own
+        clock (one host round trip in ``host_syncs``).  The pipes and farm
+        drivers roll their windows in the loop without it."""
+        self.host_syncs += 1
+        self.pstate = rl.control_plane_update_pipes(self.pstate, self.lcfg)
+
     # -- in-flight state interop (host list <-> device delay line) ---------
     def _sync_inflight_to_host(self) -> None:
         if self._dl_dirty:
@@ -562,7 +750,8 @@ class FenixSystem:
         ``trace_ingest.TraceSpec`` with its adapter / labels / limit /
         chunking / overlap options.  On the device driver a path or a
         TraceSpec streams (module docstring) unless the system has oracle
-        payloads; the host driver loads it whole.  ``stream=``,
+        payloads; the host, pipes and farm drivers load it whole.
+        ``stream=``,
         ``source=``, ``adapter=``, ``trace_labels=``, ``limit=`` and
         ``labels_by_flow=`` are deprecated spellings of the same (a
         ``DeprecationWarning``), as in the reference."""
@@ -572,6 +761,8 @@ class FenixSystem:
                 and self.oracle is None:
             return self._run_trace_device_stream(trace)
         stream = trace if isinstance(trace, dict) else trace.load()
+        if self._use_pipes:
+            return self._run_trace_pipes(stream)
         if self.cfg.driver == "host":
             return self._run_trace_host(stream)
         return self._run_trace_device(stream)
@@ -707,7 +898,8 @@ class FenixSystem:
 
             self._graphs[cp] = _graph.capture(
                 body, bufs, self.device, pool=self._pool,
-                scratch=_CARRY_SCRATCH, reads=reads)
+                scratch=[(k,) for k in _CARRY_SCRATCH if k in bufs],
+                reads=reads)
             self.capture_s += self._graphs[cp].seconds
 
     def _replay(self, bufs: Dict, chunk: torch.Tensor, cp: bool,
@@ -772,6 +964,208 @@ class FenixSystem:
                                               n_batches % cpe == 0,
                                               pay_tail))
         return self._finish(bufs, n, n_batches, parts)
+
+    # -- the pipes and farm drivers ----------------------------------------
+    def _route_pipes(self, stream: Dict[str, np.ndarray]
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Packet -> owning pipeline, as contiguous per-pipe segments:
+        (order, starts, counts), pipe p's packets (in arrival order) being
+        ``order[starts[p] : starts[p] + counts[p]]``."""
+        num_pipes = self.cfg.num_pipes
+        h = hash_five_tuple(*(torch.from_numpy(np.asarray(
+            stream[k]).astype(np.int64)) for k in PKT_KEYS[:5])).numpy()
+        pipe = pipe_of_hash(h, self.cfg.engine, num_pipes)
+        order = np.argsort(pipe, kind="stable")
+        counts = np.bincount(pipe, minlength=num_pipes).astype(np.int64)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        return order, starts, counts
+
+    def _load_pipe_bufs(self) -> Dict:
+        """The pipes / farm driver's buffers (allocated at its first run),
+        holding the system's stacked carry: state, queues, delay lines
+        (and the engines' queues), the stats and served sums, the chunk
+        [F, P, B], the pipes still streaming, the verdicts [P, B], the
+        engines' queue depths and, with oracle payloads, their buffer."""
+        cfg = self.cfg
+        pipes, b = cfg.num_pipes, cfg.batch_size
+        dev = self.device
+        if self._bufs is None:
+            bufs = {
+                "state": init_pipes_state(self.gcfg, pipes, device=dev),
+                "queues": vio.init_pipes_queues(cfg.io, pipes, device=dev),
+                "dl": dl.init_pipes(cfg.io.queue_len * cfg.num_engines,
+                                    pipes, device=dev),
+                "stats": torch.zeros(4, dtype=torch.int64, device=dev),
+                "chunk": torch.zeros((len(PKT_KEYS), pipes, b),
+                                     dtype=torch.int64, device=dev),
+                "active": torch.ones(pipes, dtype=torch.bool, device=dev),
+                "verdict": torch.zeros((pipes, b), dtype=I32, device=dev)}
+            if self._use_farm:
+                bufs["eq"] = vio.init_engine_queues(
+                    cfg.io, cfg.num_engines, pipes, device=dev)
+                bufs["served"] = torch.zeros(cfg.num_engines,
+                                             dtype=torch.int64, device=dev)
+                bufs["depth"] = torch.zeros(cfg.num_engines, dtype=I32,
+                                            device=dev)
+            if self.oracle is not None:
+                bufs["payload"] = torch.zeros(
+                    (pipes, b, cfg.io.feat_len, cfg.io.feat_dim), dtype=I32,
+                    device=dev)
+            self._bufs = bufs
+        bufs = self._bufs
+        held = [("state", self.pstate), ("queues", self.pqueues),
+                ("dl", self.pdl)]
+        if self._use_farm:
+            held.append(("eq", self.eq))
+            bufs["served"].zero_()
+        for name, src in held:
+            for k, t in bufs[name].items():
+                t.copy_(src[k])
+        bufs["stats"].zero_()
+        return bufs
+
+    def _run_trace_pipes(self, stream: Dict[str, np.ndarray]
+                         ) -> Dict[str, np.ndarray]:
+        """The pipes / farm driver (module docstring): route to pipes,
+        ``max_p(count_p // B)`` uniform steps in lockstep (masked: pipes
+        whose streams ran out replay a dummy batch of their own last full
+        one, frozen), each pipe's tail through the tail step on its slice
+        of the carry, then the window roll of every pipe if the tail round
+        ends a window.  The loop runs under ``no_host_sync``; verdicts,
+        stats, served counts and depth samples stay on the device until
+        the end."""
+        cfg = self.cfg
+        pipes, B, cpe = cfg.num_pipes, cfg.batch_size, \
+            cfg.control_plane_every
+        dev = self.device
+        n = len(stream["ts_us"])
+        order, starts, counts = self._route_pipes(stream)
+        chunks_p = counts // B                                 # [P]
+        n_chunks = int(chunks_p.max())
+        t_idx = np.minimum(np.arange(n_chunks)[None, :],
+                           np.maximum(chunks_p[:, None] - 1, 0))   # [P, C]
+        idx = order[np.minimum(
+            starts[:, None, None] + (t_idx * B)[:, :, None]
+            + np.arange(B)[None, None, :], n - 1)]              # [P, C, B]
+        idx = np.transpose(idx, (1, 0, 2))                      # [C, P, B]
+        active = torch.from_numpy(
+            (np.arange(n_chunks)[None, :] < chunks_p[:, None]).T.copy()
+        ).to(dev)                                               # [C, P]
+        packed = np.empty((n_chunks, len(PKT_KEYS), pipes, B), np.int64)
+        for j, k in enumerate(PKT_KEYS):
+            packed[:, j] = np.asarray(stream[k]).astype(_PKT_DTYPES[k])[idx]
+        chunks = torch.from_numpy(packed).to(dev)
+        pay = None
+        if self.oracle is not None and "flow_idx" in stream:
+            pay = oracle_payloads(self.oracle, stream["flow_idx"],
+                                  stream["flow_pos"], cfg.io.feat_len)
+        # each pipe's tail (< B packets), staged before the loop
+        tails = {}
+        for p in range(pipes):
+            lo, hi = starts[p] + chunks_p[p] * B, starts[p] + counts[p]
+            if hi > lo:
+                sel = order[lo:hi]
+                tails[p] = (torch.from_numpy(_pack({k: np.asarray(stream[k])
+                                                    [sel] for k in PKT_KEYS},
+                                                   0, hi - lo)).to(dev),
+                            None if pay is None else
+                            torch.from_numpy(pay[sel]).to(dev))
+        pay_dev = None if pay is None else torch.from_numpy(pay[idx]).to(dev)
+        bufs = self._load_pipe_bufs()
+        cps = [(i + 1) % cpe == 0 for i in range(n_chunks)]
+        self.capture_s = 0.0
+        if self.step_backend == "graph" and n_chunks:
+            bufs["active"].copy_(active[0])
+            self._ensure_graphs(bufs, chunks[0],
+                                None if pay_dev is None else pay_dev[0],
+                                sorted(set(cps)))
+        verd = torch.empty((n_chunks, pipes, B), dtype=I32, device=dev)
+        n_batches = n_chunks + (1 if tails else 0)
+        depth = (torch.empty((n_batches, cfg.num_engines), dtype=I32,
+                             device=dev) if self._use_farm else None)
+        tail_verd = {}
+        with no_host_sync(dev):
+            for i, cp in enumerate(cps):
+                bufs["active"].copy_(active[i])
+                self._replay(bufs, chunks[i], cp,
+                             None if pay_dev is None else pay_dev[i],
+                             verd[i])
+                if depth is not None:
+                    depth[i].copy_(bufs["depth"])
+            for p, (chunk, pay_p) in tails.items():
+                tail_verd[p] = self._run_tail(bufs, p, chunk, pay_p)
+            if tails:
+                # one depth sample for the tail round; the window rolls
+                # after ALL tails, not inside the tail step
+                if depth is not None:
+                    eq = bufs["eq"]
+                    depth[n_chunks].copy_(eq["tail"] - eq["head"])
+                if n_batches % cpe == 0:
+                    carry = (bufs["state"],)
+                    _store(carry, (rl.control_plane_update_pipes(
+                        bufs["state"], self.lcfg),))
+        return self._finish_pipes(bufs, n, n_batches, verd, tail_verd,
+                                  depth, order, starts, counts, chunks_p)
+
+    def _run_tail(self, bufs: Dict, p: int, packed: torch.Tensor,
+                  payload: Optional[torch.Tensor]) -> torch.Tensor:
+        """Pipe p's tail batch, eagerly, through the tail step on pipe p's
+        slice of the carry buffers (written back in place); adds its
+        stats (and the farm's lanes per engine) into their sums."""
+        carry = tuple({k: v[p] for k, v in bufs[name].items()}
+                      for name in ("state", "queues", "dl"))
+        new, verdict, stats, assign = self._tail_step(
+            carry, _unpack(packed, payload))
+        _store(carry, new)
+        bufs["stats"] += stats
+        if assign is not None:
+            bufs["served"] += assign
+        return verdict
+
+    def _finish_pipes(self, bufs: Dict, n: int, n_batches: int,
+                      verd: torch.Tensor, tail_verd: Dict[int, torch.Tensor],
+                      depth: Optional[torch.Tensor], order: np.ndarray,
+                      starts: np.ndarray, counts: np.ndarray,
+                      chunks_p: np.ndarray) -> Dict[str, np.ndarray]:
+        """End a pipes / farm run: the carry back into the system (copies),
+        the device sums and verdicts read once, the verdicts put back in
+        arrival order (a frozen pipe's dummy rows dropped), the stats and
+        the farm's depth histogram."""
+        self.pstate, self.pqueues, self.pdl = (
+            _graph.clone(bufs[k]) for k in ("state", "queues", "dl"))
+        stat = bufs["stats"].cpu().numpy()
+        vd = verd.cpu().numpy()
+        verdicts = np.full(n, -1, np.int32)
+        for p in range(self.cfg.num_pipes):
+            seq = [vd[:chunks_p[p], p].reshape(-1)]
+            if p in tail_verd:
+                seq.append(tail_verd[p].cpu().numpy())
+            verdicts[order[starts[p]:starts[p] + counts[p]]] = \
+                np.concatenate(seq)
+        st = self.stats
+        st["packets"] += n
+        st["granted"] += int(stat[0])
+        st["inferences"] += int(stat[1])
+        st["classified_pkts"] += int(stat[2])
+        st["tree_pkts"] += int(stat[3])
+        st["dropped_q"] = int(self.pqueues["dropped"].sum())
+        st["dropped_inflight"] = int(self.pdl["dropped"].sum())
+        if not self._use_farm:
+            st["served_per_engine"][0] += int(stat[1])
+            st["engine_q_depth_hist"][0][0] += n_batches
+            return {"verdict": verdicts}
+        self.eq = _graph.clone(bufs["eq"])
+        served = bufs["served"].cpu().numpy()
+        st["served_per_engine"] = [a + int(b) for a, b in
+                                   zip(st["served_per_engine"], served)]
+        st["dropped_eq"] = int(self.eq["dropped"].sum())
+        if n_batches:
+            hist = farm.depth_histogram(depth.cpu().numpy(),
+                                        self.cfg.num_engines)
+            st["engine_q_depth_hist"] = [
+                [a + b for a, b in zip(row, new)] for row, new in
+                zip(st["engine_q_depth_hist"], hist)]
+        return {"verdict": verdicts}
 
     # full chunks of a streamed block: control_plane_every x this many
     # windows; and the blocks a producer thread holds staged ahead

@@ -1,16 +1,21 @@
 """DNN Inference Module (§5.2): the quantized FENIX-CNN or FENIX-RNN
 on the INT8 GEMM.
 
-Port of ``EngineModel`` and ``ByLenModel`` from
-``repro/core/model_engine/inference.py``.  ``EngineModel`` is an
-``nn.Module`` whose integer weights are buffers, so ``.to(device)``
-moves the whole model; every GEMM it runs goes through
-``kernels/int8_matmul`` on its ``backend``.
+Port of ``EngineModel``, ``ByLenModel``, ``macs_per_inference`` and
+``CycleModel`` from ``repro/core/model_engine/inference.py``.
+``EngineModel`` is an ``nn.Module`` whose integer weights are buffers, so
+``.to(device)`` moves the whole model; every GEMM it runs goes through
+``kernels/int8_matmul`` on its ``backend``.  ``infer_engines`` serves a
+stack of lane batches (the pipes' or the engines' of one step) in one
+pass: one GEMM a layer over all of them.  The reference's
+``tpu_latency_us`` (a TPU roofline, not a path) is not ported.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -73,6 +78,18 @@ class EngineModel(nn.Module):
                                       self.ipd_log2_vals))
         return torch.argmax(logits, dim=-1).to(I32)
 
+    def infer_engines(self, payload: torch.Tensor) -> torch.Tensor:
+        """payload [E, B, T, 2] int32 -> class [E, B] int32: the E
+        batches flattened into one (classes are per lane, so nothing
+        changes), one GEMM a layer."""
+        return _infer_stacked(self, payload)
+
+
+def _infer_stacked(model, payload: torch.Tensor) -> torch.Tensor:
+    e, b = payload.shape[:2]
+    return model.infer(payload.reshape((e * b,) + payload.shape[2:])) \
+        .view(e, b)
+
 
 class ByLenModel:
     """Deterministic stand-in Model Engine: class = F9 pkt_len mod 7."""
@@ -81,3 +98,65 @@ class ByLenModel:
 
     def infer(self, payload: torch.Tensor) -> torch.Tensor:
         return (payload[:, -1, 0] % self.num_classes).to(I32)
+
+    def infer_engines(self, payload: torch.Tensor) -> torch.Tensor:
+        return _infer_stacked(self, payload)
+
+
+def macs_per_inference(cfg: TrafficModelConfig) -> int:
+    """Multiply-accumulates for one feature window (cycle model input)."""
+    e = cfg.embed_dim
+    d_in = 2 * e
+    t = cfg.seq_len
+    total = 0
+    if cfg.kind == "cnn":
+        c_prev = d_in
+        for ch in cfg.conv_filters:
+            total += t * cfg.conv_kernel * c_prev * ch
+            c_prev = ch
+        f_prev = c_prev
+        for fc in cfg.fc_dims:
+            total += f_prev * fc
+            f_prev = fc
+        total += f_prev * cfg.num_classes
+    else:
+        u = cfg.rnn_units
+        total += t * (d_in * u + u * u)
+        total += u * cfg.num_classes
+    return total
+
+
+@dataclasses.dataclass(frozen=True)
+class CycleModel:
+    """The FPGA's INT8 array: width x width MACs at f_clk, as the
+    reference models it (a ZU19EG-style array)."""
+    array_width: int = 32
+    f_clk_hz: float = 300e6
+    pipeline_fill_cycles: int = 64
+
+    def latency_us(self, cfg: TrafficModelConfig) -> float:
+        macs = macs_per_inference(cfg)
+        cycles = macs / (self.array_width ** 2) + self.pipeline_fill_cycles
+        return cycles / self.f_clk_hz * 1e6
+
+    def throughput_inf_per_s(self, cfg: TrafficModelConfig) -> float:
+        return self.f_clk_hz * self.array_width ** 2 \
+            / macs_per_inference(cfg)
+
+    def farm_throughput_inf_per_s(self, cfg: TrafficModelConfig,
+                                  num_engines: int) -> float:
+        """Aggregate service rate of ``num_engines`` independent engines
+        (additive: no cross-engine pipeline)."""
+        return num_engines * self.throughput_inf_per_s(cfg)
+
+    def farm_batch_latency_us(self, cfg: TrafficModelConfig, batch: int,
+                              num_engines: int) -> float:
+        """Service latency of ``batch`` windows split across
+        ``num_engines`` (ceil split): one fill + latency for the first,
+        then one result per ``macs / width^2`` cycles."""
+        per_engine = -(-batch // max(num_engines, 1))
+        if per_engine <= 0:
+            return 0.0
+        macs = macs_per_inference(cfg)
+        issue_us = macs / (self.array_width ** 2) / self.f_clk_hz * 1e6
+        return self.latency_us(cfg) + (per_engine - 1) * issue_us

@@ -5,7 +5,9 @@ It follows JAX 0.9 with ``jax_threefry_partitionable=True`` (the
 default): ``split`` is ``_threefry_split_foldlike`` and random bits are
 ``_threefry_random_bits_partitionable`` (``jax/_src/prng.py``), and
 ``randint`` is ``jax/_src/random.py::_randint``.  A key is a [2] int64
-tensor holding two uint32 words, as JAX's legacy uint32 keys do.  All
+tensor holding two uint32 words, as JAX's legacy uint32 keys do; a
+stack of keys [..., 2] (one a pipe) splits and draws key by key, as
+``vmap(jax.random.split)`` / ``vmap(jax.random.randint)`` do.  All
 uint32 arithmetic runs in int64 and is masked with ``& 0xFFFFFFFF``;
 products of two 32-bit words are split into 16-bit halves
 (:func:`mul_u32`) so no intermediate passes 2^63 on any device.
@@ -57,20 +59,24 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 def _iota_split(key: torch.Tensor, n: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """threefry2x32(key, (0, i)) for i < n: the partitionable layout's
-    counts (``iota_2x32_shape``: high word 0, low word i)."""
+    """threefry2x32(key, (0, i)) for i < n, [..., n] for keys [..., 2]:
+    the partitionable layout's counts (``iota_2x32_shape``: high word 0,
+    low word i)."""
     lo = torch.arange(n, dtype=torch.int64, device=key.device)
-    return threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return threefry2x32(key[..., 0, None], key[..., 1, None],
+                        torch.zeros_like(lo), lo)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)`` -> [num, 2] keys."""
+    """``jax.random.split(key, num)`` -> [..., num, 2] keys for keys
+    [..., 2]."""
     b1, b2 = _iota_split(key, num)
-    return torch.stack([b1, b2], dim=1)
+    return torch.stack([b1, b2], dim=-1)
 
 
 def random_bits32(key: torch.Tensor, n: int) -> torch.Tensor:
-    """``_threefry_random_bits_partitionable(key, 32, (n,))`` in int64."""
+    """``_threefry_random_bits_partitionable(key, 32, (n,))`` in int64,
+    [..., n] for keys [..., 2]."""
     b1, b2 = _iota_split(key, n)
     return b1 ^ b2
 
@@ -85,12 +91,13 @@ def randint_multiplier(span: int) -> int:
 def randint(key: torch.Tensor, n: int, minval: int, maxval: int
             ) -> torch.Tensor:
     """``jax.random.randint(key, (n,), minval, maxval, jnp.int32)`` for
-    static int32 bounds -> [n] int32."""
+    static int32 bounds -> [n] int32 ([..., n] for keys [..., 2])."""
     if not (-2**31 <= minval < 2**31 and -2**31 <= maxval < 2**31):
         raise ValueError("randint bounds must be int32")
     span = (maxval - minval) & M32 if maxval > minval else 1
     multiplier = randint_multiplier(span)
-    k1, k2 = split(key)
+    keys = split(key)
+    k1, k2 = keys[..., 0, :], keys[..., 1, :]
     lower = random_bits32(k2, n)
     offset = lower % span
     if multiplier:

@@ -100,12 +100,14 @@ def build_lut_torch(flow_cnt: torch.Tensor, win_pkt_cnt: torch.Tensor,
                     window_us: int, v: float, cfg: LUTConfig = LUTConfig()
                     ) -> torch.Tensor:
     """LUT rebuild from the raw int32 window counters, on their device
-    and with no host read: the port of ``build_lut_jnp``."""
+    and with no host read: the port of ``build_lut_jnp``.  Counters [P]
+    (one a pipe) give LUTs [P, t_bins, c_bins], each pipe's from its own
+    counters, element for element as the reference's vmap."""
     dev = flow_cnt.device
     one = _f32(1.0, dev)
-    n = torch.maximum(flow_cnt.to(F32), one)
-    q = torch.maximum(win_pkt_cnt.to(F32), one) \
-        / _f32(max(float(window_us), 1.0), dev)
+    n = torch.maximum(flow_cnt.to(F32), one)[..., None, None]
+    q = (torch.maximum(win_pkt_cnt.to(F32), one)
+         / _f32(max(float(window_us), 1.0), dev))[..., None, None]
     ti = (torch.arange(cfg.t_bins, dtype=F32, device=dev) + 0.5) \
         * (1 << cfg.t_shift)
     cj = (torch.arange(cfg.c_bins, dtype=F32, device=dev) + 0.5) \

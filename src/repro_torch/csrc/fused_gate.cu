@@ -58,6 +58,15 @@
 //   integer atomicAdd, exact whatever the timing; the last CTA to finish
 //   (a second ticket) writes the bucket level.  Tickets and status words
 //   live in a scratch buffer that the launcher zeroes with one memset.
+// - Pipes.  The multi-pipe driver admits the batches of its P pipes in one
+//   launch (the reference's vmap over pipes gives its pallas_call a grid
+//   axis of pipes): lanes [P, n], LUTs [P, TB, CB], registers [P], keys
+//   [P, 2], outputs [P, n] and [P].  blockIdx.y is the pipe; each CTA
+//   offsets every pointer to its pipe's row (its own LUT copy in shared
+//   memory, its own registers and key), and each pipe's look-back has its
+//   own tickets and status words at a pipe offset in the scratch.  A
+//   cluster spans the CTAs of one pipe ((k, 1, 1) cluster dims).  One pipe
+//   is the single batch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -111,6 +120,7 @@ struct Args {
   uint8_t* granted;
   int32_t* bucket_out;
   unsigned long long* scratch;   // look-back path only
+  int scratch_words;             // of one pipe
   int n, tb, cb, t_shift, c_shift;
   uint32_t rand_mask;
   int cost_us, bucket_cap_us;
@@ -174,6 +184,25 @@ __device__ __forceinline__ void store_status(unsigned long long* p,
       (static_cast<unsigned long long>(flag) << 32) | value;
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
                : "memory");
+}
+
+// The arguments of pipe p's batch: every pointer offset to its row.
+__device__ __forceinline__ Args for_pipe(const Args& g, int p) {
+  Args a = g;
+  const size_t lanes = static_cast<size_t>(p) * g.n;
+  a.t_i += lanes;
+  a.c_i += lanes;
+  a.ts += lanes;
+  if (a.rand16 != nullptr) a.rand16 += lanes;
+  if (a.key != nullptr) a.key += 2 * p;
+  a.lut += static_cast<size_t>(p) * g.tb * g.cb;
+  a.bucket += p;
+  a.t_last += p;
+  a.granted += lanes;
+  a.bucket_out += p;
+  if (a.scratch != nullptr)
+    a.scratch += static_cast<size_t>(p) * g.scratch_words;
+  return a;
 }
 
 // The LUT's copy into shared memory: issued here, waited for by
@@ -351,15 +380,17 @@ __device__ __forceinline__ uint32_t grant_lanes(const Args& a,
 // (distributed shared memory); a cluster barrier orders each exchange.
 template <bool kDraw>
 __global__ void __launch_bounds__(Shape<kDraw>::kCtaThreads)
-fused_gate_cluster_kernel(const __grid_constant__ Args a) {
+fused_gate_cluster_kernel(const __grid_constant__ Args g) {
   using S = Shape<kDraw>;
+  const Args a = for_pipe(g, blockIdx.y);
   constexpr int kL = S::kLanes;
   extern __shared__ __align__(16) int32_t s_lut[];
   __shared__ uint32_t s_warp[S::kCtaThreads / 32];
   __shared__ uint32_t s_spend[S::kClusterMax];  // [r]: spend of lower rank r
   __shared__ uint32_t s_count;                  // grants (the last rank's)
 
-  // the grid is the cluster; one CTA alone is launched without one
+  // a pipe's row of the grid is its cluster; one CTA alone is launched
+  // without one
   const int rank = blockIdx.x;
   const int ranks = gridDim.x;
   const int tid = threadIdx.x;
@@ -447,8 +478,9 @@ __device__ uint32_t look_back(unsigned long long* status, int tile,
 // the tile by ticket.
 template <bool kDraw>
 __global__ void __launch_bounds__(Shape<kDraw>::kTileThreads)
-fused_gate_lookback_kernel(const __grid_constant__ Args a) {
+fused_gate_lookback_kernel(const __grid_constant__ Args g) {
   using S = Shape<kDraw>;
+  const Args a = for_pipe(g, blockIdx.y);
   constexpr int kL = S::kTileLanesPerThread;
   extern __shared__ __align__(16) int32_t s_lut[];
   __shared__ uint32_t s_warp[S::kTileThreads / 32];
@@ -519,23 +551,28 @@ int scratch_words(int n) {
 }
 
 template <bool kDraw>
-int launch(const Args& a, int scratch_size, cudaStream_t s) {
+int launch(Args a, int pipes, int scratch_size, cudaStream_t s) {
   using S = Shape<kDraw>;
-  if (a.n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.n < 1 || pipes < 1 || pipes > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(sizeof(int32_t)) * a.tb * a.cb;
   cudaError_t e = cudaSuccess;
   const int words = scratch_words<kDraw>(a.n);
+  a.scratch_words = words;
   if (words > 0) {
-    if (a.scratch == nullptr || scratch_size < words)
+    if (a.scratch == nullptr ||
+        static_cast<long long>(scratch_size) <
+            static_cast<long long>(words) * pipes)
       return static_cast<int>(cudaErrorInvalidValue);
-    e = cudaMemsetAsync(a.scratch, 0, sizeof(unsigned long long) * words, s);
+    e = cudaMemsetAsync(a.scratch, 0,
+                        sizeof(unsigned long long) * words * pipes, s);
     if (e == cudaSuccess && smem > 32 * 1024)
       e = cudaFuncSetAttribute(fused_gate_lookback_kernel<kDraw>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     fused_gate_lookback_kernel<kDraw>
-        <<<words - kCounterWords, S::kTileThreads, smem, s>>>(a);
+        <<<dim3(words - kCounterWords, pipes), S::kTileThreads, smem, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   // one CTA alone up to kCtaThreads threads; above, up to kClusterMax
@@ -558,7 +595,7 @@ int launch(const Args& a, int scratch_size, cudaStream_t s) {
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ranks);
+  cfg.gridDim = dim3(ranks, pipes);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -584,7 +621,7 @@ Args make_args(const void* t_i, const void* c_i, const void* ts,
           static_cast<const int32_t*>(t_last),
           static_cast<uint8_t*>(granted),
           static_cast<int32_t*>(bucket_out),
-          static_cast<unsigned long long*>(scratch),
+          static_cast<unsigned long long*>(scratch), 0,
           n, tb, cb, t_shift, c_shift, rand_mask, cost_us, bucket_cap_us};
 }
 
@@ -592,45 +629,49 @@ Args make_args(const void* t_i, const void* c_i, const void* ts,
 
 // The int64 words of scratch that a batch of n lanes needs (draw != 0: the
 // drawing variant): 0 for a batch of one cluster, else the counters and
-// one status word a tile.
+// one status word a tile.  P pipes' batches need P times as many.
 extern "C" int fused_gate_scratch_words(int n, int draw) {
   return draw ? scratch_words<true>(n) : scratch_words<false>(n);
 }
 
-// Rand-input variant.  bucket and t_last are the batch-start registers
-// (one int32 each, on the device); scratch holds scratch_size int64
-// words, at least fused_gate_scratch_words(n, 0) (null when that is 0).
-// Launches on `stream`; returns the CUDA error code (0 on success).
+// Rand-input variant, `pipes` batches of n lanes each: t_i, c_i, ts,
+// rand16 and granted [pipes, n]; lut [pipes, tb, cb]; bucket and t_last,
+// the batch-start registers, and bucket_out [pipes] int32, on the device.
+// scratch holds scratch_size int64 words, at least pipes x
+// fused_gate_scratch_words(n, 0) (null when that is 0).  Launches on
+// `stream`; returns the CUDA error code (0 on success).
 extern "C" int fused_gate_launch(const void* t_i, const void* c_i,
                                  const void* ts, const void* rand16,
                                  const void* lut, const void* bucket,
                                  const void* t_last, void* granted,
                                  void* bucket_out, void* scratch,
-                                 int scratch_size, int n, int tb, int cb,
-                                 int t_shift, int c_shift, int cost_us,
-                                 int bucket_cap_us, void* stream) {
+                                 int scratch_size, int pipes, int n, int tb,
+                                 int cb, int t_shift, int c_shift,
+                                 int cost_us, int bucket_cap_us,
+                                 void* stream) {
   return launch<false>(
       make_args(t_i, c_i, ts, rand16, nullptr, lut, bucket, t_last, granted,
                 bucket_out, scratch, n, tb, cb, t_shift, c_shift, 0u,
                 cost_us, bucket_cap_us),
-      scratch_size, static_cast<cudaStream_t>(stream));
+      pipes, scratch_size, static_cast<cudaStream_t>(stream));
 }
 
-// Drawing variant: `key` is the chunk's threefry subkey, [2] int64 words
-// holding uint32 values, read on the device.  prob_bits in [1, 31];
-// scratch as above, fused_gate_scratch_words(n, 1).
+// Drawing variant: `key` holds each pipe's threefry subkey, [pipes, 2]
+// int64 words of uint32 values, read on the device.  prob_bits in
+// [1, 31]; scratch as above, pipes x fused_gate_scratch_words(n, 1).
 extern "C" int fused_gate_prng_launch(const void* t_i, const void* c_i,
                                       const void* ts, const void* key,
                                       const void* lut, const void* bucket,
                                       const void* t_last, void* granted,
                                       void* bucket_out, void* scratch,
-                                      int scratch_size, int n, int tb,
-                                      int cb, int t_shift, int c_shift,
-                                      int prob_bits, int cost_us,
-                                      int bucket_cap_us, void* stream) {
+                                      int scratch_size, int pipes, int n,
+                                      int tb, int cb, int t_shift,
+                                      int c_shift, int prob_bits,
+                                      int cost_us, int bucket_cap_us,
+                                      void* stream) {
   return launch<true>(
       make_args(t_i, c_i, ts, nullptr, key, lut, bucket, t_last, granted,
                 bucket_out, scratch, n, tb, cb, t_shift, c_shift,
                 (1u << prob_bits) - 1u, cost_us, bucket_cap_us),
-      scratch_size, static_cast<cudaStream_t>(stream));
+      pipes, scratch_size, static_cast<cudaStream_t>(stream));
 }

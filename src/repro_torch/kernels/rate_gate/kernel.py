@@ -13,6 +13,11 @@ The drawing variants take a threefry key as a [2] int64 tensor on the
 card (``core.prng``'s layout) and read it there, so a call inside the
 replay loop never waits for the host.  Each wrapper counts its launches
 in ``launches``.
+
+The fused pair also admits the batches of P pipes in one launch (the
+multi-pipe driver's step): lanes [P, n], LUTs [P, TB, CB], registers [P]
+and keys [P, 2] give granted [P, n] and bucket' [P].  The 1-D form is
+the P = 1 case of the same launch.
 """
 
 from __future__ import annotations
@@ -30,10 +35,12 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 LUT_BYTES_MAX = 48 * 1024          # static shared memory of one CTA
 
 
-def _check_lane(x: torch.Tensor, name: str, n: int, kernel: str) -> None:
-    if x.dtype != torch.int32 or x.shape != (n,) or not x.is_contiguous():
-        raise ValueError(f"{kernel}: {name} must be a contiguous [n] int32 "
-                         f"tensor, got {x.dtype} {tuple(x.shape)}")
+def _check_lane(x: torch.Tensor, name: str, shape: Tuple[int, ...],
+                kernel: str) -> None:
+    if x.dtype != torch.int32 or x.shape != shape or not x.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be a contiguous "
+                         f"{list(shape)} int32 tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
 
 
 def _check_prob_bits(prob_bits: int, kernel: str) -> None:
@@ -56,39 +63,56 @@ class _GateKernel:
     def __init__(self):
         self.launches = 0
 
-    def _check(self, lanes, lut: torch.Tensor, key=None, regs=()) -> int:
-        """Common checks: one CUDA device, contiguous [n] int32 ``lanes``
-        (name, tensor) with n >= 1, a 2-D int32 LUT that fits in shared
-        memory, the ``key`` where the kernel takes one, and the one-element
-        int32 registers ``regs`` (name, tensor).  Returns n."""
-        n = lanes[0][1].shape[0]
+    def _check(self, lanes, lut: torch.Tensor, key=None, regs=()
+               ) -> Tuple[int, int]:
+        """Common checks: one CUDA device; contiguous int32 ``lanes``
+        (name, tensor), all [n] or all [P, n] (P pipes), n >= 1; an int32
+        LUT that fits in shared memory, [TB, CB] for [n] lanes and [P, TB,
+        CB] for [P, n]; the ``key`` where the kernel takes one ([2] or [P,
+        2]); and the int32 registers ``regs`` (name, tensor), one element a
+        pipe.  Returns (P, n): P = 1 for [n] lanes."""
+        shape = tuple(lanes[0][1].shape)
+        piped = len(shape) == 2
+        pipes, n = shape if piped else (1, shape[0] if shape else 0)
         tensors = [x for _, x in lanes] + [lut] + [x for _, x in regs] + (
             [key] if key is not None else [])
         if any(not x.is_cuda or x.device != tensors[0].device
                for x in tensors):
             raise ValueError(f"{self.name} runs on CUDA tensors of one "
                              "device")
-        if n < 1:
-            raise ValueError(f"{self.name} needs at least one lane")
+        if len(shape) not in (1, 2) or n < 1 or pipes < 1:
+            raise ValueError(f"{self.name} needs [n] or [P, n] lanes, n "
+                             f">= 1; got {list(shape)}")
         for name, x in lanes:
-            _check_lane(x, name, n, self.name)
-        if lut.dtype != torch.int32 or lut.dim() != 2 \
+            _check_lane(x, name, shape, self.name)
+        if lut.dtype != torch.int32 or lut.dim() != 2 + piped \
+                or (piped and lut.shape[0] != pipes) \
                 or not lut.is_contiguous():
-            raise ValueError(f"{self.name}: lut must be a contiguous 2-D "
-                             "int32 tensor")
-        if lut.numel() * 4 > LUT_BYTES_MAX:
+            raise ValueError(f"{self.name}: lut must be a contiguous int32 "
+                             f"{'[P, TB, CB]' if piped else '[TB, CB]'} "
+                             "tensor")
+        if lut.shape[-2] * lut.shape[-1] * 4 > LUT_BYTES_MAX:
             raise ValueError(f"{self.name}: the LUT must fit in 48 KB of "
                              "shared memory")
         if key is not None and (key.dtype != torch.int64
-                                or key.shape != (2,)
+                                or key.shape != ((pipes, 2) if piped
+                                                 else (2,))
                                 or not key.is_contiguous()):
-            raise ValueError(f"{self.name}: key must be a contiguous [2] "
-                             "int64 threefry key (uint32 words)")
+            raise ValueError(f"{self.name}: key must be a contiguous int64 "
+                             "threefry key (uint32 words), [2] or [P, 2]")
         for name, x in regs:
-            if x.dtype != torch.int32 or x.numel() != 1:
-                raise ValueError(f"{self.name}: {name} must be a "
-                                 "one-element int32 tensor")
-        return n
+            if x.dtype != torch.int32 or x.numel() != pipes \
+                    or not x.is_contiguous():
+                raise ValueError(f"{self.name}: {name} must be an int32 "
+                                 "tensor of one element a pipe")
+        return pipes, n
+
+    def _check_1d(self, lanes, lut: torch.Tensor, key=None) -> int:
+        """``_check`` for the selection-only kernels: [n] lanes only."""
+        if lanes[0][1].dim() != 1:
+            raise ValueError(f"{self.name} takes [n] lanes, got "
+                             f"{list(lanes[0][1].shape)}")
+        return self._check(lanes, lut, key=key)[1]
 
     def _launch(self, *args) -> None:
         fn = _build.function(self.symbol, self.argtypes)
@@ -100,7 +124,7 @@ class _FusedGate(_GateKernel):
     """Fused admission of one batch on the card, rand-input variant."""
 
     name, symbol = "fused_gate", "fused_gate_launch"
-    argtypes = (_VP,) * 10 + (_I,) * 8 + (_VP,)
+    argtypes = (_VP,) * 10 + (_I,) * 9 + (_VP,)
 
     def __call__(self, t_i: torch.Tensor, c_i: torch.Tensor,
                  ts: torch.Tensor, rand16: torch.Tensor, lut: torch.Tensor,
@@ -112,19 +136,22 @@ class _FusedGate(_GateKernel):
         token-bucket registers, one int32 each on the device (the kernel
         derives the refill anchor and the burst cap from them).  Returns
         (granted [n] bool, bucket_new 0-d int32), both on the device;
-        nothing is read back to the host."""
-        n = self._check([("t_i", t_i), ("c_i", c_i), ("ts", ts),
-                         ("rand16", rand16)], lut,
-                        regs=[("bucket", bucket), ("t_last", t_last)])
-        granted, bucket_new, scratch = _gate_outputs(n, t_i.device, False)
-        tb, cb = lut.shape
+        nothing is read back to the host.  P pipes' batches in one launch:
+        lanes [P, n], lut [P, TB, CB], registers [P] -> ([P, n], [P])."""
+        pipes, n = self._check([("t_i", t_i), ("c_i", c_i), ("ts", ts),
+                                ("rand16", rand16)], lut,
+                               regs=[("bucket", bucket),
+                                     ("t_last", t_last)])
+        granted, bucket_new, scratch = _gate_outputs(t_i.shape, pipes, n,
+                                                     t_i.device, False)
+        tb, cb = lut.shape[-2:]
         self._launch(t_i.data_ptr(), c_i.data_ptr(), ts.data_ptr(),
                      rand16.data_ptr(), lut.data_ptr(), bucket.data_ptr(),
                      t_last.data_ptr(), granted.data_ptr(),
-                     bucket_new.data_ptr(), *_scratch_args(scratch), n,
-                     tb, cb, t_shift, c_shift, cost_us, bucket_cap_us,
+                     bucket_new.data_ptr(), *_scratch_args(scratch), pipes,
+                     n, tb, cb, t_shift, c_shift, cost_us, bucket_cap_us,
                      _stream(t_i))
-        return granted, bucket_new[0]
+        return granted, _bucket_out(bucket_new, t_i)
 
 
 class _FusedGatePrng(_GateKernel):
@@ -132,7 +159,7 @@ class _FusedGatePrng(_GateKernel):
     from the chunk's threefry subkey ``key``."""
 
     name, symbol = "fused_gate_prng", "fused_gate_prng_launch"
-    argtypes = (_VP,) * 10 + (_I,) * 9 + (_VP,)
+    argtypes = (_VP,) * 10 + (_I,) * 10 + (_VP,)
 
     def __call__(self, t_i: torch.Tensor, c_i: torch.Tensor,
                  ts: torch.Tensor, key: torch.Tensor, lut: torch.Tensor,
@@ -140,20 +167,23 @@ class _FusedGatePrng(_GateKernel):
                  c_shift: int, prob_bits: int, cost_us: int,
                  bucket_cap_us: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """As :data:`fused_gate`, with ``rand16`` replaced by the draws
-        ``prng.randint(key, n, 0, 2^prob_bits)`` made in the kernel."""
-        n = self._check([("t_i", t_i), ("c_i", c_i), ("ts", ts)], lut,
-                        key=key,
-                        regs=[("bucket", bucket), ("t_last", t_last)])
+        ``prng.randint(key, n, 0, 2^prob_bits)`` made in the kernel (a
+        key [P, 2] for lanes [P, n]: each pipe draws from its own)."""
+        pipes, n = self._check([("t_i", t_i), ("c_i", c_i), ("ts", ts)],
+                               lut, key=key,
+                               regs=[("bucket", bucket),
+                                     ("t_last", t_last)])
         _check_prob_bits(prob_bits, self.name)
-        granted, bucket_new, scratch = _gate_outputs(n, t_i.device, True)
-        tb, cb = lut.shape
+        granted, bucket_new, scratch = _gate_outputs(t_i.shape, pipes, n,
+                                                     t_i.device, True)
+        tb, cb = lut.shape[-2:]
         self._launch(t_i.data_ptr(), c_i.data_ptr(), ts.data_ptr(),
                      key.data_ptr(), lut.data_ptr(), bucket.data_ptr(),
                      t_last.data_ptr(), granted.data_ptr(),
-                     bucket_new.data_ptr(), *_scratch_args(scratch), n,
-                     tb, cb, t_shift, c_shift, prob_bits, cost_us,
+                     bucket_new.data_ptr(), *_scratch_args(scratch), pipes,
+                     n, tb, cb, t_shift, c_shift, prob_bits, cost_us,
                      bucket_cap_us, _stream(t_i))
-        return granted, bucket_new[0]
+        return granted, _bucket_out(bucket_new, t_i)
 
 
 class _RateGate(_GateKernel):
@@ -167,8 +197,8 @@ class _RateGate(_GateKernel):
                  c_shift: int) -> torch.Tensor:
         """t_i, c_i, rand16 [n] int32; lut [TB, CB] int32 -> selected
         [n] bool on the device."""
-        n = self._check([("t_i", t_i), ("c_i", c_i), ("rand16", rand16)],
-                        lut)
+        n = self._check_1d([("t_i", t_i), ("c_i", c_i),
+                            ("rand16", rand16)], lut)
         out = torch.empty((n,), dtype=torch.bool, device=t_i.device)
         tb, cb = lut.shape
         self._launch(t_i.data_ptr(), c_i.data_ptr(), rand16.data_ptr(),
@@ -189,7 +219,7 @@ class _RateGatePrng(_GateKernel):
                  c_shift: int, prob_bits: int) -> torch.Tensor:
         """As :data:`rate_gate`, with ``rand16`` replaced by the draws
         ``prng.randint(key, n, 0, 2^prob_bits)`` made in the kernel."""
-        n = self._check([("t_i", t_i), ("c_i", c_i)], lut, key=key)
+        n = self._check_1d([("t_i", t_i), ("c_i", c_i)], lut, key=key)
         _check_prob_bits(prob_bits, self.name)
         out = torch.empty((n,), dtype=torch.bool, device=t_i.device)
         tb, cb = lut.shape
@@ -206,16 +236,21 @@ def _scratch_words(n: int, draw: bool) -> int:
     return _build.function("fused_gate_scratch_words", (_I, _I))(n, draw)
 
 
-def _gate_outputs(n: int, device, draw: bool) -> Tuple[
+def _gate_outputs(shape, pipes: int, n: int, device, draw: bool) -> Tuple[
         torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """granted [n] bool, bucket [1] int32 and the look-back's int64
-    scratch, which the launcher zeroes (None up to one cluster's batch:
-    that path takes none)."""
-    words = _scratch_words(n, draw)
-    return (torch.empty((n,), dtype=torch.bool, device=device),
-            torch.empty((1,), dtype=torch.int32, device=device),
+    """granted (the lanes' ``shape``) bool, bucket [pipes] int32 and the
+    look-back's int64 scratch of every pipe, which the launcher zeroes
+    (None up to one cluster's batch: that path takes none)."""
+    words = _scratch_words(n, draw) * pipes
+    return (torch.empty(shape, dtype=torch.bool, device=device),
+            torch.empty((pipes,), dtype=torch.int32, device=device),
             torch.empty((words,), dtype=torch.int64, device=device)
             if words else None)
+
+
+def _bucket_out(bucket: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+    """bucket' [P] for [P, n] lanes, 0-d for [n]."""
+    return bucket if lanes.dim() == 2 else bucket[0]
 
 
 def _scratch_args(x: Optional[torch.Tensor]) -> Tuple[Optional[int], int]:

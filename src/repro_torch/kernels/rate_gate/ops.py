@@ -83,7 +83,9 @@ def fused_admission(t_i: torch.Tensor, c_i: torch.Tensor, ts: torch.Tensor,
                     prob_bits: int = 16, backend: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fused admission call per chunk: (granted [n] bool, bucket'
-    0-d int32).
+    0-d int32); for a stack of pipes' chunks (lanes [P, n], ``lut`` [P,
+    TB, CB], ``bucket``/``t_last`` [P], ``key`` [P, 2]) one call for all
+    of them: (granted [P, n], bucket' [P]).
 
     The draws are ``rand16`` or, when it is None, those of the threefry
     ``key`` (``randint(key, (n,), 0, 2^prob_bits)``); ``"cuda_prng"``
@@ -107,9 +109,9 @@ def fused_admission(t_i: torch.Tensor, c_i: torch.Tensor, ts: torch.Tensor,
         return k.fused_gate_prng(t_i, c_i, ts, key, lut, bucket, t_last,
                                  prob_bits=prob_bits, **kw)
     if rand16 is None:
-        rand16 = draw_rand16(key, t_i.shape[0], prob_bits)
+        rand16 = draw_rand16(key, t_i.shape[-1], prob_bits)
     if backend == "ref":
-        t_ref = torch.where(t_last == 0, ts[0], t_last).to(I32)
+        t_ref = torch.where(t_last == 0, ts[..., 0], t_last).to(I32)
         burst0 = torch.clamp_max(bucket, bucket_cap_us).to(I32)
         return fused_admission_ref(t_i, c_i, ts, lut, rand16, burst0,
                                    t_ref, t_shift, c_shift, cost_us,

@@ -10,6 +10,11 @@ of the kernels that draw their own bits (``kernel.fused_gate_prng``,
 ``kernel.rate_gate_prng``): the same functions fed
 ``prng.randint(key, n, 0, 2^prob_bits)``.  All run on any device; the
 CPU tests and ``chip_smoke.py``'s comparison use them.
+
+The fused pair also takes a stack of pipes' batches, as the reference's
+``vmap`` over pipes gives them: lanes [P, n], LUTs [P, TB, CB], bucket
+registers [P] and keys [P, 2], each pipe on its own LUT, registers and
+draws, the prefix sum along the last dimension.
 """
 
 from __future__ import annotations
@@ -25,11 +30,15 @@ I32 = torch.int32
 
 def lut_prob(lut: torch.Tensor, t_i: torch.Tensor, c_i: torch.Tensor,
              t_shift: int, c_shift: int) -> torch.Tensor:
-    """Shared binning + gather: the switch's shift/clip/SRAM read."""
-    tb, cb = lut.shape
+    """Shared binning + gather: the switch's shift/clip/SRAM read.  A
+    stack of LUTs [P, TB, CB] serves lanes [P, n], pipe by pipe."""
+    tb, cb = lut.shape[-2:]
     ti = torch.clamp(t_i >> t_shift, 0, tb - 1).long()
     ci = torch.clamp(c_i >> c_shift, 0, cb - 1).long()
-    return lut[ti, ci]
+    if lut.dim() == 2:
+        return lut[ti, ci]
+    pipe = torch.arange(lut.shape[0], device=lut.device)[:, None]
+    return lut[pipe, ti, ci]
 
 
 def rate_gate_ref(t_i, c_i, lut, rand16, t_shift: int, c_shift: int
@@ -44,15 +53,17 @@ def fused_admission_ref(t_i: torch.Tensor, c_i: torch.Tensor,
                         t_ref: torch.Tensor, t_shift: int, c_shift: int,
                         cost_us: int, bucket_cap_us: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(granted [N] bool, bucket_new 0-d int32); see the reference."""
+    """(granted [N] bool, bucket_new 0-d int32); see the reference.
+    Pipes' batches [P, N] (``burst0``, ``t_ref`` [P]) give ([P, N],
+    [P])."""
     selected = rate_gate_ref(t_i, c_i, lut, rand16, t_shift, c_shift)
-    credit = burst0 + torch.clamp_min(ts - t_ref, 0)
-    spend = torch.cumsum(torch.where(selected, cost_us, 0).to(I32), 0,
+    credit = burst0[..., None] + torch.clamp_min(ts - t_ref[..., None], 0)
+    spend = torch.cumsum(torch.where(selected, cost_us, 0).to(I32), -1,
                          dtype=I32)
     granted = selected & (spend <= credit)
     bucket_new = torch.clamp(
-        credit[-1] - granted.sum(dtype=I32) * cost_us, 0, bucket_cap_us
-    ).to(I32)
+        credit[..., -1] - granted.sum(-1, dtype=I32) * cost_us, 0,
+        bucket_cap_us).to(I32)
     return granted, bucket_new
 
 
@@ -79,6 +90,6 @@ def fused_admission_prng_ref(t_i: torch.Tensor, c_i: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``fused_admission_ref`` on the draws of ``key``."""
     return fused_admission_ref(t_i, c_i, ts, lut,
-                               draw_rand16(key, t_i.shape[0], prob_bits),
+                               draw_rand16(key, t_i.shape[-1], prob_bits),
                                burst0, t_ref, t_shift, c_shift, cost_us,
                                bucket_cap_us)

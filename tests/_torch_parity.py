@@ -69,3 +69,91 @@ def assert_close(ref, port, tol, where=""):
     scale = max(np.abs(r[~nan]).max(), 1e-30)
     assert err <= tol * scale, (where, f"max|diff| {err:.3g} > {tol} x "
                                        f"max|ref| {scale:.3g}")
+
+
+# -- the pipes and farm drivers (tests/test_torch_pipes.py, _farm.py) -------
+
+def vmap_fallback(mp):
+    """Send the reference's pipes and farm drivers down their vmap
+    fallback for as long as the pytest ``MonkeyPatch`` ``mp`` holds: the
+    mesh functions (``pipe_mesh``, ``farm_mesh``) return None.  With
+    enough JAX devices the reference builds a mesh, and its
+    ``shard_map(..., check_rep=False)`` raises under the installed JAX;
+    the vmap is the reference's semantics, and the port (pipes and
+    engines as tensor dimensions) is held to it.  No file of the
+    reference changes."""
+    import repro.core.fenix as jfenix
+    import repro.core.model_engine.engine_farm as jfarm
+
+    mp.setattr(jfenix, "pipe_mesh", lambda num_pipes: None)
+    mp.setattr(jfarm, "farm_mesh", lambda num_pipes, num_engines: None)
+
+
+def tiny_int8_pair(flows, n_calib=128):
+    """int8_cnn_tiny, JAX init + quantize (untrained) on ``flows``'
+    windows: (the reference's EngineModel, the port's with the same
+    weights on the CPU)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.fenix_models import fenix_cnn_tiny
+    from repro.core.model_engine.inference import EngineModel as JModel
+    from repro.data.synthetic_traffic import windows_from_flows
+    from repro.models import traffic as jtraffic
+    from repro.quant.quantize import quantize_traffic
+    from repro_torch.configs.fenix_models import (
+        fenix_cnn_tiny as t_fenix_cnn_tiny)
+    from repro_torch.core.model_engine.inference import EngineModel
+    from repro_torch.core.model_engine.serving import qparams_from_numpy
+
+    cfg = fenix_cnn_tiny()
+    x, _, _ = windows_from_flows(flows)
+    qp = quantize_traffic(jtraffic.init(cfg, seed=0), cfg,
+                          jnp.asarray(x[:n_calib]))
+    return JModel(cfg, qp), EngineModel(
+        t_fenix_cnn_tiny(),
+        qparams_from_numpy(jax.tree.map(np.asarray, qp), "cpu"))
+
+
+def skewed(stream, engine_cfg, num_pipes, keep=6):
+    """``stream`` with all but every ``keep``-th packet of the pipes other
+    than pipe 0 dropped: the pipes' streams end far apart, so the uniform
+    steps freeze pipes (and a pipe may have no full batch at all)."""
+    from repro_torch.core.data_engine.state import (hash_five_tuple,
+                                                    pipe_of_hash)
+
+    import torch
+
+    h = hash_five_tuple(*(torch.from_numpy(np.asarray(stream[k]).astype(
+        np.int64)) for k in ("src_ip", "dst_ip", "src_port", "dst_port",
+                             "proto"))).numpy()
+    pipe = pipe_of_hash(h, engine_cfg, num_pipes)
+    rank = np.cumsum(pipe > 0)
+    sel = (pipe == 0) | (rank % keep == 0)
+    return {k: np.asarray(v)[sel] for k, v in stream.items()}
+
+
+def assert_pipes_run_same(ref, port, where=""):
+    """Stats and the whole stacked carry of a pipes / farm run (and the
+    farm's engine queues) equal, leaf by leaf."""
+    assert port.stats == ref.stats, (where, ref.stats, port.stats)
+    names = ("pstate", "pqueues", "pdl") + (("eq",) if port._use_farm
+                                           else ())
+    for name in names:
+        assert_same(dict(getattr(ref, name)), dict(getattr(port, name)),
+                    f"{where} {name}")
+
+
+def stacked_packets(rng, num_pipes, n):
+    """Random packet batches of ``num_pipes`` pipes (the reference's
+    ``make_packets``, one a pipe), numpy [P, n] each, and the same as the
+    port's tensors (the five-tuple in int64): (numpy, torch)."""
+    import torch
+
+    from repro.core.data_engine.state import make_packets
+
+    per = [make_packets(rng, n) for _ in range(num_pipes)]
+    packets = {k: np.stack([b[k] for b in per]) for k in per[0]}
+    return packets, {k: torch.from_numpy(v.astype(
+        np.int32 if k in ("ts_us", "pkt_len") else np.int64))
+        for k, v in packets.items()}

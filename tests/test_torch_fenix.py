@@ -203,10 +203,16 @@ def test_gate_backend_cuda_on_cpu_tensors_raises(trace):
 
 
 def test_unported_paths_raise(tiny_int8, trace):
+    # the pipes and farm drivers are ported (tests/test_torch_pipes.py,
+    # tests/test_torch_farm.py): they build, and only the host step raises
     for kw in (dict(driver="pipes", num_pipes=2),
                dict(driver="farm", num_engines=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FenixSystem(FenixConfig(**kw), ByLenModel(), device="cpu")
+        sys_ = FenixSystem(FenixConfig(**kw), ByLenModel(), device="cpu")
+        with pytest.raises(RuntimeError, match="run_trace"):
+            sys_.step(_cut(trace, 0, BATCH))
+    with pytest.raises(ValueError, match="power of two"):
+        FenixSystem(FenixConfig(driver="pipes", num_pipes=3), ByLenModel(),
+                    device="cpu")
     from repro_torch.core.model_engine.serving import build_model
 
     for name in ("int8_cnn_tiny", "int8_rnn_tiny"):  # the default trains

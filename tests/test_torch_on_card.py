@@ -223,6 +223,156 @@ def test_fused_gate_kernels_batch_start_registers(branch, n, cuda_device):
             assert_same(plain, got, f"{branch} {backend} n={n}")
 
 
+# -- the pipe-batched gates: P pipes' batches in one launch ------------------
+
+PIPE_SIZES = [1, 1000, 1024, 4096, 8192, 1 << 20]
+
+
+def _pipes_case(rng, pipes, n, dev, bind=None):
+    """P pipes' batches stacked ([P, n] lanes, [P, 64, 32] LUTs, [P]
+    registers, [P, 2] keys), each pipe drawn on its own; with ``bind`` =
+    q, pipe q's batch binds (``_binding_case``) and every other pipe's
+    bucket is full, so only pipe q is denied."""
+    cases = []
+    for q in range(pipes):
+        c = (_binding_case(rng, n, dev) if q == bind
+             else _gate_case(rng, n, dev))
+        if bind is not None and q != bind:
+            c["bucket"].fill_(BIND_CAP)
+        c["key"] = _key(rng, dev)
+        cases.append(c)
+    return {k: torch.stack([c[k] for c in cases]).contiguous()
+            for k in cases[0]}
+
+
+def _pipes_check(c, cost, cap):
+    """Both kernels on the stacked case, one launch each, against the
+    plain version over [P, n] and against one launch a pipe; returns the
+    plain version's (granted, bucket') of each and its draws."""
+    args = (c["t_i"], c["c_i"], c["ts"], c["lut"], c["bucket"],
+            c["t_last"])
+    kw = dict(cost_us=cost, bucket_cap_us=cap)
+    out = {}
+    for kern, backend, draws in ((fused_gate, "cuda",
+                                  dict(rand16=c["rand16"])),
+                                 (fused_gate_prng, "cuda_prng",
+                                  dict(key=c["key"]))):
+        plain = fused_admission(*args, backend="ref", **draws, **kw)
+        before = kern.launches
+        got = fused_admission(*args, backend=backend, **draws, **kw)
+        assert kern.launches == before + 1
+        one = [fused_admission(*(x[q] for x in args), backend=backend,
+                               **{k: v[q] for k, v in draws.items()}, **kw)
+               for q in range(c["t_i"].shape[0])]
+        torch.cuda.synchronize()
+        assert_same(plain, got, backend)
+        assert_same([torch.stack([o[0] for o in one]),
+                     torch.stack([o[1] for o in one])], list(got), backend)
+        out[backend] = plain
+    return out
+
+
+@pytest.mark.parametrize("n", PIPE_SIZES)
+@pytest.mark.parametrize("pipes", [1, 2, 4, 8])
+def test_pipe_batched_gate_kernels_match_plain(pipes, n, cuda_device):
+    """One launch admits every pipe's batch (its own LUT, registers and
+    key) exactly as the plain version over [P, n] and as one launch a
+    pipe: one CTA, one cluster and the look-back, a pipe a grid row."""
+    rng = np.random.default_rng(1000 * pipes + n)
+    for _ in range(2):
+        _pipes_check(_pipes_case(rng, pipes, n, cuda_device), 3, 150)
+
+
+@pytest.mark.parametrize("n", [4096, 8192, 3 * 8192 + 5, 1 << 20])
+@pytest.mark.parametrize("pipes", [2, 4, 8])
+def test_pipe_batched_gate_kernels_when_one_pipe_binds(pipes, n,
+                                                       cuda_device):
+    """The bucket binds in one pipe only, across CTAs and look-back
+    tiles: that pipe denies about half of its selected lanes and no other
+    pipe denies any, so a kernel that read another pipe's LUT, registers,
+    key or look-back scratch would differ."""
+    rng = np.random.default_rng(7 * pipes + n)
+    bind = int(rng.integers(0, pipes))
+    c = _pipes_case(rng, pipes, n, cuda_device, bind=bind)
+    res = _pipes_check(c, BIND_COST, BIND_CAP)
+    prob = gate_ref.lut_prob(c["lut"], c["t_i"], c["c_i"], 10, 0)
+    for backend, rand in (("cuda", c["rand16"]),
+                          ("cuda_prng", gate_ref.draw_rand16(c["key"], n,
+                                                             16))):
+        selected = (rand < prob).sum(-1)
+        denied = (selected - res[backend][0].sum(-1)).tolist()
+        sel = int(selected[bind])
+        assert 0.1 * sel < denied[bind] < 0.9 * sel, (backend, denied)
+        assert sum(denied) == denied[bind], (backend, denied)
+
+
+def test_pipe_batched_gate_wrappers_check_their_shapes(cuda_device):
+    rng = np.random.default_rng(0)
+    c = _pipes_case(rng, 2, 64, cuda_device)
+    kw = dict(t_shift=10, c_shift=0, cost_us=3, bucket_cap_us=150)
+    lanes = (c["t_i"], c["c_i"], c["ts"])
+    with pytest.raises(ValueError, match="lut"):
+        fused_gate(*lanes, c["rand16"], c["lut"][0], c["bucket"],
+                   c["t_last"], **kw)
+    with pytest.raises(ValueError, match="bucket"):
+        fused_gate(*lanes, c["rand16"], c["lut"], c["bucket"][:1],
+                   c["t_last"], **kw)
+    with pytest.raises(ValueError, match="key"):
+        fused_gate_prng(*lanes, c["key"][0], c["lut"], c["bucket"],
+                        c["t_last"], prob_bits=16, **kw)
+
+
+def _pipes_system(driver, dev, step, gate=None, **kw):
+    cfg = dict(batch_size=256, control_plane_every=3, driver=driver,
+               num_pipes=4, num_engines=4 if driver == "farm" else 1,
+               step_backend=step, **kw)
+    if gate is not None:
+        cfg["gate_backend"] = gate
+    return FenixSystem(FenixConfig(**cfg), _tiny_model(), device=dev)
+
+
+@pytest.mark.parametrize("gate", ["cuda", "cuda_prng"])
+@pytest.mark.parametrize("driver", ["pipes", "farm"])
+def test_pipes_and_farm_graph_eager_plain_and_cpu(driver, gate,
+                                                  cuda_device):
+    """The pipes (P=4) and farm (P=4 x E=4) drivers on the card: graph ==
+    eager == the plain backends == the CPU over two run_trace calls with
+    ragged tails (verdicts, stats, stacked carry), one gate launch a
+    uniform step and a tail, no host sync."""
+    stream = packet_stream(make_flows("iscx", 40, seed=7), limit=4000)
+    parts = [{k: v[lo:hi] for k, v in stream.items()}
+             for lo, hi in ((0, 2600), (2600, 4000))]
+    names = ("pstate", "pqueues", "pdl") + (("eq",) if driver == "farm"
+                                           else ())
+    runs = {}
+    for name, dev, step, kw in (
+            ("cpu", "cpu", "eager", {}),
+            ("plain", cuda_device, "graph",
+             dict(gate="ref", matmul_backend="ref")),
+            ("eager", cuda_device, "eager", dict(gate=gate)),
+            ("graph", cuda_device, "graph", dict(gate=gate))):
+        sys_ = _pipes_system(driver, dev, step, **kw)
+        before = _counts()
+        verdicts = [sys_.run_trace(part)["verdict"] for part in parts]
+        runs[name] = (verdicts, sys_, tuple(a - b for a, b in
+                                            zip(_counts(), before)))
+        assert sys_.host_syncs == 0
+    rounds = sum(int((c // 256).max()) + int((c % 256 > 0).sum())
+                 for c in (runs["cpu"][1]._route_pipes(p)[2]
+                           for p in parts))
+    gates = runs["graph"][2][0] + runs["graph"][2][1]
+    assert runs["graph"][2] == runs["eager"][2] and gates == rounds
+    assert runs["plain"][2] == (0, 0, 0, 0)
+    for name in ("plain", "eager", "graph"):
+        for a, b in zip(runs["cpu"][0], runs[name][0]):
+            assert np.array_equal(a, b), name
+        assert runs[name][1].stats == runs["cpu"][1].stats, name
+        for carry in names:
+            assert_same(getattr(runs["cpu"][1], carry),
+                        getattr(runs[name][1], carry), f"{name} {carry}")
+    assert runs["cpu"][1].stats["inferences"] > 0
+
+
 @pytest.mark.parametrize("n", [1, 255, 1000, 4096, 100_000])
 def test_rate_gate_kernels_match_plain(n, cuda_device):
     """Both selection-only kernels against their plain versions."""
