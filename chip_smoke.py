@@ -89,7 +89,15 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    == the plain backend's); packet- and flow-level macro-F1 printed
    beside the pinned values with the confusion matrices, and at the
    pin's settings each flow-level macro-F1 held to its pinned value
-   minus 0.05 (the reference's regression bar).  Then for the full-width
+   minus 0.05 (the reference's regression bar).  At the pin's settings
+   the five baselines of ``bench_accuracy.run_task`` run beside them, in
+   its order and with its settings: FlowLens (flow markers, the numpy
+   GBDT), Leo and NetBeacon (fitted in numpy, predicting on the card),
+   BoS and N3IC (trained with the port's ``Trainer`` on the train step's
+   graph, batch 256, lr 3e-3, class weights); each macro-F1 printed
+   beside its pinned value with the difference, held to the pinned value
+   minus 0.05, with its seconds (and BoS's and N3IC's steps/s); then the
+   full Table 2 (9 schemes x 2 tasks).  Then for the full-width
    CNN and RNN: the train step's graph == the eager step over 20 steps
    from one init (every step's metrics, params, moments, counter), a
    planted NaN batch that must leave them unchanged and count one
@@ -144,9 +152,23 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    share, launch calls a step: at most 3 on the graph), an int8-weight
    generate, gated ``serve_requests`` through ``ServeGate`` (one graph
    for its one shape), and the reduced model on the card against the CPU.
+6b. MoE serving: ``ServingEngine.generate`` on the full-width
+   ``qwen2-moe-a2.7b`` (24 layers, d_model 2048, 16 heads, 60 experts
+   top-4 + 4 gated shared experts, vocab 151936; 14.31 B parameters)
+   with random bfloat16 weights from ``--seed`` (init seconds printed),
+   batch 8, the same prompt and new tokens: ``decode_attention``
+   launches must equal 24 layers x decode steps, graph tokens == eager,
+   the decode loop under sync-debug "error"; ms a step and tok/s of both
+   in turns beside the step's bound (every weight and the K/V cache read
+   once); a profile of the graph's decode loop; an int8-weight generate;
+   peak memory; float32 logits, kernel against the einsum path, within
+   1e-3 on a float32 copy cut to the first 4 layers (at full depth it
+   would not fit beside the bf16 model); the reduced model on the card
+   against the CPU.
 7. Each phase's seconds and the total, the ``kernels`` JSON line
    (``int8_gemm``'s launches count the CNN's and the RNN's main paths,
-   the trained models' replays and the pipes and farm paths; the
+   the trained models' replays and the pipes and farm paths;
+   ``decode_attention``'s the llama and the MoE generates; the
    ``*_pipes`` rows are the pipe-batched gates of 4f),
    then the last line: ``{"ok": true, "device": {"platform": "gpu",
    ...}}``.
@@ -1877,6 +1899,121 @@ def _flow_f1(pred, labels, flow_id, k):
     return macro_f1(flow_labels, votes, k), flow_labels, votes
 
 
+# the nine schemes of Table 2 in the order of bench_accuracy.run_task, and
+# the level each is scored at (FENIX at both)
+TABLE2 = ("fenix-cnn-pkt", "fenix-cnn-flow", "fenix-rnn-pkt",
+          "fenix-rnn-flow", "flowlens-flow", "leo-pkt", "netbeacon-pkt",
+          "bos-pkt", "n3ic-pkt")
+BASELINE_BATCH = 256
+
+
+def _train_baseline(loss, params, x, y, steps, k, device, seed=0):
+    """bench_accuracy's ``_train_nn`` on the port's Trainer: batch 256
+    drawn from ``default_rng(seed)`` with class weights, AdamW lr 3e-3,
+    warmup steps // 10, weight decay 0.01; the step a CUDA graph on the
+    card.  Returns (trainer, seconds of the run, capture included)."""
+    from repro_torch.data.synthetic_traffic import class_weights
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           batch_iterator)
+
+    t = Trainer(loss, params, TrainerConfig(
+        total_steps=steps, log_every=10**9,
+        opt=OptConfig(lr=3e-3, warmup_steps=steps // 10, total_steps=steps,
+                      weight_decay=0.01)), device=device)
+    batches = batch_iterator(x, y, BASELINE_BATCH, seed=seed,
+                             weights=class_weights(y, k), device=device)
+    if t.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.run(batches)
+    if t.device.type == "cuda":
+        torch.cuda.synchronize()
+    return t, time.perf_counter() - t0
+
+
+def baseline_rows(k, tr_flows, te_flows, steps, device="cuda", seed=0):
+    """The five baselines of ``bench_accuracy.run_task`` (:108-159) on the
+    port, in its order and with its settings: FlowLens on the flow
+    markers (numpy GBDT, the control plane's CPU classifier), Leo and
+    NetBeacon fitted in numpy and predicting on ``device``, BoS
+    (``fenix_cnn(k)``'s embedding sizes) on the training windows and
+    N3IC on its features, each trained by :func:`_train_baseline`.
+    Returns {scheme: (macro-F1, seconds, note)}."""
+    from repro_torch.baselines import bos, n3ic
+    from repro_torch.baselines.common import macro_f1
+    from repro_torch.baselines.flowlens import FlowLensModel, markers
+    from repro_torch.baselines.leo import LeoModel
+    from repro_torch.baselines.netbeacon import NetBeaconModel
+    from repro_torch.configs.fenix_models import fenix_cnn
+    from repro_torch.data.synthetic_traffic import windows_from_flows
+    from repro_torch.models import traffic
+
+    out = {}
+    t0 = time.perf_counter()
+    xf, yf = markers(tr_flows)
+    xfe, yfe = markers(te_flows)
+    fl = FlowLensModel(k)
+    fl.fit(xf, yf)
+    out["flowlens-flow"] = (macro_f1(yfe, fl.predict(xfe), k),
+                            time.perf_counter() - t0, "numpy GBDT")
+    for name, model in (("leo-pkt", LeoModel(k, device=device)),
+                        ("netbeacon-pkt",
+                         NetBeaconModel(k, seed=seed, device=device))):
+        t0 = time.perf_counter()
+        model.fit(tr_flows)
+        t1 = time.perf_counter()
+        r = model.predict_packets(te_flows)
+        out[name] = (macro_f1(r["label"], r["pred"], k),
+                     time.perf_counter() - t0,
+                     f"fit {t1 - t0:.2f} s (numpy), predict "
+                     f"{time.perf_counter() - t1:.4f} s on {device} "
+                     f"({len(r['pred'])} checkpoints)")
+    xtr, ytr, _ = windows_from_flows(tr_flows, seed=seed)
+    xte, yte, _ = windows_from_flows(te_flows, seed=seed + 1)
+    cfg = fenix_cnn(k)  # reuse embedding sizes, as the reference does
+    table = traffic.ipd_log2_table(device)
+    t, sec = _train_baseline(lambda p, b: bos.loss_fn(p, cfg, b, table),
+                             bos.init(cfg, seed=seed, device=device),
+                             xtr, ytr, steps, k, device, seed)
+    with torch.no_grad():
+        pred = torch.argmax(bos.apply(t.params, cfg, torch.as_tensor(
+            xte).to(device), table), -1).cpu().numpy()
+    rate = steps / max(sec - t.capture_s, 1e-9)
+    out["bos-pkt"] = (macro_f1(yte, pred, k), sec,
+                      f"{steps} steps at {rate:.1f} steps/s on the "
+                      f"{t.step_backend} step (capture {t.capture_s:.4f} s)")
+    xn, yn, _ = n3ic.build_features(tr_flows)
+    xne, yne, _ = n3ic.build_features(te_flows)
+    t, sec = _train_baseline(n3ic.loss_fn,
+                             n3ic.init(xn.shape[1], k, seed=seed,
+                                       device=device),
+                             xn, yn, steps, k, device, seed)
+    with torch.no_grad():
+        pred = torch.argmax(n3ic.apply(t.params, torch.as_tensor(xne).to(
+            device)), -1).cpu().numpy()
+    rate = steps / max(sec - t.capture_s, 1e-9)
+    out["n3ic-pkt"] = (macro_f1(yne, pred, k), sec,
+                       f"{steps} steps at {rate:.1f} steps/s on the "
+                       f"{t.step_backend} step (capture {t.capture_s:.4f} s)")
+    return out
+
+
+def print_table2(table, pinned, n_flows, steps):
+    """Table 2 (9 schemes x 2 tasks) beside the pinned values."""
+    print(f"Table 2 on the card ({n_flows} flows, {steps} steps; macro-F1, "
+          "pinned reference value, difference):")
+    tasks = sorted(table)
+    print("  scheme          " + "".join(
+        f"{t:>8} {'pinned':>8} {'diff':>8}   " for t in tasks))
+    for sch in TABLE2:
+        row = "".join(f"{table[t][sch]:8.4f} "
+                      f"{pinned[t][sch]['macro_f1']:8.4f} "
+                      f"{table[t][sch] - pinned[t][sch]['macro_f1']:+8.4f}   "
+                      for t in tasks)
+        print(f"  {sch:16}{row}")
+
+
 def accuracy_protocol():
     """4e part 1: the Table-2 protocol of ``benchmarks/bench_accuracy.py``
     at full width, on the card, at each of ``PROTOCOLS``: for each task
@@ -1886,8 +2023,10 @@ def accuracy_protocol():
     steps // 10, weight decay 0.01, on the train step's graph; the first
     512 training windows calibrate), then ``evaluate_quantized`` on the
     held-out windows with the kernel (``"cuda"``), whose predictions must
-    equal the plain backend's.  At the pin's settings each flow-level
-    macro-F1 must reach its pinned reference value minus ``F1_BAR``.
+    equal the plain backend's.  At the pin's settings the five baselines
+    run beside them (:func:`baseline_rows`), the full Table 2 is printed
+    beside the pinned values, and each flow-level FENIX macro-F1 and each
+    baseline's must reach its pinned reference value minus ``F1_BAR``.
     Returns the models trained on iscx at bench_accuracy's defaults (numpy
     qparams and configs) and their training windows."""
     from repro_torch.baselines.common import confusion_matrix
@@ -1899,7 +2038,9 @@ def accuracy_protocol():
     pinned = json.loads(PINNED_ACCURACY.read_text())
     trained = {}
     for n_flows, steps, gated in PROTOCOLS:
+        table = {}
         for task in ("iscx", "ustc"):
+            table[task] = row = {}
             k = len(task_meta(task)[0])
             flows = make_flows(task, n_flows, seed=0, min_per_class=30)
             tr_flows, te_flows = _split_flows(flows, seed=0)
@@ -1936,6 +2077,7 @@ def accuracy_protocol():
                 print(f"  confusion (packet): {ev['confusion']}")
                 print("  confusion (flow): "
                       f"{confusion_matrix(flow_y, votes, k).tolist()}")
+                row[f"{nm}-pkt"], row[f"{nm}-flow"] = ev["macro_f1"], flow_f1
                 if gated:
                     require(flow_f1 >= want_flow - F1_BAR,
                             f"{task} {nm}: flow macro-F1 {flow_f1:.4f} "
@@ -1945,6 +2087,21 @@ def accuracy_protocol():
             if task == "iscx" and not gated:
                 x, y, _ = windows_from_flows(tr_flows, seed=0)
                 trained["windows"] = (x, y)
+            if not gated:
+                continue
+            for sch, (f1, sec, note) in baseline_rows(
+                    k, tr_flows, te_flows, steps).items():
+                want = pinned[task][sch]["macro_f1"]
+                row[sch] = f1
+                print(f"accuracy {task} {sch}, {n_flows} flows, {steps} "
+                      f"steps: macro-F1 {f1:.4f} (pinned {want:.4f}, "
+                      f"difference {f1 - want:+.6f}, bar "
+                      f"{want - F1_BAR:.4f}); {sec:.2f} s; {note}")
+                require(f1 >= want - F1_BAR,
+                        f"{task} {sch}: macro-F1 {f1:.4f} below "
+                        f"{want:.4f} - {F1_BAR}")
+        if gated:
+            print_table2(table, pinned, n_flows, steps)
     return trained
 
 
@@ -2564,17 +2721,24 @@ def phase_attention(rng, decode_s):
               f"{worst[dtype]:.3g}, at most {ratio[dtype]:.3g} of the "
               f"per-element tolerance ({ATTN_ULPS[dtype]:.3g} |plain| + "
               f"{ATTN_ATOL})")
-    # the Llama decode shape and the long-context shape, bfloat16, each
-    # also with a planted fault: the kernel reads every row one 128-row
-    # tile short, which the tolerance must catch
+    # the Llama and qwen2-moe decode shapes (llama3.2-1b: Hkv 8, G 4,
+    # D 64; qwen2-moe-a2.7b: Hkv 16, G 1 padded to 16 MMA rows, D 128;
+    # batch 8, the generate's cache length) with ragged lengths, and the
+    # long-context shape, bfloat16, each also with a planted fault: the
+    # kernel reads every row one 128-row tile short, which the tolerance
+    # must catch
     b, hkv, g, d = 8, 8, 4, 64
     lens = [decode_s] + list(rng.integers(1, decode_s + 1, b - 2)) + [0]
     llama_in = _attn_inputs(rng, b, hkv, g, d, decode_s, torch.bfloat16,
                             lens)
+    moe_in = _attn_inputs(rng, b, 16, 1, 128, decode_s, torch.bfloat16,
+                          [decode_s] + list(rng.integers(1, decode_s + 1,
+                                                         b - 2)) + [0])
     long_s = 32768
     long_in = _attn_inputs(rng, 32, hkv, g, d, long_s, torch.bfloat16,
                            rng.integers(long_s // 2, long_s + 1, 32))
     for name, x in (("Llama decode shape", llama_in),
+                    ("qwen2-moe decode shape", moe_in),
                     (f"B=32 S={long_s}", long_in)):
         err = check(torch.bfloat16, x)
         lens_x = x[3]
@@ -2591,7 +2755,7 @@ def phase_attention(rng, decode_s):
     for dtype, r in ratio.items():
         require(r <= 1.0, f"decode_attention {dtype} max|diff| "
                 f"{worst[dtype]} over its tolerance ({r:.3g} of it)")
-    del llama_in
+    del llama_in, moe_in
 
     # timing at the decode shape: lengths mid-decode, four caches in turn
     # (4 x 34 MB > L2), as the 16 layers of one step read 16 caches
@@ -2696,7 +2860,7 @@ def compare_backends(eng, prompt, ref_tokens, what):
     return diff, rel, agree
 
 
-def profile_decode(eng, prompt, steps, what):
+def profile_decode(eng, prompt, steps, what, bound_ms=WEIGHT_READ_MS):
     """``steps`` steps of the engine's decode loop under torch.profiler,
     replayed from the prompt's position after a generate (graph replays
     on a graph engine, the step body op by op on an eager one): ms a
@@ -2756,7 +2920,7 @@ def profile_decode(eng, prompt, steps, what):
           f"{n_launch} launch calls = "
           f"{n_launch / steps:.1f} per step, {n_copy} memcpy calls; "
           f"port kernels in the profile {seen} == the counters; "
-          f"weight-read bound {WEIGHT_READ_MS} ms a step")
+          f"bound {bound_ms} ms a step")
     for a in kern[:10] + _port_kernels(kern[10:]):
         print(f"  device {_dev_us(a) / 1e3:9.3f} ms  x{a.count:6d}  "
               f"{a.key[:90]}")
@@ -2939,6 +3103,228 @@ def phase_lm(args):
     return launches["decode_attention"]
 
 
+# -- phase 6b ---------------------------------------------------------------
+
+MOE_CUT_LAYERS = 4     # depth of the float32 copy (57 GB at full depth)
+
+
+def _decode_bound(cfg, params, b, smax, routed=None):
+    """(ms, GB of weights, GB of K/V cache) a decode step reads at 3.35
+    TB/s: every weight but the embedding table (B rows of it are
+    gathered) and the whole K/V cache.  ``routed``: the experts the step
+    routes to, summed over its layers; only their weights count.  With
+    ``None`` every expert counts: the read volume of the port's capacity
+    dispatch, which runs each expert every step, not the step's bound."""
+    from repro_torch.models import api
+
+    w = 0.0
+    for k, v in params.items():
+        if k.startswith("embed/"):
+            continue
+        byts = v.numel() * v.element_size()
+        if routed is not None and "/experts/" in k \
+                and not k.endswith("_scale"):
+            byts *= routed / (v.shape[0] * v.shape[1])   # [L, e, ...]
+        w += byts
+    w += b * cfg.d_model * params["embed/table"].element_size()
+    kv = sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
+             for shape, dt, _ in api.cache_specs(cfg, b, smax).values())
+    return (w + kv) / HBM_BYTES_PER_S * 1e3, w / 1e9, kv / 1e9
+
+
+def _routed_experts(eng, prompt):
+    """A generate on the eager engine ``eng`` whose decode steps record
+    the experts they route to (``layers._top_k`` wrapped; the recorded
+    indices are counted after the loop, so it stays free of host syncs).
+    Returns (the generate's output, the distinct experts routed a step
+    summed over the layers, the distinct experts of each layer's step)."""
+    from repro_torch.models import layers
+
+    top_k, seen = layers._top_k, []
+    b = prompt.shape[0]
+
+    def record(probs, k):
+        val, idx = top_k(probs, k)
+        if idx.shape[0] == b:           # a decode step's b tokens
+            seen.append(idx)
+        return val, idx
+
+    layers._top_k = record
+    try:
+        out = eng.generate({"tokens": prompt})
+    finally:
+        layers._top_k = top_k
+    per = [int(torch.unique(i).numel()) for i in seen]
+    return out, sum(per) / max(len(per) // eng.cfg.num_layers, 1), per
+
+
+def phase_moe(args):
+    """6b. Full-width qwen2-moe-a2.7b served on the card; returns the
+    decode attention launches of the main path's generate."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    b, s, n_new = 8, args.prompt_len, args.new_tokens
+    rng = np.random.default_rng(args.seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                              .astype(np.int32)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = api.init_params(cfg, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params.values())
+    gb = sum(v.numel() * v.element_size() for v in params.values()) / 1e9
+    m = cfg.moe
+    print(f"model: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+          f"H={cfg.num_heads}/{cfg.num_kv_heads} Dh={cfg.head_dim} experts "
+          f"{m.num_experts} top-{m.top_k} (ff {m.expert_d_ff}) + "
+          f"{m.num_shared_experts} shared (ff {m.shared_d_ff}, gated) "
+          f"V={cfg.vocab_size}: {n_params} parameters ({gb:.3f} GB: bf16, "
+          f"the router float32) drawn from seed {args.seed} in {t_init:.1f} "
+          "s (the reference's numpy draws, each parameter in 1 GiB "
+          "float64 chunks, 8 parameters at a time in a thread pool, each "
+          "chunk cast on the host and copied to the card)")
+    require(n_params == sum(math.prod(v.shape) for v in params.values()),
+            "parameter count")
+    dense_ms, w_gb, kv_gb = _decode_bound(cfg, params, b, s + n_new)
+    cap = max(1, int(m.capacity_factor * b * m.top_k / m.num_experts))
+    print(f"decode step read volume of the port's dispatch: {w_gb:.3f} GB "
+          f"of weights (every expert: capacity {cap} a step at batch {b}, "
+          f"and each expert runs) + {kv_gb:.3f} GB of K/V cache at 3.35 "
+          f"TB/s = {dense_ms:.3f} ms (not the step's bound: that counts "
+          "only the experts routed to, below)")
+    eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=n_new,
+                                                 attn_backend="cuda"),
+                        device="cuda")
+    eng_eager = ServingEngine(cfg, params, ServeConfig(
+        max_new_tokens=n_new, attn_backend="cuda", step_backend="eager"),
+        device="cuda")
+    for e in (eng, eng_eager):
+        e.generate({"tokens": prompt[:, :64]})
+    cap_s = eng.generate({"tokens": prompt})["capture_s"]
+    zero_counts()
+    out = eng.generate({"tokens": prompt})
+    launches = read_counts()
+    steps = n_new - 1
+    require(launches == {"fused_gate": 0, "fused_gate_prng": 0,
+                         "int8_gemm": 0,
+                         "decode_attention": cfg.num_layers * steps},
+            f"MoE generate launches {launches}, want decode_attention = "
+            f"{cfg.num_layers} layers x {steps} steps")
+    require(out["capture_s"] == 0.0, "the MoE graph was captured again")
+    toks = out["tokens"]
+    require(toks.shape == (b, n_new) and toks.dtype == torch.int32
+            and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"MoE tokens {tuple(toks.shape)} {toks.dtype}")
+    print(f"generate ({cfg.name}, attn cuda, graph): batch {b}, prompt {s},"
+          f" {n_new} new tokens: prefill {out['prefill_s']:.4f} s, decode "
+          f"{out['decode_s']:.4f} s for {steps} steps = "
+          f"{out['decode_s'] / steps * 1e3:.3f} ms a step, "
+          f"{out['decode_tok_per_s']:.1f} tok/s; capture {cap_s:.4f} s; "
+          f"decode_attention launches {launches['decode_attention']} = "
+          f"{cfg.num_layers} layers x {steps} steps; decode loop under "
+          "sync debug mode 'error'")
+    zero_counts()
+    out_e, routed, per = _routed_experts(eng_eager, prompt)
+    require(read_counts() == launches,
+            f"MoE eager launches {read_counts()} != graph {launches}")
+    require(torch.equal(out_e["tokens"], toks),
+            "MoE graph decode tokens differ from the eager decode's")
+    require(len(per) == cfg.num_layers * steps,
+            f"{len(per)} routings recorded for {steps} decode steps")
+    bound_ms, w_r, _ = _decode_bound(cfg, params, b, s + n_new, routed)
+    print(f"decode step bound: the experts each step routes to, "
+          f"{routed / cfg.num_layers:.3f} of {m.num_experts} a layer on "
+          f"average ({min(per)}-{max(per)}; at most min(e, B k) = "
+          f"{min(m.num_experts, b * m.top_k)}), measured on the eager "
+          f"generate: {w_r:.3f} GB of weights + {kv_gb:.3f} GB of K/V "
+          f"cache at 3.35 TB/s = {bound_ms:.3f} ms; graph decode "
+          f"{out['decode_s'] / steps * 1e3 / bound_ms:.2f}x the bound, "
+          f"{out['decode_s'] / steps * 1e3 / dense_ms:.2f}x the dispatch's "
+          f"{dense_ms:.3f} ms read volume")
+    turns = {}
+    for name, e in (("eager", eng_eager), ("graph", eng), ("graph", eng),
+                    ("eager", eng_eager)):
+        r = e.generate({"tokens": prompt})
+        require(torch.equal(r["tokens"], toks), f"MoE {name} tokens moved")
+        turns.setdefault(name, []).append(r)
+    for name, rs in turns.items():
+        print(f"decode ({cfg.name}, {name}): "
+              + ", ".join(f"{r['decode_s'] / steps * 1e3:.3f} ms a step = "
+                          f"{r['decode_tok_per_s']:.1f} tok/s" for r in rs)
+              + f" (in turns: eager, graph, graph, eager; bound "
+              f"{bound_ms:.3f} ms a step, read volume {dense_ms:.3f}); "
+              "prefill "
+              + ", ".join(f"{r['prefill_s']:.4f}" for r in rs)
+              + " s; greedy tokens graph == eager")
+    del eng_eager
+    profile_decode(eng, prompt, 16, f"{cfg.name} graph", round(bound_ms, 3))
+    print(f"peak memory of phase 6b so far: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (weights, two "
+          "engines' caches, prefill)")
+
+    # int8 weights (the FENIX Model Engine scheme on the LM)
+    eng8 = ServingEngine(cfg, params, ServeConfig(max_new_tokens=n_new,
+                                                  quant="int8"),
+                         device="cuda")
+    eng8.generate({"tokens": prompt[:, :64]})
+    out8 = eng8.generate({"tokens": prompt})
+    require(out8["tokens"].shape == (b, n_new), "MoE int8 generate shape")
+    agree8 = float((out8["tokens"] == toks).float().mean())
+    bound8, w8, _ = _decode_bound(cfg, eng8.params, b, s + n_new, routed)
+    dense8, _, _ = _decode_bound(cfg, eng8.params, b, s + n_new)
+    print(f"generate ({cfg.name}, int8 weights, graph): prefill "
+          f"{out8['prefill_s']:.4f} s, decode "
+          f"{out8['decode_s'] / steps * 1e3:.3f} ms a step (bound "
+          f"{bound8:.3f} ms: {w8:.3f} GB of weights, the bf16 run's routed "
+          f"experts, + the cache; read volume {dense8:.3f} ms) = "
+          f"{out8['decode_tok_per_s']:.1f} tok/s (each step dequantizes "
+          "every expert's weights to bf16); tokens equal to the bf16 "
+          f"run's: {agree8:.4f}")
+    del eng8, eng
+    print(f"peak memory of phase 6b: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # float32 logits, kernel against the einsum path, on a copy cut in
+    # depth (a float32 copy at full depth, 57 GB, does not fit beside the
+    # bf16 model): the first layers of the same weights
+    cut = MOE_CUT_LAYERS
+    cfg32 = dataclasses.replace(cfg, num_layers=cut, param_dtype="float32",
+                                activation_dtype="float32")
+    p32 = {k: (v[:cut] if k.startswith("layers/") else v).float()
+           for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    eng32 = ServingEngine(cfg32, p32, ServeConfig(
+        max_new_tokens=n_new, attn_backend="ref"), device="cuda")
+    ref32 = eng32.generate({"tokens": prompt})["tokens"]
+    _, rel32, _ = compare_backends(eng32, prompt, ref32,
+                                   f"{cfg.name} float32, {cut} layers")
+    require(rel32 <= 1e-3, f"MoE float32 logits off by {rel32}")
+    del eng32, p32
+    torch.cuda.empty_cache()
+
+    # the reduced model on the card against the CPU, float32
+    small = dataclasses.replace(get_config(cfg.name, reduced=True),
+                                param_dtype="float32",
+                                activation_dtype="float32")
+    p_small, _ = api.init_params(small, seed=args.seed, device="cpu")
+    tok_small = prompt[:, :16].cpu() % small.vocab_size
+    runs = {dev: ServingEngine(small, p_small, ServeConfig(max_new_tokens=8),
+                               device=dev).generate({"tokens": tok_small})
+            ["tokens"].cpu() for dev in ("cuda", "cpu")}
+    require(torch.equal(runs["cuda"], runs["cpu"]),
+            "reduced qwen2-moe: card tokens differ from the CPU's")
+    print(f"reduced {cfg.name} (float32), batch 8, 8 new tokens: card "
+          "(kernel, graph) == CPU (einsum path, eager)")
+    return launches["decode_attention"]
+
+
 KERNEL_ROWS = (
     ("fused_gate", "src/repro_torch/csrc/fused_gate.cu",
      "src/repro/kernels/rate_gate/kernel.py:191"),
@@ -3008,7 +3394,11 @@ def main():
     rows["decode_attention"] = phase(
         "5 attention", phase_attention, rng,
         args.prompt_len + args.new_tokens)
-    launches["decode_attention"] = phase("6 LM", phase_lm, args)
+    lm_attn = phase("6 LM", phase_lm, args)
+    moe_attn = phase("6b MoE", phase_moe, args)
+    launches["decode_attention"] = lm_attn + moe_attn
+    print(f"decode_attention launches on the main paths: llama3.2-1b "
+          f"{lm_attn} + qwen2-moe-a2.7b {moe_attn}")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items())
           + f"; total {sum(seconds.values()):.1f} s")

@@ -3,9 +3,8 @@
 The port's own numpy copy of ``repro/baselines/common.py``: the
 metrics (``macro_f1``, ``per_class_prf``, ``confusion_matrix``,
 ``flow_vote``) that ``serving.evaluate_quantized`` and the accuracy
-protocol read, and the flow-state features of the baselines.  The
-baselines themselves are not ported yet (ROADMAP.md, "Modules to
-port").
+protocol read, and the flow-state features that Leo, NetBeacon and N3IC
+(``leo.py``, ``netbeacon.py``, ``n3ic.py`` beside this module) build on.
 """
 
 from __future__ import annotations

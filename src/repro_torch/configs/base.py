@@ -182,12 +182,13 @@ def _ensure_imported() -> None:
     if _IMPORTED:
         return
     # import the config modules for their registration side effects: the
-    # dense GQA decoders served so far (MoE, MLA and the other families
-    # are ROADMAP items)
+    # GQA decoders served so far, dense and MoE (MLA and the other
+    # families are ROADMAP items)
     from repro_torch.configs import (  # noqa: F401
         gemma_7b,
         llama3_2_1b,
         qwen2_5_14b,
+        qwen2_moe_a2_7b,
         qwen3_4b,
     )
 

@@ -1,8 +1,8 @@
 """Uniform Model API: one facade over the model families.
 
-Port of ``repro/models/api.py`` for the ``transformer`` family (dense
-GQA); the other families raise ``NotImplementedError`` naming their
-ROADMAP item.  Provides:
+Port of ``repro/models/api.py`` for the ``transformer`` family (GQA,
+dense and MoE); MLA and the other families raise ``NotImplementedError``
+naming their ROADMAP item.  Provides:
   init_params(cfg)          — concrete (on a device) or abstract (meta)
   quantize_for_serving      — int8 weights + per-tensor/per-layer scales
   prefill / decode_step     — the serving entry points
@@ -13,6 +13,8 @@ ROADMAP item.  Provides:
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -20,7 +22,7 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
-from repro_torch.models.param import Registrar
+from repro_torch.models.param import Registrar, fill_drawn
 
 _FAMILIES: Dict[str, Any] = {"transformer": transformer}
 
@@ -44,12 +46,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, abstract: bool = False,
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple[str, ...]]]:
     """Returns (params, logical_axes): the reference's draws from
     ``seed``, cast to ``cfg.param_dtype`` on ``device`` (``None`` means
-    ``cuda``); ``abstract`` gives ``meta`` tensors and draws nothing."""
-    dev = torch.device("meta") if abstract else resolve_device(device)
-    reg = Registrar(abstract=abstract, seed=seed,
-                    dtype=getattr(torch, cfg.param_dtype), device=dev)
+    ``cuda``); ``abstract`` gives ``meta`` tensors and draws nothing.
+    The concrete parameters are filled in a pool of up to 8 threads, each
+    chunk by chunk (``param.fill_drawn``: the host holds one chunk a
+    parameter); each has its own generator, so the values are a
+    Registrar's."""
+    reg = Registrar(abstract=True, seed=seed,
+                    dtype=getattr(torch, cfg.param_dtype))
     _family(cfg).init_params(reg, cfg)
-    return reg.params, reg.axes
+    if abstract:
+        return reg.params, reg.axes
+    dev = resolve_device(device)
+    params = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+              for k, v in reg.params.items()}
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        for job in [pool.submit(fill_drawn, v, k, *reg.inits[k], seed)
+                    for k, v in params.items()]:
+            job.result()
+    return params, reg.axes
 
 
 _QUANT_SKIP = ("norm", "scale", "router", "gate_attn", "gate_mlp", "lam",
@@ -63,7 +77,9 @@ def quantize_for_serving(cfg: ModelConfig, params: Dict[str, Any],
 
     Matmul weights become int8 + a float32 per-tensor scale (per-layer for
     stacked weights), computed in float32 as the reference does, so the
-    int8 values are equal.  ``meta`` tensors give ``meta`` results.
+    int8 values are equal.  A stacked weight is quantized one layer at a
+    time (a float32 copy of the whole of qwen2-moe-a2.7b's experts would
+    not fit beside them).  ``meta`` tensors give ``meta`` results.
     """
     new_p, new_ax = {}, {}
     for k, v in params.items():
@@ -81,14 +97,16 @@ def quantize_for_serving(cfg: ModelConfig, params: Dict[str, Any],
             new_p[f"{k}_scale"] = torch.empty(sshape, dtype=torch.float32,
                                               device="meta")
         else:
-            w = v.to(torch.float32)
-            amax = w.abs().amax(dim=tuple(range(1, w.dim()))) if stacked \
-                else w.abs().amax()
-            scale = torch.clamp_min(amax, 1e-8) / 127.0
-            sc = scale.reshape(sshape + (1,) * (w.dim() - len(sshape)))
-            new_p[k] = torch.clamp(torch.round(w / sc), -127, 127) \
-                .to(torch.int8)
-            new_p[f"{k}_scale"] = scale
+            q = torch.empty(v.shape, dtype=torch.int8, device=v.device)
+            scales = []
+            for dst, src in (zip(q, v) if stacked else ((q, v),)):
+                w = src.to(torch.float32)
+                scale = torch.clamp_min(w.abs().amax(), 1e-8) / 127.0
+                dst.copy_(torch.clamp(torch.round(w / scale), -127, 127))
+                scales.append(scale)
+            new_p[k] = q
+            new_p[f"{k}_scale"] = torch.stack(scales) if stacked \
+                else scales[0]
         new_ax[f"{k}_scale"] = sax
     return new_p, new_ax
 

@@ -1,7 +1,7 @@
-"""Shared model layers: norms, RoPE, embeddings, attention, GLU MLP.
+"""Shared model layers: norms, RoPE, embeddings, attention, GLU MLP, MoE.
 
-Port of ``repro/models/layers.py`` (the dense-decoder subset; ``moe_ffn``
-and the ``chunked`` attention are ROADMAP items).  Functions take the
+Port of ``repro/models/layers.py`` (the decoder subset: dense and MoE;
+the ``chunked`` attention is a ROADMAP item).  Functions take the
 reference's flat parameter dict and keys, so parity stays key for key.
 
 Attention implementations (selected by ``cfg.attention_impl``):
@@ -356,13 +356,20 @@ def dense(params: Dict, path: str, x: torch.Tensor, eq: str) -> torch.Tensor:
     return y
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` op for op in x's dtype: 1 / (1 + exp(-x)), each
+    op rounded (``torch.sigmoid`` rounds once and differs from JAX in a
+    third of bfloat16 outputs)."""
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     """JAX's activations op for op in x's dtype, each op rounded as
     JAX rounds it (``torch.sigmoid`` / ``F.gelu`` round once at the end
     and differ from JAX in a third of bfloat16 outputs)."""
     if name == "silu":
-        # jax.nn.silu: x * sigmoid(x), sigmoid(x) = 1 / (1 + exp(-x))
-        return x * torch.reciprocal(1 + torch.exp(-x))
+        # jax.nn.silu: x * sigmoid(x)
+        return x * sigmoid(x)
     if name == "gelu":
         # jax.nn.gelu(approximate=True), sqrt(2/pi) rounded to x's dtype
         c = float(torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype))
@@ -387,3 +394,118 @@ def glu_mlp(params: Dict, path: str, x: torch.Tensor,
     u = einsum("...d,df->...f", x, W(params, f"{path}/wi_up"))
     h = _act(act, g) * u
     return einsum("...f,fd->...d", h, W(params, f"{path}/wo"))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sort-based capacity dispatch)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(reg: Registrar, path: str, d: int, moe) -> None:
+    e, f = moe.num_experts, moe.expert_d_ff
+    reg.param(f"{path}/router/w", (d, e), ("embed", "experts"),
+              init="normal", scale=d ** -0.5, dtype=F32)
+    for nm in ("wi_gate", "wi_up"):
+        reg.param(f"{path}/experts/{nm}", (e, d, f),
+                  ("experts", "embed", "ffn"), init="normal", scale=d ** -0.5)
+    reg.param(f"{path}/experts/wo", (e, f, d), ("experts", "ffn", "embed"),
+              init="normal", scale=f ** -0.5)
+    if moe.num_shared_experts:
+        init_glu_mlp(reg, f"{path}/shared", d, moe.shared_d_ff)
+        if moe.shared_gated:
+            reg.param(f"{path}/shared_gate/w", (d, 1), ("embed", "classes"),
+                      init="normal", scale=d ** -0.5)
+
+
+def _top_k(probs: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k``: the k largest along the last axis, ties to the lower
+    index (a stable descending sort keeps equal values in index order)."""
+    val, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return val[..., :k], idx[..., :k]
+
+
+def moe_ffn(params: Dict, path: str, x: torch.Tensor, moe, act: str
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B,S,d] -> (y [B,S,d], aux_loss scalar float32).
+
+    The reference's sort-based capacity dispatch: each (token, choice)
+    pair goes to its expert's next slot in the stable order of the
+    flattened choices, an expert keeps its first ``cap`` pairs and the
+    rest are dropped (at decode, B tokens give ``cap = max(1, int(1.25 *
+    B * k / e))``, 1 for B = 8 on 60 experts).  Nothing is read back to
+    the host (no ``bincount``: the counts are a ``scatter_add_``), so a
+    decode step with it can be captured as a CUDA graph.  Dropped pairs
+    write and read the spare row at ``e * cap`` (the reference's
+    ``mode="drop"`` / ``mode="fill"``).  The combine is deterministic:
+    each token's k weighted outputs are gathered and added in the order
+    the reference's scatter-add applies them (ascending sorted position),
+    not by an atomic ``index_add_``.  ``dispatch_chunks`` is ignored: in
+    the reference it bounds GSPMD's memory across devices, and on one
+    card the dispatch is one ``index_put_`` (the slots are unique, so the
+    reference's result is the same for any chunk count).
+    """
+    b, s, d = x.shape
+    t = b * s
+    e, k = moe.num_experts, moe.top_k
+    dev = x.device
+    xf = x.reshape(t, d)
+
+    logits = einsum("td,de->te", xf.to(F32), params[f"{path}/router/w"])
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_i = _top_k(probs, k)                         # [t,k]
+    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+
+    # aux load-balance loss (Switch-style)
+    experts = torch.arange(e, device=dev)
+    frac_tokens = torch.mean(
+        (top_i[..., None] == experts).to(F32).sum(1), dim=0)  # [e]
+    frac_probs = torch.mean(probs, dim=0)
+    aux = e * torch.sum(frac_tokens * frac_probs) * moe.aux_loss_weight
+
+    cap = max(1, int(moe.capacity_factor * t * k / e))
+    flat_e = top_i.reshape(-1)                              # [t*k]
+    sort_idx = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[sort_idx]
+    token_of = sort_idx // k
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(t * k, device=dev) - starts[sorted_e]
+    keep = pos_in_e < cap
+    slot = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)
+
+    # the dispatch buffer with the spare row the dropped pairs write
+    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
+    buf.index_put_((slot,), xf.index_select(0, token_of))
+    buf = buf[:e * cap].reshape(e, cap, d)
+
+    g = einsum("ecd,edf->ecf", buf, W(params, f"{path}/experts/wi_gate"))
+    u = einsum("ecd,edf->ecf", buf, W(params, f"{path}/experts/wi_up"))
+    h = _act(act, g) * u
+    y_e = einsum("ecf,efd->ecd", h, W(params, f"{path}/experts/wo"))
+
+    # combine: the spare row reads 0 (mode="fill"), weights 0 where dropped
+    y_flat = torch.cat([y_e.reshape(e * cap, d),
+                        y_e.new_zeros((1, d))], dim=0)
+    w = torch.where(keep, top_w.reshape(-1)[sort_idx], 0.0)  # [t*k]
+    contrib = y_flat.index_select(0, slot) * w[:, None].to(x.dtype)
+    # each token's k sorted positions, ascending: the scatter's add order
+    rank = torch.empty_like(sort_idx)
+    rank[sort_idx] = torch.arange(t * k, device=dev)
+    order = torch.sort(rank.reshape(t, k), dim=-1).values
+    parts = contrib.index_select(0, order.reshape(-1)).reshape(t, k, d)
+    y = torch.zeros((t, d), dtype=x.dtype, device=dev)
+    for j in range(k):
+        y = y + parts[:, j]
+
+    if moe.num_shared_experts:
+        sh = glu_mlp(params, f"{path}/shared", xf, act)
+        if moe.shared_gated:
+            # the raw weight, as the reference reads it (not W(): int8
+            # serving weights enter this product unscaled there too)
+            gate = sigmoid(einsum("td,dz->tz", xf,
+                                  params[f"{path}/shared_gate/w"]))
+            sh = sh * gate.to(x.dtype)
+        y = y + sh
+    return y.reshape(b, s, d), aux

@@ -10,12 +10,25 @@ makes ``meta`` tensors, the counterpart of ``jax.ShapeDtypeStruct``.
 
 Sharding has no meaning on one card: ``shard`` and ``replicate`` are the
 identity, kept so that the layer code reads as the reference does.
+
+A full-width model is billions of float64 normals (qwen2-moe-a2.7b's
+``layers/moe/experts/wi_gate`` alone is one stream of 4.15 B values, 33
+GB at once).  A concrete Registrar therefore fills each parameter's
+tensor, already on its device, from consecutive draws of at most
+``_CHUNK_ELEMS`` values (consecutive ``Generator.normal`` / ``uniform``
+calls continue one stream, so the values are the one-shot draw's), each
+cast on the host and copied over, so the host holds one chunk at a time
+(:func:`fill_drawn`).  ``api.init_params`` runs these fills for
+different parameters in a thread pool, from the ``inits`` an abstract
+Registrar records.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
+import math
+from typing import (Any, Callable, Dict, Iterable, Iterator, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -39,29 +52,69 @@ def _seed_for(path: str, seed: int) -> np.random.Generator:
     return np.random.default_rng(int.from_bytes(h[:8], "little"))
 
 
-def draw(path: str, shape: Sequence[int], init: str, scale: Optional[float],
-         seed: int) -> np.ndarray:
-    """The reference Registrar's float64 numpy draw for one parameter."""
-    shape = tuple(int(s) for s in shape)
+def _chunks(path: str, shape: Tuple[int, ...], init: str,
+            scale: Optional[float], seed: int, rows: int
+            ) -> Iterator[np.ndarray]:
+    """The reference Registrar's float64 draw for one parameter as
+    consecutive blocks of at most ``rows`` leading rows (a random draw
+    continues one generator's stream block to block)."""
+    if init in ("zeros", "ones"):
+        yield (np.zeros if init == "zeros" else np.ones)(shape)
+        return
     if init == "normal":
         if scale is None:
             # fan-in scaling over the last-but-one dims heuristically:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             scale = fan_in ** -0.5
-        return _seed_for(path, seed).normal(0.0, scale, size=shape)
-    if init == "zeros":
-        return np.zeros(shape)
-    if init == "ones":
-        return np.ones(shape)
-    if init == "uniform":
-        s = scale if scale is not None else 1.0
-        return _seed_for(path, seed).uniform(-s, s, size=shape)
-    raise ValueError(init)
+    elif init == "uniform":
+        scale = scale if scale is not None else 1.0
+    else:
+        raise ValueError(init)
+    rng = _seed_for(path, seed)
+    n = shape[0] if shape else 1
+    for lo in range(0, n, rows):
+        size = (min(rows, n - lo), *shape[1:]) if shape else ()
+        yield np.asarray(rng.normal(0.0, scale, size=size)
+                         if init == "normal"
+                         else rng.uniform(-scale, scale, size=size))
+
+
+def draw(path: str, shape: Sequence[int], init: str, scale: Optional[float],
+         seed: int) -> np.ndarray:
+    """The reference Registrar's float64 numpy draw for one parameter."""
+    shape = tuple(int(s) for s in shape)
+    return next(_chunks(path, shape, init, scale, seed, max(shape[:1],
+                                                            default=1)))
+
+
+# the most values one draw of a parameter makes at once (1 GiB of
+# float64); a longer draw continues its stream chunk by chunk
+_CHUNK_ELEMS = 1 << 27
+
+
+def fill_drawn(out: torch.Tensor, path: str, init: str,
+               scale: Optional[float], seed: int) -> torch.Tensor:
+    """Write :func:`draw`'s values for ``path`` into ``out`` (any device
+    and dtype), chunk by chunk along the leading axis: each chunk is
+    drawn in float64, cast to ``out``'s dtype on the host and copied."""
+    shape = tuple(out.shape)
+    rows = max(1, _CHUNK_ELEMS // max(math.prod(shape[1:]), 1))
+    lo = 0
+    for vals in _chunks(path, shape, init, scale, seed, rows):
+        part = torch.from_numpy(vals).to(out.dtype)
+        if vals.shape == shape:
+            out.copy_(part)
+        else:
+            out[lo:lo + len(vals)].copy_(part)
+            lo += len(vals)
+    return out
 
 
 class Registrar:
-    """Records parameter metadata; materializes concretely (on
-    ``device``) or abstractly (``meta`` tensors)."""
+    """Records parameter metadata (shape, dtype, logical axes, and the
+    draw's ``(init, scale)`` in ``inits``); materializes concretely (on
+    ``device``, each parameter drawn by :func:`fill_drawn`) or abstractly
+    (``meta`` tensors)."""
 
     def __init__(self, abstract: bool = False, seed: int = 0,
                  dtype: torch.dtype = torch.bfloat16,
@@ -72,6 +125,7 @@ class Registrar:
         self.device = torch.device("meta" if abstract else device)
         self.params: Dict[str, torch.Tensor] = {}
         self.axes: Dict[str, Axes] = {}
+        self.inits: Dict[str, Tuple[str, Optional[float]]] = {}
 
     def param(self, path: str, shape: Sequence[int], axes: Iterable[str],
               init: str = "normal", scale: Optional[float] = None,
@@ -84,13 +138,12 @@ class Registrar:
             raise ValueError(f"duplicate param {path}")
         dtype = dtype or self.default_dtype
         self.axes[path] = axes
-        if self.abstract:
-            val = torch.empty(shape, dtype=dtype, device="meta")
-        else:
-            # the float64 draw cast to dtype, bit for bit the reference's
-            # jnp.asarray cast of the same draw
-            val = torch.from_numpy(draw(path, shape, init, scale, self.seed)) \
-                .to(device=self.device, dtype=dtype)
+        self.inits[path] = (init, scale)
+        val = torch.empty(shape, dtype=dtype, device=self.device)
+        if not self.abstract:
+            # the float64 draw cast to dtype on the host, bit for bit the
+            # reference's jnp.asarray cast of the same draw
+            fill_drawn(val, path, init, scale, self.seed)
         self.params[path] = val
         return val
 

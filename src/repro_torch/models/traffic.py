@@ -202,7 +202,13 @@ def loss_fn(params: Dict, cfg: TrafficModelConfig, batch: Dict,
             ipd_log2: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, Dict]:
     """Weighted NLL (mean over the batch) and accuracy."""
-    logits = apply(params, cfg, batch["payload"], ipd_log2)
+    return nll_and_acc(apply(params, cfg, batch["payload"], ipd_log2), batch)
+
+
+def nll_and_acc(logits: torch.Tensor, batch: Dict
+                ) -> Tuple[torch.Tensor, Dict]:
+    """The weighted NLL of ``logits`` against ``batch["label"]`` (mean
+    over the batch; ``batch["weight"]`` when given) and the accuracy."""
     labels = batch["label"].long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[:, None])[:, 0]

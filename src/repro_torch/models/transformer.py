@@ -1,8 +1,12 @@
-"""Decoder-only transformer LM, dense GQA branch, config-driven.
+"""Decoder-only transformer LM, GQA branch (dense and MoE MLPs),
+config-driven.
 
 Port of ``repro/models/transformer.py`` for llama3.2-1b, qwen2.5-14b
-(QKV bias), qwen3-4b (qk-norm) and gemma-7b (GeGLU, embedding scale).
-MLA and MoE are ROADMAP items and raise.
+(QKV bias), qwen3-4b (qk-norm), gemma-7b (GeGLU, embedding scale) and
+qwen2-moe-a2.7b (``moe_ffn`` blocks; a config's ``first_dense_layers``
+are dense blocks ``layer{i}/`` ahead of the stacked ones, each with its
+own cache entries ``layer{i}/k``, ``layer{i}/v``).  MLA is a ROADMAP
+item and raises.
 
 Two serving entry points:
   - ``prefill``     — emits the KV cache + last-position logits
@@ -42,8 +46,7 @@ class _Step(NamedTuple):
     lengths: torch.Tensor
 
 
-_MLA_MOE = ("MLA attention and MoE MLPs are not ported yet (ROADMAP: the "
-            "other LM families)")
+_MLA = "MLA attention is not ported yet (ROADMAP: the other LM families)"
 
 
 # ---------------------------------------------------------------------------
@@ -62,9 +65,27 @@ class _Stacked:
                               ("layers", *axes), **kw)
 
 
-def _check_dense_gqa(cfg: ModelConfig) -> None:
-    if cfg.attention != "gqa" or cfg.moe.num_experts:
-        raise NotImplementedError(f"{cfg.name}: {_MLA_MOE}")
+class _Prefixed:
+    """Registrar view that prefixes a path (an unstacked layer)."""
+
+    def __init__(self, reg: Registrar, prefix: str):
+        self.reg, self.prefix = reg, prefix
+
+    def param(self, path, shape, axes, **kw):
+        return self.reg.param(f"{self.prefix}{path}", shape, axes, **kw)
+
+
+def _check_gqa(cfg: ModelConfig) -> None:
+    if cfg.attention != "gqa":
+        raise NotImplementedError(f"{cfg.name}: {_MLA}")
+
+
+def _n_dense_first(cfg: ModelConfig) -> int:
+    return cfg.moe.first_dense_layers if cfg.moe.num_experts else 0
+
+
+def _mlp_kind(cfg: ModelConfig) -> str:
+    return "moe" if cfg.moe.num_experts else "dense"
 
 
 def _init_attention(reg, cfg: ModelConfig, path: str = "attn") -> None:
@@ -90,17 +111,26 @@ def _init_attention(reg, cfg: ModelConfig, path: str = "attn") -> None:
                   dtype=F32)
 
 
-def _init_block(reg, cfg: ModelConfig) -> None:
+def _init_block(reg, cfg: ModelConfig, mlp_kind: str,
+                dense_ff: int = 0) -> None:
     L.init_rmsnorm(reg, "ln_attn", cfg.d_model)
     _init_attention(reg, cfg)
     L.init_rmsnorm(reg, "ln_mlp", cfg.d_model)
-    L.init_glu_mlp(reg, "mlp", cfg.d_model, cfg.d_ff)
+    if mlp_kind == "dense":
+        L.init_glu_mlp(reg, "mlp", cfg.d_model, dense_ff or cfg.d_ff)
+    else:
+        L.init_moe(reg, "moe", cfg.d_model, cfg.moe)
 
 
 def init_params(reg: Registrar, cfg: ModelConfig) -> None:
-    _check_dense_gqa(cfg)
+    _check_gqa(cfg)
     L.init_embedding(reg, "embed", cfg.vocab_size, cfg.d_model)
-    _init_block(_Stacked(reg, cfg.num_layers, "layers/"), cfg)
+    n_first = _n_dense_first(cfg)
+    for i in range(n_first):
+        _init_block(_Prefixed(reg, f"layer{i}/"), cfg, "dense",
+                    dense_ff=cfg.moe.first_dense_d_ff)
+    _init_block(_Stacked(reg, cfg.num_layers - n_first, "layers/"), cfg,
+                _mlp_kind(cfg))
     L.init_rmsnorm(reg, "ln_f", cfg.d_model)
     if not cfg.tie_embeddings:
         reg.param("head/w", (cfg.d_model, cfg.vocab_size),
@@ -164,11 +194,12 @@ def _attn_decode(p, cfg: ModelConfig, x, cache_l, step: _Step,
 # ---------------------------------------------------------------------------
 
 
-def _block_apply(p, cfg: ModelConfig, x, *, mode: str, cache_l=None,
-                 step: Optional[_Step] = None,
+def _block_apply(p, cfg: ModelConfig, x, mlp_kind: str, *, mode: str,
+                 cache_l=None, step: Optional[_Step] = None,
                  attn_backend: Optional[str] = None):
-    """Attention + dense GLU MLP, pre-norm residual; returns (x_out,
-    new_cache_entry)."""
+    """Attention + GLU MLP (dense) or ``moe_ffn`` (decode: on ``h[:,
+    None]``), pre-norm residual; returns (x_out, new_cache_entry).  The
+    MoE aux loss is a training term, and serving drops it."""
     h = L.rmsnorm(p, "ln_attn", x, cfg.norm_eps)
     if mode == "prefill":
         a, new_cache = _attn_prefill(p, cfg, h)
@@ -177,7 +208,13 @@ def _block_apply(p, cfg: ModelConfig, x, *, mode: str, cache_l=None,
                                     attn_backend=attn_backend)
     x = x + a
     h = L.rmsnorm(p, "ln_mlp", x, cfg.norm_eps)
-    return x + L.glu_mlp(p, "mlp", h, cfg.mlp_act), new_cache
+    if mlp_kind == "dense":
+        m = L.glu_mlp(p, "mlp", h, cfg.mlp_act)
+    elif mode == "decode":
+        m = L.moe_ffn(p, "moe", h[:, None], cfg.moe, cfg.mlp_act)[0][:, 0]
+    else:
+        m = L.moe_ffn(p, "moe", h, cfg.moe, cfg.mlp_act)[0]
+    return x + m, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -198,17 +235,26 @@ def _embed_in(params, cfg: ModelConfig, tokens):
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
             ) -> Tuple[Dict, torch.Tensor]:
     """tokens [B,S] -> (cache, last-position logits [B,V] float32)."""
-    _check_dense_gqa(cfg)
+    _check_gqa(cfg)
     x = _embed_in(params, cfg, tokens)
+    head_caches = []
+    for i in range(_n_dense_first(cfg)):
+        x, c = _block_apply(subtree(params, f"layer{i}/"), cfg, x, "dense",
+                            mode="prefill")
+        head_caches.append(c)
+    mlp_kind = _mlp_kind(cfg)
 
     def body(x, p_l):
-        return _block_apply(p_l, cfg, x, mode="prefill")
+        return _block_apply(p_l, cfg, x, mlp_kind, mode="prefill")
 
     x, caches = maybe_scan(body, x, subtree(params, "layers/"))
     x = L.rmsnorm(params, "ln_f", x[:, -1], cfg.norm_eps)
     logits = L.logits_head(params, x,
                            None if cfg.tie_embeddings else "head", "embed")
     cache: Dict[str, Any] = {f"scan/{k}": v for k, v in caches.items()}
+    for i, c in enumerate(head_caches):
+        for k, v in c.items():
+            cache[f"layer{i}/{k}"] = v
     cache["pos"] = torch.full((), tokens.shape[1], dtype=torch.int32,
                               device=tokens.device)
     return cache, logits
@@ -222,7 +268,7 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     that keeps the old dict sees the new rows).  Returns (the same
     tensors with ``pos + 1``, a new 0-d int32 tensor, and logits [B,V]
     float32).  Reads nothing back to the host."""
-    _check_dense_gqa(cfg)
+    _check_gqa(cfg)
     pos = cache["pos"]
     x = _embed_in(params, cfg, tokens)
     # the step's position index, positions and key counts, built once on
@@ -230,13 +276,21 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     b = x.shape[0]
     step = _Step(pos.reshape(1).long(), pos.expand(b),
                  (pos + 1).expand(b).contiguous())
+    for i in range(_n_dense_first(cfg)):
+        cl = {k.split("/", 1)[1]: v for k, v in cache.items()
+              if k.startswith(f"layer{i}/")}
+        x, _ = _block_apply(subtree(params, f"layer{i}/"), cfg, x, "dense",
+                            mode="decode", cache_l=cl, step=step,
+                            attn_backend=attn_backend)
+    mlp_kind = _mlp_kind(cfg)
     scan_cache = {k[len("scan/"):]: v for k, v in cache.items()
                   if k.startswith("scan/")}
 
     def body(x, xs):
         p_l, cl = xs
-        x, _ = _block_apply(p_l, cfg, x, mode="decode", cache_l=cl,
-                            step=step, attn_backend=attn_backend)
+        x, _ = _block_apply(p_l, cfg, x, mlp_kind, mode="decode",
+                            cache_l=cl, step=step,
+                            attn_backend=attn_backend)
         return x, None
 
     x, _ = maybe_scan(body, x, (subtree(params, "layers/"), scan_cache))
@@ -269,9 +323,20 @@ def _kv_load(cfg: ModelConfig, x):
 
 def cache_spec(cfg: ModelConfig, batch: int, smax: int) -> Dict[str, Tuple]:
     """name -> (shape, dtype, logical axes)."""
-    _check_dense_gqa(cfg)
+    _check_gqa(cfg)
     dt = torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
-    shp = (cfg.num_layers, batch, smax, cfg.num_kv_heads, cfg.head_dim)
-    ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
-    return {"scan/k": (shp, dt, ax), "scan/v": (shp, dt, ax),
-            "pos": ((), torch.int32, ())}
+    n_first = _n_dense_first(cfg)
+    out: Dict[str, Tuple] = {}
+
+    def entry(prefix, lead=()):
+        la = ("layers",) if lead else ()
+        shp = (*lead, batch, smax, cfg.num_kv_heads, cfg.head_dim)
+        ax = (*la, "batch", "kv_seq", "kv_heads", "head_dim")
+        out[f"{prefix}k"] = (shp, dt, ax)
+        out[f"{prefix}v"] = (shp, dt, ax)
+
+    for i in range(n_first):
+        entry(f"layer{i}/")
+    entry("scan/", lead=(cfg.num_layers - n_first,))
+    out["pos"] = ((), torch.int32, ())
+    return out

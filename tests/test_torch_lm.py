@@ -35,7 +35,8 @@ from repro_torch.models import api
 from repro_torch.models import layers as TL
 from repro_torch.models.param import params_from_numpy
 
-ARCHS = ("llama3.2-1b", "qwen3-4b", "qwen2.5-14b", "gemma-7b")
+ARCHS = ("llama3.2-1b", "qwen3-4b", "qwen2.5-14b", "gemma-7b",
+         "qwen2-moe-a2.7b")
 F32_OVER = dict(param_dtype="float32", activation_dtype="float32")
 
 
@@ -169,17 +170,24 @@ VARIANTS = {
     "int8_kv": (dict(kv_cache_dtype="int8"), 3e-2),
 }
 # every config in float32 and bf16; the op-for-op bf16 check once per
-# activation (SwiGLU, GeGLU) and the int8 KV cache once: the same code
+# activation (SwiGLU, GeGLU) and once for the MoE blocks (the combine's
+# add order, the shared expert's gate), the int8 KV cache once: the same
+# code
 CASES = [(a, v) for a in ARCHS for v in ("float32", "bf16")] + [
     ("llama3.2-1b", "bf16_unrolled"), ("gemma-7b", "bf16_unrolled"),
-    ("qwen3-4b", "int8_kv")]
+    ("qwen2-moe-a2.7b", "bf16_unrolled"), ("qwen3-4b", "int8_kv")]
 
 
 @pytest.mark.parametrize("arch,variant", CASES)
 def test_prefill_decode_match(arch, variant):
     over, tol = VARIANTS[variant]
     if tol is None:
-        tol = 1e-2 if arch == "gemma-7b" else 1e-5
+        # 1e-2 (about one bfloat16 ulp of the largest value): gemma's
+        # tanh (module docstring); on the MoE config one bfloat16 product
+        # of the V projection lands on a rounding boundary and rounds to
+        # the other neighbour (one cache element one ulp off; the logits
+        # measured within 3e-7)
+        tol = 1e-2 if arch in ("gemma-7b", "qwen2-moe-a2.7b") else 1e-5
     cfg_j, cfg_t = _both(arch, **over)
     jp, _ = japi.init_params(cfg_j, seed=0)
     tp = _converted(jp)
@@ -188,9 +196,41 @@ def test_prefill_decode_match(arch, variant):
     out, (jc, tc) = _run(cfg_j, cfg_t, jp, tp, toks)
     for i, (want, got) in enumerate(out):
         assert_close(want, got, tol, f"{arch} {variant} call {i}")
+    if cfg_t.moe.num_experts and variant in ("bf16", "int8_kv"):
+        _moe_cache_close(cfg_j, jp, toks, out, jc, tc, tol)
+        return
     for k in ("scan/k", "scan/v"):
         assert_close(to_numpy(jc[k]).astype(np.float32), tc[k].float(), tol,
                      f"{arch} {variant} {k}")
+
+
+def _moe_cache_close(cfg_j, jp, toks, out, jc, tc, tol):
+    """The MoE caches against the scanned bfloat16 reference.  Its fused
+    layer loop keeps float32 where the unrolled one rounds (module
+    docstring), and a router choice between two near-equal experts can
+    then fall the other way for a token: that token's K/V rows from the
+    next layer on differ by O(1) between the reference's own two loops.
+    The port is the unrolled reference op for op, so each cache is held
+    to the unrolled reference on the same tokens everywhere, and to the
+    scanned one on every row (layer, sequence, position) where the two
+    reference loops agree within ``tol``."""
+    b, s = toks.shape
+    cfg_u = dataclasses.replace(cfg_j, scan_layers=False)
+    ju, _ = japi.prefill(jp, cfg_u, {"tokens": jnp.asarray(toks)})
+    ju = japi.grow_cache(cfg_u, ju, b, s, s + len(out) - 1)
+    for want, _ in out[:-1]:
+        tok = np.argmax(want, -1).astype(np.int32)
+        ju, _ = japi.decode_step(jp, cfg_u, ju, jnp.asarray(tok))
+    for k in ("scan/k", "scan/v"):
+        scan = to_numpy(jc[k]).astype(np.float32)
+        unrolled = to_numpy(ju[k]).astype(np.float32)
+        got = tc[k].float().numpy()
+        assert_close(unrolled, got, tol, f"{k} against the unrolled loop")
+        agree = (np.abs(scan - unrolled) <= tol * np.abs(scan).max()
+                 ).all(axis=(-1, -2))
+        assert agree.mean() > 0.9, agree.mean()
+        assert_close(scan[agree], got[agree], tol,
+                     f"{k} where the reference's loops agree")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -250,7 +290,26 @@ def test_grow_cache_into_kept_buffers():
 
 
 def test_quantize_for_serving_matches():
-    cfg_j, cfg_t = _both("qwen2.5-14b")
+    _quantize_for_serving_matches("qwen2.5-14b")
+
+
+def test_quantize_for_serving_matches_moe():
+    """The MoE config: stacked expert weights [L, E, d, f] quantized one
+    layer at a time (a per-layer scale, as the reference's), the router
+    kept in float32; the shared expert's gate reads its raw int8 weight on
+    both sides.  The int8 model's logits are held to the reference
+    unrolled over layers: in its scanned loop a router choice between two
+    near-equal experts falls the other way for some token
+    (``_moe_cache_close``), which moves the logits by far more than a
+    rounding step."""
+    tq = _quantize_for_serving_matches("qwen2-moe-a2.7b", scan_layers=False)
+    assert tq["layers/moe/experts/wi_gate"].dtype == torch.int8
+    assert tq["layers/moe/experts/wi_gate_scale"].shape == (3,)
+    assert tq["layers/moe/router/w"].dtype == torch.float32
+
+
+def _quantize_for_serving_matches(arch, **over):
+    cfg_j, cfg_t = _both(arch, **over)
     jp, jax_axes = japi.init_params(cfg_j, seed=0)
     tp, axes = api.init_params(cfg_t, seed=0, device="cpu")
     assert axes == jax_axes
@@ -277,6 +336,7 @@ def test_quantize_for_serving_matches():
     out, _ = _run(cfg_j, cfg_t, jq, _converted(jq), toks, steps=1)
     for want, got in out:
         assert_close(want, got, 3e-2)
+    return tq
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -303,7 +363,10 @@ def test_registrar_draws_match(arch, monkeypatch):
     api._family(cfg_t).init_params(reg_t, cfg_t)
     for k, v in reg_j.params.items():
         assert v.dtype == np.float64
-        assert np.array_equal(v, reg_t.params[k].numpy()), k
+        got = reg_t.params[k].numpy()
+        # a parameter registered as float32 (norm scales; the MoE router)
+        # is that cast of the float64 draw
+        assert np.array_equal(v.astype(got.dtype), got), k
 
 
 def test_converter_is_bit_exact_and_copies():
@@ -341,12 +404,157 @@ def test_specs_and_param_counts_match():
 
 
 def test_unported_families_raise():
-    moe = dataclasses.replace(get_config("llama3.2-1b", reduced=True),
+    """MLA attention (deepseek-v2's) and the non-transformer families
+    raise, naming their ROADMAP item; MoE blocks are served."""
+    mla = dataclasses.replace(get_config("llama3.2-1b", reduced=True),
+                              attention="mla", kv_lora_rank=32,
                               moe=MoEConfig(num_experts=4, top_k=2,
                                             expert_d_ff=32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.init_params(moe, device="cpu")
+        api.init_params(mla, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.cache_specs(mla, 2, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.init_params(ModelConfig(name="m", family="ssm"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TL.attention(*(torch.zeros(1, 4, 2, 16),) * 3, impl="chunked")
+
+
+# -- MoE ----------------------------------------------------------------------
+
+
+def _moe_pair(moe, d=64, seed=0):
+    """The reference's init_moe params (float32) and the port's copy."""
+    reg = jparam.Registrar(seed=seed, dtype=jnp.float32)
+    JL.init_moe(reg, "moe", d, moe)
+    return reg.params, _converted(reg.params)
+
+
+MOE_SMALL = MoEConfig(num_experts=8, top_k=2, expert_d_ff=48,
+                      num_shared_experts=2, shared_d_ff=96,
+                      shared_gated=True)
+# qwen2-moe's routing (60 experts, top 4) at a narrow width
+MOE_WIDE = MoEConfig(num_experts=60, top_k=4, expert_d_ff=24,
+                     num_shared_experts=4, shared_d_ff=96, shared_gated=True)
+
+
+@pytest.mark.parametrize("chunks", [1, 2])
+@pytest.mark.parametrize("case", ["prefill", "decode_cap1"])
+def test_moe_ffn_matches(case, chunks):
+    """``moe_ffn`` against the reference's, float32 (1e-5 of the largest
+    output: the same products in another summation order), the aux loss
+    within 1e-6 relative.  "prefill": [2, 24] tokens on 8 experts, top 2
+    (cap 15); "decode_cap1": one token each of a
+    batch of 8 on 60 experts, top 4 (cap = max(1, int(1.25 * 8 * 4 /
+    60)) = 1, so an expert keeps only its first routed pair and the
+    others are dropped).  The reference dispatches in ``dispatch_chunks``
+    1 and 2 chunks; the port ignores the field (one dispatch on one
+    card) and matches both."""
+    moe = MOE_SMALL if case == "prefill" else MOE_WIDE
+    moe = dataclasses.replace(moe, dispatch_chunks=chunks)
+    shape = (2, 24, 64) if case == "prefill" else (8, 1, 64)
+    jp, tp = _moe_pair(moe)
+    jx, tx = _pair(np.random.default_rng(9), shape, "float32")
+    jy, jaux = JL.moe_ffn(jp, "moe", jx, moe, "silu")
+    ty, taux = TL.moe_ffn(tp, "moe", tx, moe, "silu")
+    assert ty.shape == shape and ty.dtype == torch.float32
+    assert_close(jy, ty, 1e-5, case)
+    assert float(taux) == pytest.approx(float(jaux), rel=1e-6)
+    # pairs were dropped: some expert was routed more than its capacity
+    logits = np.asarray(jx).reshape(-1, 64) @ np.asarray(jp["moe/router/w"])
+    top = np.argsort(-logits, axis=-1, kind="stable")[:, :moe.top_k]
+    counts = np.bincount(top.reshape(-1), minlength=moe.num_experts)
+    t = shape[0] * shape[1]
+    cap = max(1, int(moe.capacity_factor * t * moe.top_k / moe.num_experts))
+    assert cap == (1 if case == "decode_cap1" else 15)
+    assert counts.max() > cap, counts
+
+
+def test_moe_ffn_bf16_matches():
+    """bfloat16 activations and weights: the combine adds each token's k
+    outputs in the reference's scatter order and the shared gate's
+    sigmoid rounds op for op, so the port is within 1e-5 of the
+    reference's largest output."""
+    jp32, _ = _moe_pair(MOE_WIDE)
+    jp = {k: v if k.endswith("router/w") else v.astype(jnp.bfloat16)
+          for k, v in jp32.items()}
+    tp = _converted(jp)
+    jx, tx = _pair(np.random.default_rng(10), (8, 1, 64), "bfloat16")
+    jy, _ = JL.moe_ffn(jp, "moe", jx, MOE_WIDE, "silu")
+    ty, _ = TL.moe_ffn(tp, "moe", tx, MOE_WIDE, "silu")
+    assert ty.dtype == torch.bfloat16
+    assert_close(jy.astype(jnp.float32), ty.float(), 1e-5)
+
+
+def test_moe_top_k_breaks_ties_to_the_lower_index():
+    """``lax.top_k``'s tie order: equal probabilities go to the lower
+    expert first."""
+    probs = torch.tensor([[0.1, 0.3, 0.3, 0.3], [0.25, 0.25, 0.25, 0.25]])
+    val, idx = TL._top_k(probs, 2)
+    assert idx.tolist() == [[1, 2], [0, 1]]
+    j = JL.jax.lax.top_k(jnp.asarray(probs.numpy()), 2)
+    assert np.array_equal(np.asarray(j[1]), idx.numpy())
+
+
+@pytest.mark.parametrize("variant", ["float32", "bf16_unrolled"])
+def test_first_dense_layers_match(variant):
+    """A MoE config whose first layer is a dense block (``layer0/``, as
+    deepseek-v2's): the same params, cache entries and logits as the
+    reference through prefill and two decode steps (float32 and the
+    unrolled bfloat16 reference: 1e-5)."""
+    over = dict(F32_OVER if variant == "float32" else
+                dict(scan_layers=False))
+    cfg_j, cfg_t = _both("qwen2-moe-a2.7b", **over)
+    moe = dataclasses.replace(cfg_j.moe, first_dense_layers=1,
+                              first_dense_d_ff=80)
+    cfg_j = dataclasses.replace(cfg_j, moe=moe)
+    cfg_t = dataclasses.replace(cfg_t, moe=moe)
+    jp, jax_axes = japi.init_params(cfg_j, seed=0)
+    tp, axes = api.init_params(cfg_t, seed=0, device="cpu")
+    assert sorted(tp) == sorted(jp) and axes == jax_axes
+    assert tp["layer0/mlp/wi_gate"].shape == (64, 80)
+    assert tp["layers/moe/experts/wo"].shape[0] == cfg_t.num_layers - 1
+    tp = _converted(jp)
+    toks = np.random.default_rng(7).integers(0, cfg_j.vocab_size, (2, 20)
+                                             ).astype(np.int32)
+    out, (jc, tc) = _run(cfg_j, cfg_t, jp, tp, toks)
+    assert sorted(tc) == sorted(jc)
+    assert "layer0/k" in tc and tc["scan/k"].shape[0] == 2
+    for i, (want, got) in enumerate(out):
+        assert_close(want, got, 1e-5, f"call {i}")
+    for k in ("layer0/k", "layer0/v", "scan/k"):
+        assert_close(to_numpy(jc[k]).astype(np.float32), tc[k].float(),
+                     1e-5, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_registrar_chunked_threaded_draw_is_the_one_shot_draw(
+        dtype, monkeypatch):
+    """Chunks of 1000 values (each stacked expert weight [3, 8, 64, 96]
+    draws 6144-value layer slices row block by row block) filled in
+    ``api.init_params``'s thread pool give the one-shot draw of every
+    parameter, bit for bit, cast as the one-shot float64 draw casts."""
+    from repro_torch.models import param as tparam
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b", reduced=True),
+                              param_dtype=str(dtype).split(".")[1])
+    monkeypatch.setattr(tparam, "_CHUNK_ELEMS", 1000)
+    got, _ = api.init_params(cfg, seed=4, device="cpu")
+    one = tparam.Registrar(abstract=True, seed=4)
+    spec = {}
+    orig = tparam.Registrar.param
+
+    def record(self, path, shape, axes, init="normal", scale=None,
+               dtype=None):
+        spec[path] = (shape, init, scale)
+        return orig(self, path, shape, axes, init=init, scale=scale,
+                    dtype=dtype)
+
+    monkeypatch.setattr(tparam.Registrar, "param", record)
+    api._family(cfg).init_params(one, cfg)
+    for path, (shape, init, scale) in spec.items():
+        want = torch.from_numpy(tparam.draw(path, shape, init, scale, 4))
+        if got[path].dtype != torch.float32:
+            want = want.to(got[path].dtype)
+        assert torch.equal(got[path], want.to(got[path].dtype)), path
+    assert set(got) == set(spec)

@@ -1113,3 +1113,111 @@ def test_evaluate_quantized_cuda_matches_ref(cuda_device):
     r_r = serving.evaluate_quantized(qp, mcfg, x, y, backend="ref")
     assert np.array_equal(r_k["pred"], r_r["pred"])
     assert r_k["confusion"] == r_r["confusion"]
+
+
+# -- MoE serving and the baselines' device paths --------------------------------
+
+
+def _moe_case(dev, dtype, shape, seed=0):
+    """Reduced qwen2-moe routing (60 experts, top 4, 4 shared, gated) at
+    d = 64: the MoE config, its params and an input, on ``dev``."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models.param import Registrar
+
+    moe = MoEConfig(num_experts=60, top_k=4, expert_d_ff=24,
+                    num_shared_experts=4, shared_d_ff=96, shared_gated=True)
+    reg = Registrar(seed=seed, dtype=dtype, device="cpu")
+    L.init_moe(reg, "moe", 64, moe)
+    x = torch.from_numpy(np.random.default_rng(seed).normal(
+        0, 1, shape)).to(dtype)
+    return moe, {k: v.to(dev) for k, v in reg.params.items()}, x.to(dev)
+
+
+@pytest.mark.parametrize("shape", [(8, 1, 64), (2, 40, 64)])
+def test_moe_ffn_on_card_matches_cpu(shape, cuda_device):
+    """``moe_ffn`` in float32 on the card against the CPU: at decode (a
+    batch of 8, capacity 1, pairs dropped) and at a prefill shape; within
+    1e-5 of the largest output (float32 GEMMs in another order)."""
+    from _torch_parity import assert_close
+    from repro_torch.models import layers as L
+
+    moe, p, x = _moe_case(cuda_device, torch.float32, shape)
+    y, aux = L.moe_ffn(p, "moe", x, moe, "silu")
+    pc = {k: v.cpu() for k, v in p.items()}
+    y_cpu, aux_cpu = L.moe_ffn(pc, "moe", x.cpu(), moe, "silu")
+    assert_close(y_cpu, y, 1e-5)
+    assert float(aux) == pytest.approx(float(aux_cpu), rel=1e-5)
+
+
+def test_moe_combine_is_deterministic(cuda_device):
+    """bfloat16 ``moe_ffn`` at decode: two eager calls, and a CUDA-graph
+    replay of the same call, bit for bit (the combine adds in a fixed
+    order, no atomics)."""
+    from repro_torch.models import layers as L
+
+    moe, p, x = _moe_case(cuda_device, torch.bfloat16, (8, 1, 64))
+    a = L.moe_ffn(p, "moe", x, moe, "silu")[0]
+    b = L.moe_ffn(p, "moe", x, moe, "silu")[0]
+    assert torch.equal(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        L.moe_ffn(p, "moe", x, moe, "silu")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = L.moe_ffn(p, "moe", x, moe, "silu")[0]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, a)
+
+
+def test_moe_decode_graph_tokens_match_eager(cuda_device):
+    """The reduced qwen2-moe model served on the card: decode graph ==
+    eager (tokens, decode_attention launches), and float32 card tokens
+    == the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = get_config("qwen2-moe-a2.7b", reduced=True)
+    params, _ = api.init_params(cfg, seed=0, device=cuda_device)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (8, 16))
+    out = {}
+    for backend in ("eager", "graph"):
+        before = decode_attention_kernel.launches
+        eng = ServingEngine(cfg, params, ServeConfig(
+            max_new_tokens=6, step_backend=backend), device=cuda_device)
+        out[backend] = eng.generate({"tokens": toks})["tokens"].cpu()
+        assert decode_attention_kernel.launches - before == \
+            cfg.num_layers * 5
+    assert torch.equal(out["eager"], out["graph"])
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    p32, _ = api.init_params(cfg32, seed=0, device="cpu")
+    runs = {dev: ServingEngine(cfg32, p32, ServeConfig(max_new_tokens=6),
+                               device=dev).generate({"tokens": toks})
+            ["tokens"].cpu() for dev in (cuda_device, "cpu")}
+    assert torch.equal(runs[cuda_device], runs["cpu"])
+
+
+def test_baseline_trees_on_card_match_cpu(cuda_device):
+    """Leo's depth-10 tree and NetBeacon's forests, fitted once in numpy,
+    predict on the card what they predict on the CPU; the forest vote
+    breaks three-way ties to the lowest class there too."""
+    from repro_torch.baselines.leo import LeoModel
+    from repro_torch.baselines.netbeacon import NetBeaconModel, forest_vote
+
+    tr = make_flows("iscx", 200, seed=10, min_per_class=10)
+    te = make_flows("iscx", 80, seed=11, min_per_class=5)
+    for cls in (LeoModel, NetBeaconModel):
+        card, cpu = cls(7, device=cuda_device), cls(7, device="cpu")
+        card.fit(tr)
+        cpu.fit(tr)
+        assert_same(card.predict_packets(te), cpu.predict_packets(te))
+    votes = torch.tensor([[5, 1, 2, 4, 0, 6], [3, 1, 6, 4, 6, 6],
+                          [0, 2, 4, 1, 6, 6]], device=cuda_device)
+    assert forest_vote(votes, 7).tolist() == [0, 1, 2, 4, 6, 6]

@@ -162,7 +162,7 @@ def _arch(arch, **over):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-4b", "qwen2.5-14b",
-                                  "gemma-7b"])
+                                  "gemma-7b", "qwen2-moe-a2.7b"])
 def test_generate_tokens_match_float32_each_config(arch):
     """Each ported config in float32: the decode step body (the one the
     card captures as a graph, run eagerly here) gives the reference's
