@@ -124,13 +124,15 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    a pipe, and times them at [4, 4096] beside four one-pipe launches;
    the GEMM's step shapes (M x 4, M x 16) are timed beside _int_mm.
 5. GQA decode attention (``decode_attention``) against its plain version
-   in float32 and bfloat16, head dims 16-256, groups 1, 4, 5, 8, ragged
+   in float32 and bfloat16, head dims 16-256, groups 1, 4, 5, 8 and (D
+   128 and 256) 9, 12, 16, 32 (query heads in tiles of 8), ragged
    lengths with 1, S and an empty row (which must give 0), at the
-   full-width Llama decode shape and at a long-context shape (B=32,
-   S=32768); tolerances, element by element, 1e-5 in float32 (the
-   reference's own) and one ulp of the plain output plus 1e-5 in
-   bfloat16, which a planted fault (every row one tile short) must
-   break.  Timed beside its plain version and
+   full-width Llama and qwen2-moe decode shapes, at recurrentgemma-9b's
+   (B 8, one KV head, G 16, D 256, rings of 2048 keys, two of them full)
+   and at a long-context shape (B=32, S=32768); tolerances, element by
+   element, 1e-5 in float32 (the reference's own) and one ulp of the
+   plain output plus 1e-5 in bfloat16, which a planted fault (every row
+   one tile short) must break.  Timed beside its plain version and
    ``scaled_dot_product_attention`` (the library yardstick, never on the
    path), each against its bytes bound, with the split count the wrapper
    picks, the other split counts, GB/s and the share of the bound, and
@@ -165,11 +167,34 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    1e-3 on a float32 copy cut to the first 4 layers (at full depth it
    would not fit beside the bf16 model); the reduced model on the card
    against the CPU.
+6c. The ssm family: ``generate`` on the full-width ``mamba2-370m`` (48
+   layers, d_model 1024, SSM state 128, 32 heads; random bf16 weights
+   from ``--seed``), batch 8, the same prompt and new tokens: no kernel
+   of the port on its path (it has no attention), graph tokens and
+   counts == eager, ms a step of both in turns beside the step's bound
+   (every weight once, the float32 SSM states read and written), a
+   profile of the graph's decode loop (at most 3 launch calls a step),
+   an int8-weight generate, peak memory, the float32 decode recurrence
+   against a float32 prefill of the same tokens within 1e-3, the
+   reduced model on the card against the CPU; then ``long_500k``: batch
+   1, a 524288-token prefill and 8 decode steps, its seconds and peak
+   memory.
+6d. The hybrid family: ``generate`` on the full-width
+   ``recurrentgemma-9b`` (38 layers: 12 x (recurrent, recurrent,
+   attention) + 2 recurrent; d_model 4096, 16 query heads over 1 KV
+   head, D 256, a 2048-slot ring; 8.58 B parameters), batch 8, the same
+   prompt and new tokens: 12 ``decode_attention`` launches a step (G 16
+   on the kernel), graph == eager (and on a 2500-token prompt, whose
+   prefill rolls the ring), the checks of 6c, the bf16 tokens of the
+   einsum path's decode attention beside the kernel's (printed), and on
+   a float32 copy cut to the first 2 superblocks (6 layers): greedy
+   tokens of the kernel == the einsum path's, logits within 1e-3, and the
+   decode against a prefill within 1e-3.
 7. Each phase's seconds and the total, the ``kernels`` JSON line
    (``int8_gemm``'s launches count the CNN's and the RNN's main paths,
    the trained models' replays and the pipes and farm paths;
-   ``decode_attention``'s the llama and the MoE generates; the
-   ``*_pipes`` rows are the pipe-batched gates of 4f),
+   ``decode_attention``'s the llama, MoE and recurrentgemma generates;
+   the ``*_pipes`` rows are the pipe-batched gates of 4f),
    then the last line: ``{"ok": true, "device": {"platform": "gpu",
    ...}}``.
 
@@ -2721,6 +2746,16 @@ def phase_attention(rng, decode_s):
               f"{worst[dtype]:.3g}, at most {ratio[dtype]:.3g} of the "
               f"per-element tolerance ({ATTN_ULPS[dtype]:.3g} |plain| + "
               f"{ATTN_ATOL})")
+        # groups above one head tile of 8 (the TPU kernel takes any):
+        # ceil(G / 8) CTAs a KV head, the last tile masked
+        for g in (9, 12, 16, 32):
+            for d in (128, 256):
+                s = int(rng.integers(129, 700))
+                lens = [s, 1, 0] + list(rng.integers(1, s + 1, 2))
+                x = _attn_inputs(rng, 5, 2, g, d, s, dtype, lens)
+                err = check(dtype, x)
+                print(f"decode_attention {str(dtype)[6:]} B=5 S={s} Hkv=2 "
+                      f"G={g} D={d}: max|diff| {err:.3g}")
     # the Llama and qwen2-moe decode shapes (llama3.2-1b: Hkv 8, G 4,
     # D 64; qwen2-moe-a2.7b: Hkv 16, G 1 padded to 16 MMA rows, D 128;
     # batch 8, the generate's cache length) with ragged lengths, and the
@@ -2734,11 +2769,17 @@ def phase_attention(rng, decode_s):
     moe_in = _attn_inputs(rng, b, 16, 1, 128, decode_s, torch.bfloat16,
                           [decode_s] + list(rng.integers(1, decode_s + 1,
                                                          b - 2)) + [0])
+    # recurrentgemma-9b's decode shape: 16 query heads over one KV head
+    # (two head tiles), D 256, a ring of 2048 slots, full in two rows
+    rg_in = _attn_inputs(rng, 8, RG_HKV, RG_G, RG_D, RG_WIN, torch.bfloat16,
+                         [RG_WIN, RG_WIN] + list(rng.integers(1, RG_WIN, 5))
+                         + [0])
     long_s = 32768
     long_in = _attn_inputs(rng, 32, hkv, g, d, long_s, torch.bfloat16,
                            rng.integers(long_s // 2, long_s + 1, 32))
     for name, x in (("Llama decode shape", llama_in),
                     ("qwen2-moe decode shape", moe_in),
+                    ("recurrentgemma decode shape", rg_in),
                     (f"B=32 S={long_s}", long_in)):
         err = check(torch.bfloat16, x)
         lens_x = x[3]
@@ -2755,7 +2796,7 @@ def phase_attention(rng, decode_s):
     for dtype, r in ratio.items():
         require(r <= 1.0, f"decode_attention {dtype} max|diff| "
                 f"{worst[dtype]} over its tolerance ({r:.3g} of it)")
-    del llama_in, moe_in
+    del llama_in, moe_in, rg_in
 
     # timing at the decode shape: lengths mid-decode, four caches in turn
     # (4 x 34 MB > L2), as the 16 layers of one step read 16 caches
@@ -2798,6 +2839,7 @@ def phase_attention(rng, decode_s):
     row = {"max_abs_err": max(worst.values()), "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": lib_ms}
+    rg_turns(rng, sms)
     q, k, v, lens_l = long_in
     splits_l = num_splits(32, hkv, long_s, rows, sms)
     bound_l, by_l, byts_l = _attn_bound(q, k, lens_l)
@@ -2820,6 +2862,56 @@ def phase_attention(rng, decode_s):
     del sets, long_in, q, k, v
     torch.cuda.empty_cache()
     return row
+
+
+# recurrentgemma-9b's decode attention: one KV head, 16 query heads, D 256,
+# a ring of 2048 slots
+RG_HKV, RG_G, RG_D, RG_WIN = 1, 16, 256, 2048
+
+
+def rg_turns(rng, sms):
+    """Time the kernel at recurrentgemma-9b's decode shape (batch 8, full
+    rings: every step of a 4096-token prompt's decode reads all 2048
+    slots) in turns beside SDPA (``enable_gqa=True``), over four caches
+    in turn (4 x 16.8 MB > L2), as the 12 attention layers of a step read
+    12; the bytes bound counts each K/V row once, the kernel's two head
+    tiles read it twice."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention, head_tiles, num_splits, tile_rows)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    b = 8
+    sets = [_attn_inputs(rng, b, RG_HKV, RG_G, RG_D, RG_WIN, torch.bfloat16,
+                         [RG_WIN] * b) for _ in range(4)]
+    tiles = head_tiles(RG_G)
+    splits = num_splits(b, RG_HKV * tiles, RG_WIN, tile_rows(RG_D, 2, True),
+                        sms)
+    turns = [cold_ms([lambda x=x: decode_attention(*x) for x in sets]),
+             cold_ms([_sdpa(*x) for x in sets])]
+    turns += [cold_ms([lambda x=x: decode_attention(*x) for x in sets]),
+              cold_ms([_sdpa(*x) for x in sets])]
+    ms, lib_ms = turns[2], turns[3]
+    plain_ms = cold_ms([lambda x=x: decode_attention_ref(*x) for x in sets])
+    bound, by, byts = _attn_bound(sets[0][0], sets[0][1], sets[0][3])
+    print("  recurrentgemma decode shape in turns (kernel, sdpa, kernel, "
+          "sdpa): " + ", ".join(f"{t:.5f}" for t in turns) + " ms")
+    print(f"decode_attention recurrentgemma decode shape B={b} S={RG_WIN} "
+          f"Hkv={RG_HKV} Hq={RG_G} (G {RG_G}, {tiles} head tiles) D={RG_D} "
+          f"bf16 (full rings): kernel {ms:.5f} ms with {splits} splits "
+          f"({b * RG_HKV * tiles * splits} CTAs on {sms} SMs), plain "
+          f"{plain_ms:.5f} ms, sdpa {lib_ms:.5f} ms (device time, graph "
+          f"replay over 4 caches); bound {bound:.5f} ms ({by}, "
+          f"{byts / 1e6:.1f} MB, each K/V row once; the {tiles} head tiles "
+          f"read {tiles * (byts - 4 * b * RG_G * RG_D) / 1e6:.1f} MB of K/V)"
+          f"; kernel at {byts / ms / 1e6:.1f} GB/s, {bound / ms:.3f} of the "
+          f"bound, {lib_ms / ms:.3f}x sdpa's speed")
+    for sp in (1, 2, 4, 8):
+        if sp != splits:
+            t = cold_ms([lambda x=x: decode_attention(*x, splits=sp)
+                         for x in sets])
+            print(f"  recurrentgemma decode shape with {sp} splits: "
+                  f"{t:.5f} ms ({bound / t:.3f} of the bound)")
+    del sets
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -2860,7 +2952,8 @@ def compare_backends(eng, prompt, ref_tokens, what):
     return diff, rel, agree
 
 
-def profile_decode(eng, prompt, steps, what, bound_ms=WEIGHT_READ_MS):
+def profile_decode(eng, prompt, steps, what, bound_ms=WEIGHT_READ_MS,
+                   attn_layers=None):
     """``steps`` steps of the engine's decode loop under torch.profiler,
     replayed from the prompt's position after a generate (graph replays
     on a graph engine, the step body op by op on an eager one): ms a
@@ -2868,8 +2961,9 @@ def profile_decode(eng, prompt, steps, what, bound_ms=WEIGHT_READ_MS):
     the same steps timed just before without it), launch calls a step,
     top kernels.  On a graph engine the busy time is also read with CUDA
     events around back-to-back replays, as a cross-check; the profile
-    must hold as many of the port's kernels as the counters count.
-    Returns (ms a step, busy ms a step)."""
+    must hold as many of the port's kernels as the counters count, and
+    ``attn_layers`` (default: every layer) decode attention launches a
+    step.  Returns (ms a step, busy ms a step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2900,7 +2994,9 @@ def profile_decode(eng, prompt, steps, what, bound_ms=WEIGHT_READ_MS):
     kern = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
                   key=_dev_us, reverse=True)
     seen = counts_match_profile(kern, f"decode ({what})")
-    require(seen["decode_attention"] == eng.cfg.num_layers * steps,
+    if attn_layers is None:
+        attn_layers = eng.cfg.num_layers
+    require(seen["decode_attention"] == attn_layers * steps,
             f"decode ({what}): {seen['decode_attention']} attention "
             f"kernels for {steps} steps")
     busy = sum(_dev_us(a) for a in kern) / 1e6
@@ -3088,18 +3184,7 @@ def phase_lm(args):
     torch.cuda.empty_cache()
 
     # a small input against the CPU: the reduced model, float32
-    small = dataclasses.replace(get_config("llama3.2-1b", reduced=True),
-                                param_dtype="float32",
-                                activation_dtype="float32")
-    p_small, _ = api.init_params(small, seed=args.seed, device="cpu")
-    tok_small = prompt[:2, :16].cpu() % small.vocab_size
-    runs = {dev: ServingEngine(small, p_small, ServeConfig(max_new_tokens=8),
-                               device=dev).generate({"tokens": tok_small})
-            ["tokens"].cpu() for dev in ("cuda", "cpu")}
-    require(torch.equal(runs["cuda"], runs["cpu"]),
-            "reduced llama: card tokens differ from the CPU's")
-    print("reduced llama3.2-1b (float32), 8 new tokens: card (kernel) == "
-          "CPU (einsum path)")
+    reduced_card_vs_cpu(cfg.name, prompt[:2], args.seed, 16)
     return launches["decode_attention"]
 
 
@@ -3109,27 +3194,33 @@ MOE_CUT_LAYERS = 4     # depth of the float32 copy (57 GB at full depth)
 
 
 def _decode_bound(cfg, params, b, smax, routed=None):
-    """(ms, GB of weights, GB of K/V cache) a decode step reads at 3.35
-    TB/s: every weight but the embedding table (B rows of it are
-    gathered) and the whole K/V cache.  ``routed``: the experts the step
-    routes to, summed over its layers; only their weights count.  With
-    ``None`` every expert counts: the read volume of the port's capacity
-    dispatch, which runs each expert every step, not the step's bound."""
+    """(ms, GB of weights, GB of cache traffic) one decode step needs at
+    3.35 TB/s: every weight read once (an untied embedding table gives
+    the B rows gathered; a tied one is the logits head's operand, read
+    whole), the K/V cache (entries with a ``kv_seq`` axis, the hybrid's
+    rings included) read once, and the recurrent states and conv tails
+    (no ``kv_seq`` axis) read and written.  ``routed``: the experts the
+    step routes to, summed over its layers; only their weights count.
+    With ``None`` every expert counts: the read volume of the port's
+    capacity dispatch, which runs each expert every step, not the step's
+    bound."""
     from repro_torch.models import api
 
     w = 0.0
     for k, v in params.items():
-        if k.startswith("embed/"):
-            continue
         byts = v.numel() * v.element_size()
+        if k.startswith("embed/") and not cfg.tie_embeddings:
+            byts = b * cfg.d_model * v.element_size() if k.endswith(
+                "/table") else 0
         if routed is not None and "/experts/" in k \
                 and not k.endswith("_scale"):
             byts *= routed / (v.shape[0] * v.shape[1])   # [L, e, ...]
         w += byts
-    w += b * cfg.d_model * params["embed/table"].element_size()
-    kv = sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
-             for shape, dt, _ in api.cache_specs(cfg, b, smax).values())
-    return (w + kv) / HBM_BYTES_PER_S * 1e3, w / 1e9, kv / 1e9
+    cache = 0.0
+    for shape, dt, axes in api.cache_specs(cfg, b, smax).values():
+        n = math.prod(shape) * torch.empty((), dtype=dt).element_size()
+        cache += n if "kv_seq" in axes else 2 * n
+    return (w + cache) / HBM_BYTES_PER_S * 1e3, w / 1e9, cache / 1e9
 
 
 def _routed_experts(eng, prompt):
@@ -3310,18 +3401,341 @@ def phase_moe(args):
     torch.cuda.empty_cache()
 
     # the reduced model on the card against the CPU, float32
-    small = dataclasses.replace(get_config(cfg.name, reduced=True),
+    reduced_card_vs_cpu(cfg.name, prompt, args.seed, 16)
+    return launches["decode_attention"]
+
+
+# -- phases 6c and 6d: the sub-quadratic families ---------------------------
+
+RG_CUT_SUPERBLOCKS = 2  # depth of recurrentgemma's float32 copy: 6 layers
+
+
+def _init_model(cfg, seed):
+    """The full-width model's bf16 weights drawn on the card, with the
+    seconds and a printed summary."""
+    from repro_torch.models import api
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = api.init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params.values())
+    gb = sum(v.numel() * v.element_size() for v in params.values()) / 1e9
+    print(f"model: {cfg.name} ({cfg.family}) L={cfg.num_layers} "
+          f"d={cfg.d_model} V={cfg.vocab_size}: {n_params} parameters "
+          f"({gb:.3f} GB, bf16 but the float32 norms, decays and gates) "
+          f"drawn from seed {seed} in {t_init:.1f} s (8 parameters at a "
+          "time in a thread pool)")
+    return params
+
+
+def serve_subquadratic(cfg, params, prompt, n_new, attn_layers, bound_ms):
+    """The main path of a sub-quadratic family: ``generate`` on the decode
+    graph with the kernel counts at 0 just before it (``attn_layers``
+    decode attention launches a step, nothing else of the port's), graph
+    tokens and counts == the eager step's, ms a step of both in turns
+    beside the bound, and the graph's decode loop profiled.  Returns
+    (the generate's output, its launches, the graph engine)."""
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    b, s = prompt.shape
+    eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=n_new,
+                                                 attn_backend="cuda"),
+                        device="cuda")
+    eng_eager = ServingEngine(cfg, params, ServeConfig(
+        max_new_tokens=n_new, attn_backend="cuda", step_backend="eager"),
+        device="cuda")
+    for e in (eng, eng_eager):
+        e.generate({"tokens": prompt[:, :64]})
+    cap = eng.generate({"tokens": prompt})["capture_s"]
+    zero_counts()
+    out = eng.generate({"tokens": prompt})
+    launches = read_counts()
+    steps = n_new - 1
+    require(launches == {"fused_gate": 0, "fused_gate_prng": 0,
+                         "int8_gemm": 0,
+                         "decode_attention": attn_layers * steps},
+            f"{cfg.name} generate launches {launches}, want "
+            f"decode_attention = {attn_layers} layers x {steps} steps")
+    require(out["capture_s"] == 0.0, f"{cfg.name}: captured again")
+    toks = out["tokens"]
+    require(toks.shape == (b, n_new) and toks.dtype == torch.int32
+            and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"{cfg.name} tokens {tuple(toks.shape)} {toks.dtype}")
+    print(f"generate ({cfg.name}, graph): batch {b}, prompt {s}, {n_new} "
+          f"new tokens: prefill {out['prefill_s']:.4f} s, decode "
+          f"{out['decode_s']:.4f} s for {steps} steps = "
+          f"{out['decode_s'] / steps * 1e3:.3f} ms a step, "
+          f"{out['decode_tok_per_s']:.1f} tok/s; capture {cap:.4f} s "
+          "(the warm-up on copies of pos and of every recurrent state); "
+          f"decode_attention launches {launches['decode_attention']} = "
+          f"{attn_layers} attention layers x {steps} steps; decode loop "
+          "under sync debug mode 'error'")
+    zero_counts()
+    out_e = eng_eager.generate({"tokens": prompt})
+    require(read_counts() == launches,
+            f"{cfg.name} eager launches {read_counts()} != graph {launches}")
+    require(torch.equal(out_e["tokens"], toks),
+            f"{cfg.name}: graph decode tokens differ from the eager decode's")
+    turns = {}
+    for name, e in (("eager", eng_eager), ("graph", eng), ("graph", eng),
+                    ("eager", eng_eager)):
+        r = e.generate({"tokens": prompt})
+        require(torch.equal(r["tokens"], toks), f"{cfg.name} {name} tokens "
+                "moved")
+        turns.setdefault(name, []).append(r)
+    for name, rs in turns.items():
+        print(f"decode ({cfg.name}, {name}): "
+              + ", ".join(f"{r['decode_s'] / steps * 1e3:.3f} ms a step = "
+                          f"{r['decode_tok_per_s']:.1f} tok/s" for r in rs)
+              + f" (in turns: eager, graph, graph, eager; bound "
+              f"{bound_ms:.3f} ms a step); prefill "
+              + ", ".join(f"{r['prefill_s']:.4f}" for r in rs)
+              + " s; greedy tokens graph == eager")
+    del eng_eager
+    profile_decode(eng, prompt, 16, f"{cfg.name} graph", round(bound_ms, 3),
+                   attn_layers=attn_layers)
+    return out, launches, eng
+
+
+def decode_vs_prefill(eng, prompt, forced, what):
+    """The decode path against the prefill path on the same tokens, in
+    float32: the logits of the last of n - 1 decode steps teacher-forced
+    on ``forced`` [B, n] after a prefill of ``prompt``, against a prefill
+    of the prompt followed by ``forced[:, :-1]`` (its last position): the
+    recurrences (and the ring) against the chunked SSD / the associative
+    scan (and the windowed band attention).  Returns max |diff| over the
+    largest logit."""
+    from repro_torch.models import api
+
+    lc = teacher_forced(eng, prompt, forced, "cuda")[:, -1]
+    full = torch.cat([prompt, forced[:, :-1]], dim=1)
+    _, lp = api.prefill(eng.params, eng.cfg, {"tokens": full})
+    require(bool(torch.isfinite(lc).all() and torch.isfinite(lp).all()),
+            f"{what}: non-finite logits")
+    rel = float((lc - lp).abs().max()) / float(lp.abs().max())
+    print(f"{what}: decode after a {prompt.shape[1]}-token prefill and "
+          f"{forced.shape[1] - 1} teacher-forced steps against one prefill "
+          f"of all {full.shape[1]} tokens, last logits: max|diff| = "
+          f"{rel:.3g} of the largest logit")
+    return rel
+
+
+def int8_generate(cfg, params, prompt, n_new, toks, bound_ms):
+    """An int8-weight generate (the FENIX Model Engine scheme on the LM;
+    ``conv/w`` enters the recurrent blocks raw, as in the reference)."""
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    eng8 = ServingEngine(cfg, params, ServeConfig(max_new_tokens=n_new,
+                                                  quant="int8"),
+                         device="cuda")
+    eng8.generate({"tokens": prompt[:, :64]})
+    out8 = eng8.generate({"tokens": prompt})
+    require(out8["tokens"].shape == toks.shape, f"{cfg.name} int8 shape")
+    agree8 = float((out8["tokens"] == toks).float().mean())
+    print(f"generate ({cfg.name}, int8 weights, graph): prefill "
+          f"{out8['prefill_s']:.4f} s, decode "
+          f"{out8['decode_s'] / (n_new - 1) * 1e3:.3f} ms a step = "
+          f"{out8['decode_tok_per_s']:.1f} tok/s (bf16 bound {bound_ms:.3f}"
+          f" ms); tokens equal to the bf16 run's: {agree8:.4f}")
+
+
+def reduced_card_vs_cpu(name, prompt, seed, s_small):
+    """The reduced model in float32, 8 new tokens after the first
+    ``s_small`` tokens of ``prompt`` (each row): the card (the decode
+    graph, the attention kernel) == the CPU (eager, the einsum path)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    small = dataclasses.replace(get_config(name, reduced=True),
                                 param_dtype="float32",
                                 activation_dtype="float32")
-    p_small, _ = api.init_params(small, seed=args.seed, device="cpu")
-    tok_small = prompt[:, :16].cpu() % small.vocab_size
+    p_small, _ = api.init_params(small, seed=seed, device="cpu")
+    tok_small = prompt[:, :s_small].cpu() % small.vocab_size
     runs = {dev: ServingEngine(small, p_small, ServeConfig(max_new_tokens=8),
                                device=dev).generate({"tokens": tok_small})
             ["tokens"].cpu() for dev in ("cuda", "cpu")}
     require(torch.equal(runs["cuda"], runs["cpu"]),
-            "reduced qwen2-moe: card tokens differ from the CPU's")
-    print(f"reduced {cfg.name} (float32), batch 8, 8 new tokens: card "
-          "(kernel, graph) == CPU (einsum path, eager)")
+            f"reduced {name}: card tokens differ from the CPU's")
+    print(f"reduced {name} (float32), batch {prompt.shape[0]}, a "
+          f"{s_small}-token prompt, 8 new tokens: card (graph, kernel) == "
+          "CPU (eager, einsum path)")
+
+
+def phase_ssm(args):
+    """6c. Full-width mamba2-370m served on the card, then long_500k;
+    returns the decode attention launches of its main path (0: the family
+    has no attention)."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = get_config("mamba2-370m")
+    b, s, n_new = 8, args.prompt_len, args.new_tokens
+    rng = np.random.default_rng(args.seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                              .astype(np.int32)).cuda()
+    params = _init_model(cfg, args.seed)
+    bound_ms, w_gb, c_gb = _decode_bound(cfg, params, b, s + n_new)
+    print(f"decode step bound ({cfg.name}, batch {b}): {w_gb:.3f} GB of "
+          f"weights + {c_gb:.3f} GB of state traffic (the float32 SSM "
+          f"states and conv tails read and written) at 3.35 TB/s = "
+          f"{bound_ms:.3f} ms")
+    out, launches, eng = serve_subquadratic(cfg, params, prompt, n_new, 0,
+                                            bound_ms)
+    toks = out["tokens"]
+    del eng
+    int8_generate(cfg, params, prompt, n_new, toks, bound_ms)
+    print(f"peak memory of phase 6c (batch {b}): "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # float32 at full width: the decode recurrence against the chunked
+    # SSD prefill over the same tokens
+    p32 = {k: v.float() for k, v in params.items()}
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    eng32 = ServingEngine(cfg32, p32, ServeConfig(max_new_tokens=n_new),
+                          device="cuda")
+    rel = decode_vs_prefill(eng32, prompt, toks, f"{cfg.name} float32")
+    require(rel <= 1e-3, f"{cfg.name} float32 decode off the prefill by "
+            f"{rel}")
+    del eng32, p32
+    torch.cuda.empty_cache()
+    reduced_card_vs_cpu(cfg.name, prompt, args.seed, 45)
+
+    # long_500k: batch 1, a 524288-token prefill, 8 decode steps
+    shape = SHAPES["long_500k"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prompt_l = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (shape.global_batch, shape.seq_len))
+        .astype(np.int32)).cuda()
+    eng_l = ServingEngine(cfg, params, ServeConfig(max_new_tokens=9),
+                          device="cuda")
+    out_l = eng_l.generate({"tokens": prompt_l})
+    peak_l = torch.cuda.max_memory_allocated() / 1e9
+    cache_l = eng_l._decode_bufs[(shape.global_batch, shape.seq_len)]["cache"]
+    require(int(cache_l["pos"]) == shape.seq_len + 8, "long_500k position")
+    require(bool(torch.isfinite(cache_l["scan/h"]).all()),
+            "long_500k: non-finite SSM state")
+    tl = out_l["tokens"]
+    require(bool(((tl >= 0) & (tl < cfg.vocab_size)).all()),
+            "long_500k token outside the vocabulary")
+    print(f"long_500k ({cfg.name}): batch {shape.global_batch}, a "
+          f"{shape.seq_len}-token prefill in {out_l['prefill_s']:.3f} s "
+          f"({shape.seq_len / out_l['prefill_s']:.0f} tok/s), capture "
+          f"{out_l['capture_s']:.3f} s, 8 decode steps in "
+          f"{out_l['decode_s'] * 1e3:.3f} ms = "
+          f"{out_l['decode_s'] / 8 * 1e3:.3f} ms a step (the state is O(1):"
+          f" the same step as at 4096 tokens, batch 1); peak memory "
+          f"{peak_l:.2f} GB; the SSM state finite after 8 steps")
+    del eng_l, params
+    torch.cuda.empty_cache()
+    return launches["decode_attention"]
+
+
+def phase_hybrid(args):
+    """6d. Full-width recurrentgemma-9b served on the card; returns the
+    decode attention launches of its main path's generate."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = get_config("recurrentgemma-9b")
+    b, s, n_new = 8, args.prompt_len, args.new_tokens
+    pat = cfg.hybrid.pattern
+    attn_layers = sum(pat[i % len(pat)] == "attention"
+                      for i in range(cfg.num_layers))
+    win = cfg.hybrid.attention_window
+    rng = np.random.default_rng(args.seed + 1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                              .astype(np.int32)).cuda()
+    params = _init_model(cfg, args.seed)
+    bound_ms, w_gb, c_gb = _decode_bound(cfg, params, b, s + n_new)
+    print(f"decode step bound ({cfg.name}, batch {b}): {w_gb:.3f} GB of "
+          f"weights + {c_gb:.3f} GB of cache traffic ({attn_layers} rings "
+          f"of {win} K/V slots read; the RG-LRU states and conv tails read "
+          f"and written) at 3.35 TB/s = {bound_ms:.3f} ms; decode attention"
+          f" at {cfg.num_heads} query heads over {cfg.num_kv_heads} KV head"
+          f" (G {cfg.num_heads // cfg.num_kv_heads}), D {cfg.head_dim}")
+    out, launches, eng = serve_subquadratic(cfg, params, prompt, n_new,
+                                            attn_layers, bound_ms)
+    toks = out["tokens"]
+    # a prompt that is not a multiple of the window (the prefill's roll
+    # is not the identity): graph == eager there too
+    s2 = 2500
+    eng_eager = ServingEngine(cfg, params, ServeConfig(
+        max_new_tokens=n_new, attn_backend="cuda", step_backend="eager"),
+        device="cuda")
+    r2 = {name: e.generate({"tokens": prompt[:, :s2]})
+          for name, e in (("graph", eng), ("eager", eng_eager))}
+    require(torch.equal(r2["graph"]["tokens"], r2["eager"]["tokens"]),
+            f"{cfg.name}, a {s2}-token prompt: graph tokens differ from "
+            "the eager decode's")
+    print(f"generate ({cfg.name}, a {s2}-token prompt: {s2} % {win} = "
+          f"{s2 % win}): graph == eager tokens; decode "
+          f"{r2['graph']['decode_s'] / (n_new - 1) * 1e3:.3f} ms a step "
+          f"(graph), {r2['eager']['decode_s'] / (n_new - 1) * 1e3:.3f} "
+          "(eager)")
+    del eng_eager
+    eng_ref = ServingEngine(cfg, params, ServeConfig(max_new_tokens=n_new,
+                                                     attn_backend="ref"),
+                            device="cuda")
+    zero_counts()
+    out_ref = eng_ref.generate({"tokens": prompt})
+    require(read_counts()["decode_attention"] == 0,
+            "the ref backend launched the kernel")
+    print(f"generate ({cfg.name}, attn ref, graph): decode "
+          f"{out_ref['decode_s'] / (n_new - 1) * 1e3:.3f} ms a step; "
+          "bf16 free-running greedy tokens equal to the kernel run's: "
+          f"{float((out_ref['tokens'] == toks).float().mean()):.4f} (the "
+          "kernel keeps p in float32, the einsum path casts it to bf16; "
+          "equal tokens are required in float32, below)")
+    del eng_ref, eng
+    int8_generate(cfg, params, prompt, n_new, toks, bound_ms)
+    print(f"peak memory of phase 6d: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (weights, "
+          "engines' caches, prefill, the int8 copy)")
+
+    # float32 on a cut of whole (r, r, a) superblocks of the same weights
+    cut = RG_CUT_SUPERBLOCKS
+    cfg32 = dataclasses.replace(cfg, num_layers=cut * len(pat),
+                                param_dtype="float32",
+                                activation_dtype="float32")
+    p32 = {k: (v[:cut] if k.startswith("sb/") else v).float()
+           for k, v in params.items() if not k.startswith("tail/")}
+    del params
+    torch.cuda.empty_cache()
+    what = f"{cfg.name} float32, {cfg32.num_layers} layers"
+    runs = {}
+    for backend in ("ref", "cuda"):
+        e32 = ServingEngine(cfg32, p32, ServeConfig(max_new_tokens=n_new,
+                                                    attn_backend=backend),
+                            device="cuda")
+        zero_counts()
+        runs[backend] = e32.generate({"tokens": prompt})["tokens"]
+        require(read_counts()["decode_attention"] ==
+                (cut * pat.count("attention") * (n_new - 1)
+                 if backend == "cuda" else 0),
+                f"{what}: decode attention launches {read_counts()}")
+    require(torch.equal(runs["ref"], runs["cuda"]),
+            f"{what}: the kernel's greedy tokens differ from the einsum "
+            "path's")
+    print(f"{what}: greedy tokens attn cuda == attn ref over {n_new} tokens")
+    _, rel32, _ = compare_backends(e32, prompt, runs["ref"], what)
+    require(rel32 <= 1e-3, f"{what}: logits off by {rel32}")
+    rel = decode_vs_prefill(e32, prompt, runs["cuda"], what)
+    require(rel <= 1e-3, f"{what}: decode off the prefill by {rel}")
+    del e32, p32
+    torch.cuda.empty_cache()
+    reduced_card_vs_cpu(cfg.name, prompt, args.seed, 45)
     return launches["decode_attention"]
 
 
@@ -3396,9 +3810,13 @@ def main():
         args.prompt_len + args.new_tokens)
     lm_attn = phase("6 LM", phase_lm, args)
     moe_attn = phase("6b MoE", phase_moe, args)
-    launches["decode_attention"] = lm_attn + moe_attn
+    ssm_attn = phase("6c ssm", phase_ssm, args)
+    hybrid_attn = phase("6d hybrid", phase_hybrid, args)
+    launches["decode_attention"] = lm_attn + moe_attn + ssm_attn \
+        + hybrid_attn
     print(f"decode_attention launches on the main paths: llama3.2-1b "
-          f"{lm_attn} + qwen2-moe-a2.7b {moe_attn}")
+          f"{lm_attn} + qwen2-moe-a2.7b {moe_attn} + mamba2-370m "
+          f"{ssm_attn} + recurrentgemma-9b {hybrid_attn}")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items())
           + f"; total {sum(seconds.values()):.1f} s")

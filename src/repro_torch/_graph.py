@@ -13,7 +13,8 @@ every kernel's once-per-process attributes and the libraries' lazy state
 outside the capture.  It runs on ``bufs`` themselves, except at the key
 paths named ``scratch``, which it reads and writes on copies: the state
 that the warm-up must not advance (a system's threefry key, bucket,
-queues and delay line; a decode step's position).  Its kernel launches
+queues and delay line; a decode step's position and recurrent
+states).  Its kernel launches
 are not counted, and neither are those recorded during capture; each
 replay counts the launches recorded at capture in the kernel wrappers'
 ``launches``, so a replayed path reads the same counts as the eager one.

@@ -182,14 +182,16 @@ def _ensure_imported() -> None:
     if _IMPORTED:
         return
     # import the config modules for their registration side effects: the
-    # GQA decoders served so far, dense and MoE (MLA and the other
-    # families are ROADMAP items)
+    # GQA decoders served so far, dense and MoE, the ssm and the hybrid
+    # family (MLA, encdec and vlm are ROADMAP items)
     from repro_torch.configs import (  # noqa: F401
         gemma_7b,
         llama3_2_1b,
+        mamba2_370m,
         qwen2_5_14b,
         qwen2_moe_a2_7b,
         qwen3_4b,
+        recurrentgemma_9b,
     )
 
     _IMPORTED = True

@@ -114,6 +114,16 @@ def _running_count(slot: torch.Tensor) -> torch.Tensor:
     return run
 
 
+def _running_count_dense(slot: torch.Tensor) -> torch.Tensor:
+    """O(n^2) reference for :func:`_running_count`: each packet's count
+    of earlier packets with its slot, from the [n, n] equality matrix
+    below the diagonal."""
+    n = slot.shape[0]
+    eq = slot[None, :] == slot[:, None]
+    tri = torch.ones((n, n), dtype=torch.bool, device=slot.device).tril(-1)
+    return (eq & tri).sum(dim=1).to(I32)
+
+
 def process_batch_fast(state: Dict, packets: Dict, cfg: EngineConfig
                        ) -> Tuple[Dict, Dict]:
     """Vectorized admission (the simulator's fast path).
@@ -166,7 +176,8 @@ def process_pipes_fast(states: Dict, packets: Dict, local_cfg: EngineConfig
     stored = lanes(table("hash")[gslot])
     is_new = lanes(_first_occurrence(gslot, pipes * ls)) \
         & ((stored == 0) | (stored != h))
-    run = lanes(_running_count(gslot))
+    run = lanes(_running_count_dense(gslot) if cfg.dense_backlog
+                else _running_count(gslot))
     t_i = torch.clamp_min(ts - lanes(table("bklog_t")[gslot]), 0)
     c_i = torch.clamp_min(lanes(table("bklog_n")[gslot]), 0) + run
     keys = prng.split(states["rng_key"])

@@ -50,6 +50,10 @@ class EngineConfig:
     # kernel drawing its own bits) | "ref" (plain PyTorch); None runs the
     # kernel on CUDA tensors, "ref" on CPU ones
     gate_backend: Optional[str] = None
+    # use the O(n^2) dense backlog count instead of the sort/segment path
+    # (the reference implementation, kept for tests and the throughput
+    # bench; bit-identical results)
+    dense_backlog: bool = False
 
     @property
     def n_slots(self) -> int:

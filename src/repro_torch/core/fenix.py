@@ -134,6 +134,9 @@ _PKT_DTYPES = {"src_ip": np.int64, "dst_ip": np.int64,
 
 DRIVER_NAMES = ("host", "device", "pipes", "farm")
 
+# the pre-driver= boolean selector cube, kept as a deprecation shim
+_LEGACY_KNOBS = ("fast_mode", "device_path", "pipes_path", "farm_path")
+
 
 @dataclasses.dataclass
 class FenixConfig:
@@ -163,8 +166,17 @@ class FenixConfig:
     # how the device, pipes and farm drivers run their chunk step: "graph"
     # (CUDA graphs, the default on CUDA) | "eager" (the default on the CPU)
     step_backend: Optional[str] = None
+    # ---- deprecated spellings (pre-driver= API) ---------------------------
+    # None means "not passed".  Any explicit value is mapped onto
+    # driver=/exact= in __post_init__ with a single DeprecationWarning per
+    # construct, then cleared, as the reference does; new code uses driver=.
+    fast_mode: Optional[bool] = None         # deprecated: use exact=
+    device_path: Optional[bool] = None       # deprecated: use driver=
+    pipes_path: Optional[bool] = None        # deprecated: use driver="pipes"
+    farm_path: Optional[bool] = None         # deprecated: use driver="farm"
 
     def __post_init__(self):
+        self._resolve_legacy()
         if self.driver == "auto":
             self.driver = ("farm" if self.num_engines > 1 else
                            "pipes" if self.num_pipes > 1 else
@@ -186,6 +198,49 @@ class FenixConfig:
         validate_backend(self.gate_backend, "gate_backend")
         validate_backend(self.matmul_backend, "matmul_backend")
         validate_backend(self.step_backend, "step_backend")
+
+    def _resolve_legacy(self) -> None:
+        """Map the deprecated booleans onto driver= / exact= as the
+        reference's shim does (its warning and errors), then clear
+        them."""
+        legacy = {k: getattr(self, k) for k in _LEGACY_KNOBS
+                  if getattr(self, k) is not None}
+        if not legacy:
+            return
+        if self.driver != "auto":
+            raise ValueError(
+                "pass either driver= or the deprecated "
+                f"{sorted(legacy)} booleans, not both")
+        warnings.warn(
+            "FenixConfig(" + ", ".join(f"{k}={v}" for k, v in
+                                       sorted(legacy.items()))
+            + ") is deprecated; use FenixConfig(driver="
+              "\"auto\"|\"host\"|\"device\"|\"pipes\"|\"farm\") "
+              "(and exact=True for the per-packet scan-admission "
+              "host loop)", DeprecationWarning, stacklevel=4)
+        fm = legacy.get("fast_mode", True)
+        dp = legacy.get("device_path", True)
+        use_farm = (self.farm_path if self.farm_path is not None
+                    else self.num_engines > 1)
+        use_pipes = (self.pipes_path if self.pipes_path is not None
+                     else self.num_pipes > 1) or use_farm
+        if use_pipes and not (fm and dp):
+            raise ValueError(
+                "the sharded drivers run the vectorized device scan "
+                "only: FenixConfig(driver=\"pipes\"|\"farm\") cannot "
+                "be combined with the deprecated fast_mode or device_path "
+                "set to False")
+        if use_farm:
+            self.driver = "farm"
+        elif use_pipes:
+            self.driver = "pipes"
+        elif fm and dp:
+            self.driver = "device"
+        else:
+            self.driver = "host"
+            self.exact = self.exact or not fm
+        for k in _LEGACY_KNOBS:
+            setattr(self, k, None)
 
 
 def _tree_fill(verdict: torch.Tensor, pkt_len: torch.Tensor, tree: Dict,
@@ -738,9 +793,9 @@ class FenixSystem:
         self._dl_dirty = True
 
     # -- full-trace drivers -------------------------------------------------
-    def run_trace(self, trace=None, *, stream=None, labels_by_flow=None,
-                  source=None, adapter=None, trace_labels="auto",
-                  limit: Optional[int] = None) -> Dict[str, np.ndarray]:
+    def run_trace(self, trace=None, *, stream=None, source=None,
+                  adapter=None, limit: Optional[int] = None,
+                  **legacy) -> Dict[str, np.ndarray]:
         """Replay a trace on the configured driver; returns {"verdict": [n]
         int32} in arrival order.
 
@@ -751,12 +806,20 @@ class FenixSystem:
         chunking / overlap options.  On the device driver a path or a
         TraceSpec streams (module docstring) unless the system has oracle
         payloads; the host, pipes and farm drivers load it whole.
-        ``stream=``,
-        ``source=``, ``adapter=``, ``trace_labels=``, ``limit=`` and
-        ``labels_by_flow=`` are deprecated spellings of the same (a
-        ``DeprecationWarning``), as in the reference."""
-        trace = self._resolve_trace(trace, stream, labels_by_flow, source,
-                                    adapter, trace_labels, limit)
+        The keywords ``stream``, ``source``, ``adapter`` and ``limit``,
+        and in ``legacy`` the reference's ``trace_labels`` and
+        ``labels_by_flow``, are deprecated spellings of the same (a
+        ``DeprecationWarning``), as in the reference; any other keyword
+        raises ``TypeError``."""
+        unknown = sorted(set(legacy) - {"trace_labels", "labels_by_flow"})
+        if unknown:
+            raise TypeError("run_trace() got an unexpected keyword "
+                            f"argument {unknown[0]!r}")
+        trace = self._resolve_trace(trace, stream,
+                                    legacy.get("labels_by_flow"), source,
+                                    adapter,
+                                    legacy.get("trace_labels", "auto"),
+                                    limit)
         if isinstance(trace, TraceSpec) and self.cfg.driver == "device" \
                 and self.oracle is None:
             return self._run_trace_device_stream(trace)

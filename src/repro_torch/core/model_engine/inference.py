@@ -59,6 +59,10 @@ class EngineModel(nn.Module):
         self.register_buffer("ipd_log2_vals", vals)
 
     @property
+    def num_classes(self) -> int:
+        return self.cfg.num_classes
+
+    @property
     def qparams(self) -> Dict:
         qp = dict(self._scalars)
         qp.update({k: getattr(self, _buffer_name(k))

@@ -1,10 +1,11 @@
 """FENIX token-generation probability model (paper Eq. 2 + Appendix A).
 
 Port of ``repro/core/probability.py``: ``token_rate``, ``LUTConfig``,
-the numpy ``build_lut`` (the initial LUT) and ``lut_lookup_np`` (the LM
-serving gate's lookup), plus ``build_lut_torch``, the port of
-``probability_jnp`` / ``build_lut_jnp`` used by the in-loop
-control-plane rebuild.
+the numpy ``build_lut`` (the initial LUT), ``lut_lookup_np`` (the LM
+serving gate's lookup) and Appendix A's ``expected_period`` /
+``mean_period_over_flows`` (the fairness analysis), plus
+``build_lut_torch``, the port of ``probability_jnp`` / ``build_lut_jnp``
+used by the in-loop control-plane rebuild.
 
 ``build_lut_torch`` runs in eager float32, one op at a time, with every
 constant made float32 first, so each ``+ - * /`` rounds exactly as the
@@ -71,6 +72,19 @@ def lut_lookup_np(lut: np.ndarray, t_us: np.ndarray, c: np.ndarray,
     ti = np.clip(np.asarray(t_us) >> cfg.t_shift, 0, cfg.t_bins - 1)
     cj = np.clip(np.asarray(c) >> cfg.c_shift, 0, cfg.c_bins - 1)
     return lut[ti, cj]
+
+def expected_period(qi: float, n: float, q: float, v: float) -> float:
+    """Appendix A Eq. 6: E_i = (Q_i N + Q) / (2 Q_i V)."""
+    return (qi * n + q) / (2.0 * qi * v)
+
+
+def mean_period_over_flows(rates: np.ndarray, n: float, q: float,
+                           v: float) -> float:
+    """Appendix A Eq. 7-11: the rate-weighted mean period, == N/V."""
+    rates = np.asarray(rates, dtype=np.float64)
+    return float(np.sum(rates * np.array(
+        [expected_period(r, n, q, v) for r in rates])) / q)
+
 
 def _f32(x, device) -> torch.Tensor:
     # a fill, not a host-to-device copy: safe inside the replay loop

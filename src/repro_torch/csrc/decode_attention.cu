@@ -10,15 +10,22 @@
 //
 // with scores, maxima, sums and accumulators in float32, folded with the
 // TPU kernel's online-softmax step and its isinf guards, and out =
-// acc / max(l, 1e-30), so an empty row (len_b = 0) gives 0.
+// acc / max(l, 1e-30), so an empty row (len_b = 0) gives 0.  Any group
+// G >= 1, as the TPU kernel's (1, 1, G, D) query block takes: a CTA
+// computes one tile of at most kMaxGroup = 8 query heads of one KV head,
+// and a KV head has ceil(G / 8) tiles.
 //
 // Bound on the H100: bytes.  The valid K/V rows are read once (2 * len_b *
 // D * sizeof(kv) per KV head); each row is used by G query heads, ~2G
 // operations a byte in bf16, far under the card's ~295 operations a byte.
-// So the design is about bytes in flight on every SM.
+// So the design is about bytes in flight on every SM.  Above G = 8 each
+// head tile reads the rows again: ceil(G / 8) times in all (twice at
+// recurrentgemma-9b's G = 16), from L2 when the tiles of one KV head run
+// together (they are adjacent along grid y).
 //
-// Design (flash-decoding inside one launch).  The grid is (splits, Hkv, B),
-// launched as clusters of `splits` CTAs along x.  The capacity S is cut
+// Design (flash-decoding inside one launch).  The grid is (splits,
+// Hkv * ceil(G / 8), B), launched as clusters of `splits` CTAs along x;
+// blockIdx.y = KV head * tiles + head tile.  The capacity S is cut
 // into tiles of 2048 bytes of K per KV head (at least 16 rows on the
 // tensor cores); CTA c of a cluster owns the whole tiles
 // [c*T/splits, (c+1)*T/splits) of the T tiles, clipped at len_b, so no
@@ -73,7 +80,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;          // a warp's ring depth, CUDA-core kernel
 constexpr int kStepBytes = 2048;    // K bytes of one KV head a warp step
-constexpr int kMaxGroup = 8;        // query heads per KV head
+constexpr int kMaxGroup = 8;        // query heads of one CTA (a head tile)
 constexpr int kMaxSplits = 8;       // the portable cluster size
 constexpr int kPartHead = 2 * kMaxGroup;   // m[8], l[8] before acc
 
@@ -192,11 +199,11 @@ struct Cfg {
                 "a warp's partial fits its ring");
 };
 
-// Every warp has left its partial (m[8], l[8], acc[G][D], log2 units) at
-// the start of its own `warp_bytes` of shared memory.  Merge them in warp
-// order into the CTA's partial `cp`, then, across the cluster, merge the
-// CTAs' partials in rank order for this CTA's share of the G x D outputs
-// and store them.
+// Every warp has left its partial (m[8], l[8], acc[G][D], log2 units; G
+// the heads of the CTA's tile) at the start of its own `warp_bytes` of
+// shared memory.  Merge them in warp order into the CTA's partial `cp`,
+// then, across the cluster, merge the CTAs' partials in rank order for
+// this CTA's share of the G x D outputs and store them at out + q0.
 template <typename TKV, int D>
 __device__ __forceinline__ void merge_store(const unsigned char* smem,
                                             int warp_bytes, float* cp, int G,
@@ -271,11 +278,17 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
   const int splits = gridDim.x;
   const int split = static_cast<int>(cluster.block_rank());
-  const int h = blockIdx.y, b = blockIdx.z, hkv = gridDim.y;
+  // this CTA's head tile: query heads [g0, g0 + GT) of KV head h
+  const int n_tiles = (G + kMaxGroup - 1) / kMaxGroup;
+  const int h = blockIdx.y / n_tiles, b = blockIdx.z;
+  const int hkv = gridDim.y / n_tiles, g0 = blockIdx.y % n_tiles * kMaxGroup;
+  const int GT = min(kMaxGroup, G - g0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int part = lane % LPR, slot = lane / LPR;
   const int len = min(max(lengths[b], 0), S);
-  const int64_t q0 = (static_cast<int64_t>(b) * hkv * G + h * G) * D;
+  const int64_t q0 =
+      (static_cast<int64_t>(b) * hkv * G + static_cast<int64_t>(h) * G + g0) *
+      D;
   const TKV* kb = k + b * k_sb + static_cast<int64_t>(h) * D;
   const TKV* vb = v + b * v_sb + static_cast<int64_t>(h) * D;
 
@@ -298,7 +311,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
         qr[g][c * VEC + e] =
-            g < G ? q[q0 + g * D + (c * LPR + part) * VEC + e] : 0.f;
+            g < GT ? q[q0 + g * D + (c * LPR + part) * VEC + e] : 0.f;
   float m[GM], l[GM], acc[GM][EPL];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
@@ -363,7 +376,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     for (int r = 0; r < RPL; ++r)
 #pragma unroll
       for (int g = 0; g < GM; ++g)
-        if (g < G) {
+        if (g < GT) {
 #pragma unroll
           for (int o = LPR / 2; o > 0; o >>= 1)
             s[r][g] += __shfl_xor_sync(0xffffffffu, s[r][g], o);
@@ -371,7 +384,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     // online softmax of this lane group's rows (the TPU kernel's step)
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
-      if (g < G) {
+      if (g < GT) {
         float mt = -INFINITY;
 #pragma unroll
         for (int r = 0; r < RPL; ++r) {
@@ -402,7 +415,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                     vf + c * VEC);
 #pragma unroll
       for (int g = 0; g < GM; ++g)
-        if (g < G) {
+        if (g < GT) {
 #pragma unroll
           for (int e = 0; e < EPL; ++e)
             acc[g][e] = fmaf(s[r][g], vf[e], acc[g][e]);
@@ -417,7 +430,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   for (int o = LPR; o < 32; o <<= 1) {
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
-      if (g < G) {
+      if (g < GT) {
         const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
         const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
         const float mn = fmaxf(m[g], mo);
@@ -439,7 +452,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   if (slot == 0) {
 #pragma unroll
     for (int g = 0; g < GM; ++g)
-      if (g < G) {
+      if (g < GT) {
 #pragma unroll
         for (int c = 0; c < CPL; ++c)
 #pragma unroll
@@ -456,7 +469,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     }
   }
   merge_store<TKV, D>(smem, kStages * C::kStage,
-                      reinterpret_cast<float*>(smem + C::kRing), G, out, q0,
+                      reinterpret_cast<float*>(smem + C::kRing), GT, out, q0,
                       split, splits);
 }
 
@@ -466,8 +479,8 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 // reads of eight rows hit eight distinct bank groups), in a two-stage ring
 // (with five CTAs resident a SM, that keeps enough bytes in flight).
 // S = Q K^T and O += P V are mma.sync m16n8k16 products with float32
-// accumulation; the G query heads are rows 0..G-1 of a 16-row A (rows 8..15
-// are zero).  Lane (g = lane / 4, t = lane % 4) holds the scores of head g
+// accumulation; the tile's GT <= 8 query heads are rows 0..GT-1 of a 16-row
+// A (rows 8..15 are zero).  Lane (g = lane / 4, t = lane % 4) holds the scores of head g
 // at keys 2t, 2t+1 of each 8-key block, the layout of P's A fragment, so P
 // never leaves registers; P keeps float32 accuracy as a bf16 high half plus
 // a bf16 low half, two products.
@@ -508,11 +521,17 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
 
   const int splits = gridDim.x;
   const int split = static_cast<int>(cluster.block_rank());
-  const int h = blockIdx.y, b = blockIdx.z, hkv = gridDim.y;
+  // this CTA's head tile: query heads [g0, g0 + GT) of KV head h
+  const int n_tiles = (G + kMaxGroup - 1) / kMaxGroup;
+  const int h = blockIdx.y / n_tiles, b = blockIdx.z;
+  const int hkv = gridDim.y / n_tiles, g0 = blockIdx.y % n_tiles * kMaxGroup;
+  const int GT = min(kMaxGroup, G - g0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int len = min(max(lengths[b], 0), S);
-  const int64_t q0 = (static_cast<int64_t>(b) * hkv * G + h * G) * D;
+  const int64_t q0 =
+      (static_cast<int64_t>(b) * hkv * G + static_cast<int64_t>(h) * G + g0) *
+      D;
   const bf16* kb = k + b * k_sb + static_cast<int64_t>(h) * D;
   const bf16* vb = v + b * v_sb + static_cast<int64_t>(h) * D;
 
@@ -531,7 +550,7 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
   for (int kk = 0; kk < KD; ++kk)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
-      qa[kk][j] = g < G ? *reinterpret_cast<const uint32_t*>(
+      qa[kk][j] = g < GT ? *reinterpret_cast<const uint32_t*>(
                               q + q0 + g * D + 16 * kk + 8 * j + 2 * t)
                         : 0u;
   float m_r = -INFINITY, l_r = 0.f;   // head g; l_r: this lane's keys
@@ -646,7 +665,7 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
   // the warp's partial goes into its own ring, which it no longer reads
   __syncwarp();
   float* wp = reinterpret_cast<float*>(ring);
-  if (g < G) {
+  if (g < GT) {
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       wp[kPartHead + g * D + 8 * n + 2 * t] = o[n][0];
@@ -658,9 +677,12 @@ decode_attention_mma_kernel(const bf16* __restrict__ q,
     }
   }
   merge_store<bf16, D>(smem, C::kWarpBytes,
-                       reinterpret_cast<float*>(smem + C::kRing), G, out, q0,
+                       reinterpret_cast<float*>(smem + C::kRing), GT, out, q0,
                        split, splits);
 }
+
+// head tiles of one KV head: CTAs of at most kMaxGroup query heads
+inline int head_tiles(int g) { return (g + kMaxGroup - 1) / kMaxGroup; }
 
 // one call's arguments; max_clusters != nullptr asks for the occupancy
 // (cudaOccupancyMaxActiveClusters) instead of a launch
@@ -705,7 +727,7 @@ cudaError_t launch(const Args& a) {
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.splits, a.hkv, a.b);
+  cfg.gridDim = dim3(a.splits, a.hkv * head_tiles(a.g), a.b);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = a.stream;
@@ -735,16 +757,18 @@ cudaError_t dispatch_d(int d, const Args& a) {
 
 template <typename TQ, typename TKV>
 cudaError_t dispatch_g(int d, const Args& a) {
-  // the CUDA-core kernel's register arrays are sized for the group: 4
-  // query heads or 8 (the tensor-core kernel pads the group to 16 rows)
+  // the CUDA-core kernel's register arrays are sized for the head tile: 4
+  // query heads (G <= 4, one tile) or 8 (the tensor-core kernel pads a
+  // tile to 16 rows)
   if (a.g <= 4 && !std::is_same<TQ, bf16>::value)
     return dispatch_d<TQ, TKV, 4>(d, a);
   return dispatch_d<TQ, TKV, 8>(d, a);
 }
 
 cudaError_t dispatch(int d, int q_bf16, int kv_bf16, const Args& a) {
-  if (a.g < 1 || a.g > kMaxGroup || a.b < 1 || a.b > 65535 || a.hkv < 1 ||
-      a.hkv > 65535 || a.s < 0 || a.splits < 1 || a.splits > kMaxSplits ||
+  if (a.g < 1 || a.b < 1 || a.b > 65535 || a.hkv < 1 ||
+      static_cast<int64_t>(a.hkv) * head_tiles(a.g) > 65535 || a.s < 0 ||
+      a.splits < 1 || a.splits > kMaxSplits ||
       (a.splits & (a.splits - 1)) != 0)
     return cudaErrorInvalidValue;
   if (q_bf16 && kv_bf16) return dispatch_g<bf16, bf16>(d, a);
@@ -763,8 +787,8 @@ cudaError_t dispatch(int d, int q_bf16, int kv_bf16, const Args& a) {
 // float32): q and KV of one dtype, or a float32 q against a bfloat16 cache
 // (the int8-KV path loads as bfloat16); a bfloat16 q against a float32
 // cache has no caller and is refused.
-// D in {16, 32, 64, 128, 256}, 1 <= G <= 8, splits in {1, 2, 4, 8} (the
-// cluster size).  Launches on `stream`; returns the launch's cudaError
+// D in {16, 32, 64, 128, 256}, G >= 1 with Hkv * ceil(G / 8) <= 65535,
+// splits in {1, 2, 4, 8} (the cluster size).  Launches on `stream`; returns the launch's cudaError
 // (0 on success).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* lengths,
@@ -782,7 +806,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
 
 // How many clusters of `splits` CTAs of the kernel for (d, g, dtypes) the
 // card holds at once (cudaOccupancyMaxActiveClusters) for a grid of
-// (splits, hkv, b), into *clusters; returns the cudaError.
+// (splits, hkv * ceil(g / 8), b), into *clusters; returns the cudaError.
 extern "C" int decode_attention_max_clusters(int b, int hkv, int g, int d,
                                              int q_bf16, int kv_bf16,
                                              int splits, int* clusters) {

@@ -8,7 +8,10 @@ split-and-merge algorithm.
 The kernel splits each sequence across the CTAs of a thread-block
 cluster (flash-decoding in one launch).  How many, :func:`num_splits`
 decides on the host from shapes and the SM count only, so the decode
-loop never reads ``lengths`` back.
+loop never reads ``lengths`` back.  It takes any GQA group, as the TPU
+kernel does: a CTA computes a tile of at most ``GROUP_TILE`` query heads
+of one KV head, so a KV head's rows are read once a tile
+(:func:`head_tiles`: twice at recurrentgemma-9b's group of 16).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ _ARGTYPES = [_VP] * 5 + [_I] * 5 + [_LL] * 4 + [ctypes.c_float, _I, _I, _I,
                                                 _VP]
 _OCC_ARGTYPES = [_I] * 7 + [ctypes.POINTER(_I)]
 HEAD_DIMS = (16, 32, 64, 128, 256)
-MAX_GROUP = 8
+GROUP_TILE = 8                  # query heads of one CTA (kMaxGroup)
+MAX_GRID_Y = 65535              # KV heads x head tiles
 SPLITS = (1, 2, 4, 8)           # cluster sizes (8 is the portable most)
 STEP_BYTES = 2048               # K bytes of one KV head in a tile
 # num_splits: at most one wave of CTAs (five of the tensor-core kernel's
@@ -56,8 +60,14 @@ def tile_rows(d: int, kv_bytes: int, mma: bool) -> int:
     return max(rows, 16) if mma else rows
 
 
+def head_tiles(g: int) -> int:
+    """Head tiles (CTAs of at most ``GROUP_TILE`` query heads) of one KV
+    head at group ``g``."""
+    return -(-g // GROUP_TILE)
+
+
 def num_splits(b: int, hkv: int, s: int, rows: int, sm_count: int) -> int:
-    """CTAs per (batch row, KV head), from shapes and the SM count only (a
+    """CTAs per (batch row, head tile), from shapes and the SM count only (a
     row's split past its length reads nothing, so ``lengths`` is never
     read): double from 1 while the CTAs do not cover the SMs once; past
     that, double while the CTAs stay within ``MAX_CTAS_PER_SM`` a SM (one
@@ -65,8 +75,8 @@ def num_splits(b: int, hkv: int, s: int, rows: int, sm_count: int) -> int:
     capacity ``s`` (more, shorter CTAs even out rows of unequal length,
     but each adds a partial to merge).  Never above 8 (the portable
     cluster) or the tiles (of ``rows``, :func:`tile_rows`) of ``s``, so
-    no split is empty by capacity.  The group size does not enter: it
-    changes the work a row, not the bytes a CTA reads."""
+    no split is empty by capacity.  ``hkv`` counts the head tiles of every
+    KV head (``hkv * head_tiles(g)``): each is a cluster of its own."""
     tiles = -(-s // rows)
     splits = 1
     while splits < SPLITS[-1] and 2 * splits <= tiles:
@@ -115,9 +125,10 @@ class _DecodeAttention:
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor,
                  splits: Optional[int] = None) -> torch.Tensor:
-        """q [B,Hq,D] contiguous; k, v [B,S,Hkv,D] read in place (any
-        batch and sequence strides; each row of one head contiguous and
-        16-byte aligned); lengths [B] int32; all on one CUDA device.
+        """q [B,Hq,D] contiguous, Hq any multiple of Hkv; k, v
+        [B,S,Hkv,D] read in place (any batch and sequence strides; each
+        row of one head contiguous and 16-byte aligned); lengths [B]
+        int32; all on one CUDA device.
         q and k/v of one dtype (float32 or bfloat16), or a float32 q with
         bfloat16 k/v.  ``splits`` (1, 2, 4 or 8, at most the tiles of S)
         overrides :func:`num_splits`, for measurement.  Returns
@@ -135,10 +146,15 @@ class _DecodeAttention:
         if d not in HEAD_DIMS:
             raise ValueError(f"decode_attention: head_dim {d} not in "
                              f"{HEAD_DIMS}")
-        if hq % hkv or not 1 <= hq // hkv <= MAX_GROUP:
+        if hkv < 1 or hq % hkv or hq == 0:
             raise ValueError(f"decode_attention: {hq} query heads over "
-                             f"{hkv} KV heads; the group must be 1..."
-                             f"{MAX_GROUP}")
+                             f"{hkv} KV heads; the query heads must be a "
+                             "multiple of the KV heads")
+        g = hq // hkv
+        if hkv * head_tiles(g) > MAX_GRID_Y:
+            raise ValueError(f"decode_attention: {hkv} KV heads x "
+                             f"{head_tiles(g)} head tiles above the grid's "
+                             f"{MAX_GRID_Y}")
         if (q.dtype, k.dtype) not in _DTYPES or v.dtype != k.dtype:
             raise ValueError("decode_attention takes q and k/v of one "
                              "dtype (float32 or bfloat16), or a float32 q "
@@ -165,18 +181,19 @@ class _DecodeAttention:
                                                              k.dtype))
         tiles = -(-s // rows)
         if splits is None:
-            splits = num_splits(b, hkv, s, rows, sm_count(q.device))
+            splits = num_splits(b, hkv * head_tiles(g), s, rows,
+                                sm_count(q.device))
         elif splits not in SPLITS or splits > max(tiles, 1):
             raise ValueError(f"decode_attention: splits {splits} not in "
                              f"{SPLITS} or above the {tiles} tiles of S")
         fn = _lib()
         out = torch.empty((b, hq, d), device=q.device, dtype=v.dtype)
-        if b == 0 or hkv == 0:
+        if b == 0:
             return out
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     lengths.data_ptr(), out.data_ptr(), b, s, hkv,
-                    hq // hkv, d, k.stride(0), k.stride(1), v.stride(0),
+                    g, d, k.stride(0), k.stride(1), v.stride(0),
                     v.stride(1), math.log2(math.e) * d ** -0.5,
                     int(q.dtype == torch.bfloat16),
                     int(k.dtype == torch.bfloat16), splits, stream)

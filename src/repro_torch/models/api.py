@@ -1,8 +1,9 @@
 """Uniform Model API: one facade over the model families.
 
 Port of ``repro/models/api.py`` for the ``transformer`` family (GQA,
-dense and MoE); MLA and the other families raise ``NotImplementedError``
-naming their ROADMAP item.  Provides:
+dense and MoE), the ``ssm`` family (mamba2) and the ``hybrid`` family
+(recurrentgemma); MLA and the encdec and vlm families raise
+``NotImplementedError`` naming their ROADMAP item.  Provides:
   init_params(cfg)          — concrete (on a device) or abstract (meta)
   quantize_for_serving      — int8 weights + per-tensor/per-layer scales
   prefill / decode_step     — the serving entry points
@@ -21,10 +22,11 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, recurrentgemma, transformer
 from repro_torch.models.param import Registrar, fill_drawn
 
-_FAMILIES: Dict[str, Any] = {"transformer": transformer}
+_FAMILIES: Dict[str, Any] = {"transformer": transformer, "ssm": mamba2,
+                             "hybrid": recurrentgemma}
 
 
 def _family(cfg: ModelConfig):
@@ -32,7 +34,7 @@ def _family(cfg: ModelConfig):
     if fam is None:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (ROADMAP: the "
-            "other LM families); the port serves 'transformer'")
+            f"other LM families); the port serves {sorted(_FAMILIES)}")
     return fam
 
 
@@ -121,10 +123,11 @@ def decode_step(params, cfg: ModelConfig, cache, tokens,
     """One token per sequence; ``attn_backend`` ("cuda" | "ref" | None
     for the device's default) selects the decode-attention kernel.
     Consumes ``cache``: its K/V tensors take the new rows in place at
-    ``pos`` (a 0-d int32 device tensor), and the returned cache holds the
-    same tensors with ``pos + 1`` as a new tensor.  Reads nothing back to
-    the host, so every step is the same program (a CUDA graph can replay
-    it)."""
+    ``pos`` (a 0-d int32 device tensor; the hybrid's ring at ``pos %
+    window``) and its recurrent states (entries without a ``kv_seq``
+    axis) the new states, and the returned cache holds the same tensors
+    with ``pos + 1`` as a new tensor.  Reads nothing back to the host, so
+    every step is the same program (a CUDA graph can replay it)."""
     return _family(cfg).decode_step(params, cfg, cache, tokens,
                                     attn_backend=attn_backend)
 
@@ -147,6 +150,8 @@ def grow_cache(cfg: ModelConfig, cache: Dict[str, Any], batch: int,
 
     Identifies the sequence axis per entry by diffing cache_specs at the two
     lengths; the grown entries are new tensors on the cache's device.
+    Entries whose shape does not depend on the length (recurrent states
+    and conv tails, the hybrid's ring, ``pos``) are kept as they are.
     Given ``out`` (a grown cache of these shapes from an earlier call),
     the entries are written into its tensors instead, which keep their
     addresses (the buffers a captured decode step reads).  ``pos``, the
@@ -180,7 +185,8 @@ def grow_cache(cfg: ModelConfig, cache: Dict[str, Any], batch: int,
 
 def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """Matmul-participating parameters per token (the transformer
-    family; pure arithmetic on the config, MoE and MLA included).
+    family, MoE and MLA included; ssm; hybrid): pure arithmetic on the
+    config.
 
     Excludes the embedding *gather* (not a matmul); includes the LM head
     (tied or not — the logits matmul runs either way).  For MoE with
@@ -207,18 +213,36 @@ def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
         return 3 * d * ff
 
     _family(cfg)
-    attn = attn_mla() if cfg.attention == "mla" else attn_gqa()
-    m = cfg.moe
-    if m.num_experts:
-        n_first = m.first_dense_layers
-        total = n_first * (attn + mlp_dense(m.first_dense_d_ff))
-        n_moe = cfg.num_layers - n_first
-        e_cnt = m.top_k if active_only else m.num_experts
-        per = (attn + d * m.num_experts            # router
-               + e_cnt * 3 * d * m.expert_d_ff
-               + (3 * d * m.shared_d_ff if m.num_shared_experts else 0))
-        total += n_moe * per
-    else:
-        total = cfg.num_layers * (attn + mlp_dense(f))
+    total = 0
+    if cfg.family == "transformer":
+        attn = attn_mla() if cfg.attention == "mla" else attn_gqa()
+        m = cfg.moe
+        if m.num_experts:
+            n_first = m.first_dense_layers
+            total += n_first * (attn + mlp_dense(m.first_dense_d_ff))
+            n_moe = cfg.num_layers - n_first
+            e_cnt = m.top_k if active_only else m.num_experts
+            per = (attn + d * m.num_experts            # router
+                   + e_cnt * 3 * d * m.expert_d_ff
+                   + (3 * d * m.shared_d_ff if m.num_shared_experts else 0))
+            total += n_moe * per
+        else:
+            total += cfg.num_layers * (attn + mlp_dense(f))
+    elif cfg.family == "ssm":
+        s = cfg.ssm
+        d_in = s.expand * d
+        gn = s.n_groups * s.d_state
+        nh = d_in // s.head_dim
+        total += cfg.num_layers * (2 * d * d_in + 2 * d * gn + d * nh
+                                   + d_in * d)
+    elif cfg.family == "hybrid":
+        w = cfg.hybrid.lru_width or d
+        pat = cfg.hybrid.pattern
+        n_rec = sum(pat[i % len(pat)] == "recurrent"
+                    for i in range(cfg.num_layers))
+        n_att = cfg.num_layers - n_rec
+        rec = 2 * d * w + 2 * (w * w) // 16 + w * d
+        total += n_rec * rec + n_att * attn_gqa()
+        total += cfg.num_layers * mlp_dense(f)
     total += d * v  # logits head matmul
     return total

@@ -1,7 +1,8 @@
 """Shared model layers: norms, RoPE, embeddings, attention, GLU MLP, MoE.
 
-Port of ``repro/models/layers.py`` (the decoder subset: dense and MoE;
-the ``chunked`` attention is a ROADMAP item).  Functions take the
+Port of ``repro/models/layers.py`` (the decoder subset: dense and MoE,
+and the activations the ssm and hybrid families call; the ``chunked``
+attention is a ROADMAP item).  Functions take the
 reference's flat parameter dict and keys, so parity stays key for key.
 
 Attention implementations (selected by ``cfg.attention_impl``):
@@ -316,14 +317,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     probabilities stay float32 through the value sum.  ``"ref"`` (the
     default on the CPU) is the model's own path: ``p`` is cast to the
     cache dtype before the value product, as the reference does.  A
-    ``window`` (the hybrid family's local attention) runs on ``"ref"``
-    only.
+    ``window`` runs on ``"ref"`` only (the hybrid family's decode reads a
+    ring of window slots and passes none).
     """
     if resolve_backend(backend, q, "attn_backend") == "cuda":
         if window is not None:
             raise NotImplementedError(
-                "windowed decode attention has no kernel yet (ROADMAP: the "
-                "hybrid family); use attn_backend='ref'")
+                "windowed decode attention has no kernel (no reference "
+                "model passes a window: the hybrid family's ring cache "
+                "holds only the window); use attn_backend='ref'")
         return attn_kernel(q, k_cache, v_cache, lengths)
     b, hq, dk = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
@@ -361,6 +363,14 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     op rounded (``torch.sigmoid`` rounds once and differs from JAX in a
     third of bfloat16 outputs)."""
     return torch.reciprocal(1 + torch.exp(-x))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` op for op: ``jnp.logaddexp(x, 0)``, that is
+    max(x, 0) + log1p(exp(-|x|)), and x where x is NaN.  (``F.softplus``
+    returns x itself above its threshold of 20 and rounds otherwise.)"""
+    return torch.where(torch.isnan(x), x, torch.clamp_min(x, 0)
+                       + torch.log1p(torch.exp(-x.abs())))
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:

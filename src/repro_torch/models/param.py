@@ -9,7 +9,9 @@ numpy draws (``_seed_for``: a sha256 of ``"seed:path"`` seeds
 makes ``meta`` tensors, the counterpart of ``jax.ShapeDtypeStruct``.
 
 Sharding has no meaning on one card: ``shard`` and ``replicate`` are the
-identity, kept so that the layer code reads as the reference does.
+identity, kept so that the layer code reads as the reference does.  The
+reference's ``lax`` loops are here as plain PyTorch: ``maybe_scan`` (the
+scan over layers) and ``associative_scan`` (JAX's log-depth algorithm).
 
 A full-width model is billions of float64 normals (qwen2-moe-a2.7b's
 ``layers/moe/experts/wi_gate`` alone is one stream of 4.15 B values, 33
@@ -185,6 +187,44 @@ def maybe_scan(body: Callable, carry, stacked: Dict[str, Any]):
         return carry, None
     return carry, {k: torch.stack([y[k] for y in ys_list], 0)
                    for k in ys_list[0]}
+
+
+def associative_scan(fn: Callable, elems: Sequence[torch.Tensor],
+                     axis: int = 0) -> Tuple[torch.Tensor, ...]:
+    """``jax.lax.associative_scan`` (forward), JAX's algorithm: combine
+    adjacent pairs, scan the half-length result recursively, then combine
+    it with the remaining even elements and interleave, so the depth is
+    log2 of the length and every level is a few whole-tensor ops (the
+    same ``fn`` calls on the same operands as the reference, so the same
+    roundings).  ``fn(left, right)`` takes and returns tuples of tensors
+    of one shape."""
+    def sl(x, start, stop=None, step=1):
+        idx = [slice(None)] * x.dim()
+        idx[axis] = slice(start, stop, step)
+        return x[tuple(idx)]
+
+    def interleave(a, b):
+        shape = list(a.shape)
+        shape[axis] = a.shape[axis] + b.shape[axis]
+        out = a.new_empty(shape)
+        sl(out, 0, None, 2).copy_(a)
+        sl(out, 1, None, 2).copy_(b)
+        return out
+
+    def scan(xs):
+        n = xs[0].shape[axis]
+        if n < 2:
+            return xs
+        odd = scan(fn(tuple(sl(x, 0, -1, 2) for x in xs),
+                      tuple(sl(x, 1, None, 2) for x in xs)))
+        rest = tuple(sl(x, 2, None, 2) for x in xs)
+        even = fn(tuple(sl(o, 0, -1) for o in odd) if n % 2 == 0 else odd,
+                  rest)
+        even = tuple(torch.cat([sl(x, 0, 1), e], dim=axis)
+                     for x, e in zip(xs, even))
+        return tuple(interleave(e, o) for e, o in zip(even, odd))
+
+    return scan(tuple(elems))
 
 
 def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:

@@ -38,9 +38,10 @@ F32 = torch.float32
 
 
 class _Step(NamedTuple):
-    """One decode step, on the device: the new token's position as a [1]
-    int64 index of the kv_seq axis, and as int32 tensors [B] the
-    positions and the key counts (``pos + 1``)."""
+    """One decode step, on the device: the new token's row of the kv_seq
+    axis as a [1] int64 index (its position; the hybrid family's ring
+    slot ``pos % window``), and as int32 tensors [B] the positions and the
+    key counts (``pos + 1``; the ring's ``min(pos + 1, window)``)."""
     row: torch.Tensor
     positions: torch.Tensor
     lengths: torch.Tensor

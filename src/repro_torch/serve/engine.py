@@ -106,7 +106,8 @@ class ServingEngine:
         """The decode step over the buffers ``bufs`` ({"cache", "tokens"})
         of a prompt of ``s`` tokens: the input is column ``pos - s`` of
         the token buffer, the greedy token goes to column ``pos - s + 1``,
-        and the cache's K/V rows and ``pos`` advance in place."""
+        and the cache's K/V rows, recurrent states and ``pos`` advance in
+        place."""
         cfg, backend = self.cfg, self.scfg.attn_backend
 
         def body(bufs):
@@ -157,11 +158,16 @@ class ServingEngine:
         if self.step_backend == "graph" and graph is None and n_new > 1:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            # the warm-up writes one K/V row at pos and the token after
-            # it, which the first replay rewrites; pos itself is a copy
+            # the warm-up writes one K/V row at pos (a ring slot at pos %
+            # window) and the token after it, which the first replay
+            # rewrites; the entries without a kv_seq axis (pos, recurrent
+            # states, conv tails) it would advance, so it runs on copies
+            scratch = tuple(("cache", k) for k, (_, _, axes) in
+                            api.cache_specs(cfg, b, s + n_new).items()
+                            if "kv_seq" not in axes)
             graph = self._graphs[key] = _graph.capture(
-                body, bufs, self.device, pool=self._pool,
-                scratch=(("cache", "pos"),), reads=_weights_of(self))
+                body, bufs, self.device, pool=self._pool, scratch=scratch,
+                reads=_weights_of(self))
             capture_s = graph.seconds
         t2 = time.perf_counter()
         with no_host_sync(self.device):

@@ -7,6 +7,8 @@ by leaf.  Integer outputs (the FENIX data plane) must be equal
 a stated tolerance (``assert_close``).
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -157,3 +159,56 @@ def stacked_packets(rng, num_pipes, n):
     return packets, {k: torch.from_numpy(v.astype(
         np.int32 if k in ("ts_us", "pkt_len") else np.int64))
         for k, v in packets.items()}
+
+
+# -- LM families: prefill and greedy decode on both packages -----------------
+
+@functools.cache
+def _jit_decode():
+    """The reference's ``decode_step`` under ``jax.jit`` (the config
+    static), made once per process."""
+    import jax
+
+    from repro.models import api as japi
+
+    return jax.jit(japi.decode_step, static_argnums=1)
+
+
+def lm_run_both(cfg_j, cfg_t, jp, tp, toks, steps=8):
+    """Prefill, grow, then ``steps`` greedy decode steps on the
+    reference's tokens, on both packages: (the logits of every call as
+    (reference, port) pairs, the final caches, the reference's greedy
+    tokens [B, steps + 1]).  The port's ``pos`` is checked at every
+    step: a 0-d int32 tensor on the cache's device, a new tensor each
+    step, equal to the reference's.  A scanned reference's decode step
+    is jitted, as its serving engine jits it (its ``lax.scan`` over
+    layers would otherwise compile again at every call)."""
+    import jax.numpy as jnp
+    import torch
+
+    from repro.models import api as japi
+    from repro_torch.models import api
+
+    b, s = toks.shape
+    jc, jl = japi.prefill(jp, cfg_j, {"tokens": jnp.asarray(toks)})
+    tc, tl = api.prefill(tp, cfg_t, {"tokens": torch.from_numpy(toks)})
+    assert tl.dtype == torch.float32 and tl.shape == (b, cfg_t.vocab_size)
+    jc = japi.grow_cache(cfg_j, jc, b, s, s + steps)
+    tc = api.grow_cache(cfg_t, tc, b, s, s + steps)
+    assert sorted(tc) == sorted(jc)
+    out = [(np.asarray(jl, np.float32), tl)]
+    decode = _jit_decode() if cfg_j.scan_layers else japi.decode_step
+    for i in range(steps):
+        pos = tc["pos"]
+        assert isinstance(pos, torch.Tensor) and pos.dim() == 0
+        assert pos.dtype == torch.int32 and int(pos) == int(jc["pos"]) \
+            == s + i
+        tok = np.argmax(out[-1][0], -1).astype(np.int32)
+        jc, jl = decode(jp, cfg_j, jc, jnp.asarray(tok))
+        new, tl = api.decode_step(tp, cfg_t, tc, torch.from_numpy(tok))
+        assert new["pos"] is not pos and int(pos) == s + i
+        tc = new
+        out.append((np.asarray(jl, np.float32), tl))
+    assert int(tc["pos"]) == int(jc["pos"]) == s + steps
+    greedy = np.stack([np.argmax(w, -1) for w, _ in out], axis=1)
+    return out, (jc, tc), greedy

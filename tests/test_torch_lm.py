@@ -400,12 +400,15 @@ def test_specs_and_param_counts_match():
             for k in js:
                 assert js[k][0] == ts[k][0] and js[k][2] == ts[k][2], k
                 assert str(ts[k][1]) == f"torch.{js[k][1].__name__}", k
-    assert set(list_archs()) == set(ARCHS)
+    # the transformers here, and the ssm and hybrid families
+    # (tests/test_torch_ssm.py, tests/test_torch_hybrid.py)
+    assert set(list_archs()) == set(ARCHS) | {"mamba2-370m",
+                                              "recurrentgemma-9b"}
 
 
 def test_unported_families_raise():
-    """MLA attention (deepseek-v2's) and the non-transformer families
-    raise, naming their ROADMAP item; MoE blocks are served."""
+    """MLA attention (deepseek-v2's) and the unported families (encdec,
+    vlm) raise, naming their ROADMAP item; MoE blocks are served."""
     mla = dataclasses.replace(get_config("llama3.2-1b", reduced=True),
                               attention="mla", kv_lora_rank=32,
                               moe=MoEConfig(num_experts=4, top_k=2,
@@ -415,7 +418,7 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.cache_specs(mla, 2, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.init_params(ModelConfig(name="m", family="ssm"), device="cpu")
+        api.init_params(ModelConfig(name="m", family="encdec"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TL.attention(*(torch.zeros(1, 4, 2, 16),) * 3, impl="chunked")
 

@@ -836,13 +836,70 @@ def test_decode_attention_kernel_rejects_what_it_cannot_take(cuda_device):
     lens = torch.ones(2, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         decode_attention_kernel(q, kv, kv, lens)
-    q = torch.zeros(2, 18, 64, device=cuda_device)
+    # any group is taken (G = 9 here), but the query heads must be a
+    # multiple of the KV heads
+    q = torch.zeros(2, 9, 64, device=cuda_device)
     kv = torch.zeros(2, 10, 2, 64, device=cuda_device)
-    with pytest.raises(ValueError, match="group"):
+    with pytest.raises(ValueError, match="multiple of the KV heads"):
         decode_attention_kernel(q, kv, kv, lens)
     q = torch.zeros(2, 8, 64, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="dtype"):
         decode_attention_kernel(q, kv, kv, lens)
+
+
+# (b, hkv, g, s): groups above one head tile of 8 (a KV head in 2, 2, 2
+# and 4 tiles; G = 9 leaves one head in its last tile)
+_WIDE_GROUPS = [(3, 2, 9, 300), (2, 3, 12, 517), (4, 1, 16, 2100),
+                (2, 2, 32, 160)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 8])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("shape", _WIDE_GROUPS)
+def test_decode_attention_kernel_wide_groups(shape, d, dtypes, splits,
+                                             cuda_device):
+    """Groups of 9, 12, 16 and 32 query heads (the TPU kernel takes any):
+    each KV head's heads in tiles of 8, against the plain version at
+    forced split counts, with ragged lengths (S, 1, S/3, an empty row)."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        head_tiles, tensor_cores, tile_rows)
+
+    b, hkv, g, s = shape
+    rng = np.random.default_rng(sum(shape) + d + splits)
+    q, k, v, lens = _attn_case(rng, b, hkv, g, d, s, *dtypes, cuda_device)
+    if b > 2:
+        lens[2] = s // 3
+    rows = tile_rows(d, k.element_size(), tensor_cores(*dtypes))
+    splits = min(splits, -(-s // rows))     # at most the tiles of S
+    assert head_tiles(g) == -(-g // 8)
+    before = decode_attention_kernel.launches
+    got = decode_attention_kernel(q, k, v, lens, splits=splits)
+    assert decode_attention_kernel.launches == before + 1
+    assert got.shape == q.shape
+    _check_attn(got, attn_ops.decode_attention(q, k, v, lens,
+                                               backend="ref"), lens)
+    auto = attn_ops.decode_attention(q, k, v, lens, backend="cuda")
+    _check_attn(auto, attn_ops.decode_attention(q, k, v, lens,
+                                                backend="ref"), lens)
+
+
+def test_decode_attention_wide_group_catches_a_skipped_tile(cuda_device):
+    """At recurrentgemma-9b's group (16 query heads over one KV head, D
+    256) the bfloat16 tolerance holds on a full ring of 2048 keys and
+    catches the planted fault: every row one 128-row tile short."""
+    rng = np.random.default_rng(11)
+    q, k, v, lens = _attn_case(rng, 8, 1, 16, 256, 2048, torch.bfloat16,
+                               torch.bfloat16, cuda_device, empty=False)
+    _check_attn(attn_ops.decode_attention(q, k, v, lens, backend="cuda"),
+                attn_ops.decode_attention(q, k, v, lens, backend="ref"),
+                lens)
+    short = torch.where(lens > 128, lens - 128, lens)
+    got = attn_ops.decode_attention(q, k, v, short, backend="cuda")
+    want = attn_ops.decode_attention(q, k, v, lens, backend="ref")
+    assert _attn_excess(got, want, lens) > 1.0
 
 
 def test_serving_engine_cuda_matches_ref_on_card(cuda_device):
@@ -1221,3 +1278,62 @@ def test_baseline_trees_on_card_match_cpu(cuda_device):
     votes = torch.tensor([[5, 1, 2, 4, 0, 6], [3, 1, 6, 4, 6, 6],
                           [0, 2, 4, 1, 6, 6]], device=cuda_device)
     assert forest_vote(votes, 7).tolist() == [0, 1, 2, 4, 6, 6]
+
+
+# -- the sub-quadratic families (mamba2, recurrentgemma) on the card ---------
+
+
+def _reduced_engines(arch, device, n_new, **over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **over)
+    params, _ = api.init_params(cfg, seed=0, device=device)
+    return cfg, {backend: ServingEngine(cfg, params, ServeConfig(
+        max_new_tokens=n_new, step_backend=backend), device=device)
+        for backend in ("eager", "graph")}
+
+
+@pytest.mark.parametrize("arch,prompt", [("mamba2-370m", 45),
+                                         ("recurrentgemma-9b", 20),
+                                         ("recurrentgemma-9b", 45)])
+def test_subquadratic_decode_graph_tokens_match_eager(arch, prompt,
+                                                      cuda_device):
+    """Reduced mamba2 and recurrentgemma served on the card: the decode
+    graph's tokens, recurrent states, ring and launches equal the eager
+    step's over 16 steps (recurrentgemma's 32-slot ring fills from a
+    20-token prompt and wraps from a 45-token one)."""
+    cfg, engines = _reduced_engines(arch, cuda_device, 17)
+    toks = np.random.default_rng(prompt).integers(0, cfg.vocab_size,
+                                                  (4, prompt))
+    out, caches = {}, {}
+    n_attn = sum(k == "attention" for k in cfg.hybrid.pattern) \
+        if cfg.family == "hybrid" else 0
+    for backend, eng in engines.items():
+        before = decode_attention_kernel.launches
+        out[backend] = eng.generate({"tokens": toks})["tokens"].cpu()
+        assert decode_attention_kernel.launches - before == n_attn * 16
+        caches[backend] = eng._decode_bufs[(4, prompt)]["cache"]
+    assert torch.equal(out["eager"], out["graph"])
+    for k, v in caches["eager"].items():
+        assert torch.equal(v, caches["graph"][k]), k
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_recurrent_state_warm_up_leaves_the_state(arch, cuda_device):
+    """The warm-up before capture runs on copies of the recurrent states
+    (every cache entry without a kv_seq axis): after one replay the cache
+    equals the cache after one eager step from the same prefill."""
+    cfg, engines = _reduced_engines(arch, cuda_device, 2)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 40))
+    res = {b: e.generate({"tokens": toks}) for b, e in engines.items()}
+    assert res["graph"]["capture_s"] > 0
+    assert torch.equal(res["eager"]["tokens"], res["graph"]["tokens"])
+    eager = engines["eager"]._decode_bufs[(2, 40)]["cache"]
+    graph = engines["graph"]._decode_bufs[(2, 40)]["cache"]
+    assert int(graph["pos"]) == 41
+    for k, v in eager.items():
+        assert torch.equal(v, graph[k]), k

@@ -343,7 +343,8 @@ def test_run_trace_deprecated_spellings_warn_as_in_the_reference(capture):
     with pytest.warns(DeprecationWarning, match="deprecated"):
         assert len(sys_.run_trace(source=pcap, limit=256)["verdict"]) == 256
     with pytest.warns(DeprecationWarning, match="trace_labels"):
-        sys_.run_trace(source=str(pcap), trace_labels=None, limit=10)
+        sys_.run_trace(source=str(pcap), limit=10,
+                       **{"trace_labels": None})
     with pytest.raises(ValueError, match="exactly one trace"):
         sys_.run_trace()
     with pytest.raises(ValueError, match="exactly one trace"):
