@@ -128,15 +128,21 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    128 and 256) 9, 12, 16, 32 (query heads in tiles of 8), ragged
    lengths with 1, S and an empty row (which must give 0), at the
    full-width Llama and qwen2-moe decode shapes, at recurrentgemma-9b's
-   (B 8, one KV head, G 16, D 256, rings of 2048 keys, two of them full)
-   and at a long-context shape (B=32, S=32768); tolerances, element by
+   (B 8, one KV head, G 16, D 256, rings of 2048 keys, two of them full),
+   at the four of the cross-attention families (B 8: seamless-m4t-medium's
+   16 KV heads, G 1, D 64, self over the generate's cache with ragged
+   lengths and cross over 2048 source frames, every row full;
+   llama-3.2-vision-11b's 8 KV heads, G 4, D 128, self and cross over
+   4096 image tokens) and at a long-context shape (B=32, S=32768);
+   tolerances, element by
    element, 1e-5 in float32 (the reference's own) and one ulp of the
    plain output plus 1e-5 in bfloat16, which a planted fault (every row
    one tile short) must break.  Timed beside its plain version and
    ``scaled_dot_product_attention`` (the library yardstick, never on the
    path), each against its bytes bound, with the split count the wrapper
    picks, the other split counts, GB/s and the share of the bound, and
-   the clusters the card holds at once.
+   the clusters the card holds at once; recurrentgemma's shape and the
+   four cross-attention-family shapes each in turns beside SDPA.
 6. LM serving: ``ServingEngine.generate`` on the full-width
    ``llama3.2-1b`` (16 layers, d_model 2048, 32/8 heads, vocab 128256)
    with random bfloat16 weights from ``--seed``, batch 8, a
@@ -190,11 +196,34 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    a float32 copy cut to the first 2 superblocks (6 layers): greedy
    tokens of the kernel == the einsum path's, logits within 1e-3, and the
    decode against a prefill within 1e-3.
+6e. The encoder-decoder family: ``generate`` on the full-width
+   ``seamless-m4t-medium`` (12 + 12 layers, d_model 1024, 16/16 heads, D
+   64, vocab 256206; 0.98 B parameters), batch 8, the same prompt and
+   new tokens, ``src_embeds`` [8, 2048, 1024] float32 normals from the
+   seed (a source length other than the prompt's): 24 ``decode_attention``
+   launches a step (12 self + 12 cross), graph tokens and counts == the
+   eager step's, ms a step of both in turns beside the step's bound (the
+   decoder's and head's weights and the self and cross K/V read once), a
+   profile of the graph's decode loop, ``serve_requests`` with two
+   source lengths (a cache and a graph each, tokens == fresh engines'),
+   an int8 generate, peak memory, on a float32 copy at full depth the
+   kernel's greedy tokens == the einsum path's and its logits within
+   1e-3, and the reduced model on the card against the CPU.
+6f. The vision LM: ``generate`` on the full-width
+   ``llama-3.2-vision-11b`` (40 layers = 8 x (4 self + 1 gated cross),
+   d_model 4096, 32 query heads over 8 KV heads, D 128, vocab 128256;
+   9.77 B parameters) with every cross gate at 0.5 (at the reference's
+   0 a cross layer is the identity and the image reaches no logit; the
+   tokens at gates 0 must differ), ``image_embeds`` [8, 4096, 4096]
+   float32 from the seed: 40 launches a step (32 self + 8 cross), the
+   checks of 6e (but two source lengths), the float32 one on a copy cut
+   to the first superblock (5 layers).
 7. Each phase's seconds and the total, the ``kernels`` JSON line
    (``int8_gemm``'s launches count the CNN's and the RNN's main paths,
    the trained models' replays and the pipes and farm paths;
-   ``decode_attention``'s the llama, MoE and recurrentgemma generates;
-   the ``*_pipes`` rows are the pipe-batched gates of 4f),
+   ``decode_attention``'s the llama, MoE, recurrentgemma, seamless-m4t
+   and llama-3.2-vision generates; the ``*_pipes`` rows are the
+   pipe-batched gates of 4f),
    then the last line: ``{"ok": true, "device": {"platform": "gpu",
    ...}}``.
 
@@ -1546,6 +1575,75 @@ def counts_match_profile(kern, what):
     return seen
 
 
+STEP_SPAN = "chip_smoke decode step"
+
+
+def step_units(prof, graph):
+    """The steps of a decode profile, as a map from each launch call's
+    correlation id (its kernels' too) to its step: a graph step is one
+    ``cudaGraphLaunch``; an eager step, the launch calls in its
+    ``STEP_SPAN`` span."""
+    from torch.autograd import DeviceType
+
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    if graph:
+        ids = [e.id for e in cpu if e.name.startswith("cudaGraphLaunch")]
+        return {i: n for n, i in enumerate(ids)}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in cpu
+                   if e.name == STEP_SPAN)
+    units = {}
+    for e in cpu:
+        if e.name.startswith(("cudaLaunch", "cudaMemcpy", "cudaMemset")):
+            t = e.time_range.start
+            units.update({e.id: n for n, (t0, t1) in enumerate(spans)
+                          if t0 <= t <= t1})
+    return units
+
+
+def steps_match_counts(prof, units, steps, what):
+    """The port's kernels in each step of a decode profile equal the
+    launches the step makes: the wrappers' counters over the run (set to
+    0 just before it) over ``steps``.  ``units`` maps each launch's
+    correlation id to its step (:func:`step_units`).  The profiler now
+    and then loses a run of a step's kernel records (on the H100: the
+    first few kernels of the first graph replay after tracing starts, a
+    few layers of one replay of the 40-layer vision step, one attention
+    kernel of an eager llama3.2-1b step); every step launches the same
+    kernels, so a step that holds fewer records than the fullest lost
+    them and is set aside, its loss printed, while a graph that lost or
+    doubled a kernel node, or a wrapper that counts what it did not
+    launch, differs in every step.  At least half the steps must be
+    full.  Returns (the port's kernels a step, full steps, records
+    lost)."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+
+    c = read_counts()
+    total = {"fused_gate": c["fused_gate"] + c["fused_gate_prng"],
+             "int8_gemm": c["int8_gemm"],
+             "decode_attention": c["decode_attention"]}
+    require(all(n % steps == 0 for n in total.values()),
+            f"{what}: the counters {total} are not whole steps")
+    want = {name: n // steps for name, n in total.items()}
+    require(len(set(units.values())) == steps, f"{what}: launches of "
+            f"{len(set(units.values()))} steps in the profile for {steps}")
+    groups = defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.id in units:
+            groups[units[e.id]].append(e.name)
+    size = [len(groups[n]) for n in range(steps)]
+    full = max(size)
+    kept = [n for n in range(steps) if size[n] == full]
+    require(2 * len(kept) >= steps, f"{what}: only {len(kept)} of {steps} "
+            f"steps hold all {full} records ({size})")
+    for n in kept:
+        seen = {name: sum(name in k for k in groups[n]) for name in want}
+        require(seen == want, f"{what}: step {n} holds the port's kernels "
+                f"{seen}; the counters say {want} a step")
+    return want, len(kept), sum(full - k for k in size)
+
+
 def _dev_us(a):
     return getattr(a, "self_device_time_total",
                    getattr(a, "self_cuda_time_total", 0))
@@ -2777,9 +2875,17 @@ def phase_attention(rng, decode_s):
     long_s = 32768
     long_in = _attn_inputs(rng, 32, hkv, g, d, long_s, torch.bfloat16,
                            rng.integers(long_s // 2, long_s + 1, 32))
+    # the cross-attention families' four decode shapes (batch 8): self
+    # attention over the generate's cache with ragged lengths, cross
+    # attention with every row at the full source length
+    cross_in = [(name, _attn_inputs(rng, 8, c_hkv, c_g, c_d, keys,
+                                    torch.bfloat16, lens))
+                for name, c_hkv, c_g, c_d, keys, lens
+                in _cross_shapes(rng, decode_s)]
     for name, x in (("Llama decode shape", llama_in),
                     ("qwen2-moe decode shape", moe_in),
                     ("recurrentgemma decode shape", rg_in),
+                    *cross_in,
                     (f"B=32 S={long_s}", long_in)):
         err = check(torch.bfloat16, x)
         lens_x = x[3]
@@ -2796,7 +2902,7 @@ def phase_attention(rng, decode_s):
     for dtype, r in ratio.items():
         require(r <= 1.0, f"decode_attention {dtype} max|diff| "
                 f"{worst[dtype]} over its tolerance ({r:.3g} of it)")
-    del llama_in, moe_in, rg_in
+    del llama_in, moe_in, rg_in, cross_in
 
     # timing at the decode shape: lengths mid-decode, four caches in turn
     # (4 x 34 MB > L2), as the 16 layers of one step read 16 caches
@@ -2840,6 +2946,7 @@ def phase_attention(rng, decode_s):
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": lib_ms}
     rg_turns(rng, sms)
+    cross_turns(rng, sms, decode_s)
     q, k, v, lens_l = long_in
     splits_l = num_splits(32, hkv, long_s, rows, sms)
     bound_l, by_l, byts_l = _attn_bound(q, k, lens_l)
@@ -2914,19 +3021,81 @@ def rg_turns(rng, sms):
     del sets
 
 
+# the cross-attention families' decode attention (batch 8): seamless-m4t-
+# medium's 16 KV heads of D 64 (G 1; 2048 source frames) and
+# llama-3.2-vision-11b's 8 KV heads of D 128 (G 4; 4096 image tokens)
+SEAMLESS_SRC = 2048
+VISION_IMG = 4096
+
+
+def _cross_shapes(rng, decode_s, b=8):
+    """(name, Hkv, G, D, keys, lengths) of the four shapes: the self
+    attention over ``decode_s`` keys with ragged lengths (a full row, an
+    empty one), the cross attention with every row full."""
+    def ragged():
+        return [decode_s] + list(rng.integers(1, decode_s + 1, b - 2)) + [0]
+    return [("seamless self shape", 16, 1, 64, decode_s, ragged()),
+            ("seamless cross shape", 16, 1, 64, SEAMLESS_SRC,
+             [SEAMLESS_SRC] * b),
+            ("vision self shape", 8, 4, 128, decode_s, ragged()),
+            ("vision cross shape", 8, 4, 128, VISION_IMG, [VISION_IMG] * b)]
+
+
+def cross_turns(rng, sms, decode_s):
+    """Time the kernel at the four cross-attention-family shapes in turns
+    beside SDPA (``enable_gqa=True``), each over four caches in turn (a
+    decode step reads one a layer), the self shapes at mid-decode lengths
+    (every row ``decode_s - 16`` keys), the cross shapes full; with the
+    bytes bound, the split count the rule picks, GB/s and the share of
+    the bound."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention, head_tiles, num_splits, tile_rows)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    b = 8
+    for name, hkv, g, d, keys, _ in _cross_shapes(rng, decode_s, b):
+        n = decode_s - 16 if "self" in name else keys
+        sets = [_attn_inputs(rng, b, hkv, g, d, keys, torch.bfloat16,
+                             [n] * b) for _ in range(4)]
+        splits = num_splits(b, hkv * head_tiles(g), keys,
+                            tile_rows(d, 2, True), sms)
+        turns = [cold_ms([lambda x=x: decode_attention(*x) for x in sets]),
+                 cold_ms([_sdpa(*x) for x in sets])]
+        turns += [cold_ms([lambda x=x: decode_attention(*x) for x in sets]),
+                  cold_ms([_sdpa(*x) for x in sets])]
+        ms, lib_ms = turns[2], turns[3]
+        plain_ms = cold_ms([lambda x=x: decode_attention_ref(*x)
+                            for x in sets])
+        bound, by, byts = _attn_bound(sets[0][0], sets[0][1], sets[0][3])
+        print(f"  {name} in turns (kernel, sdpa, kernel, sdpa): "
+              + ", ".join(f"{t:.5f}" for t in turns) + " ms")
+        print(f"decode_attention {name} B={b} S={keys} Hkv={hkv} "
+              f"Hq={hkv * g} D={d} bf16 (lengths {n}): kernel {ms:.5f} ms "
+              f"with {splits} splits ({b * hkv * head_tiles(g) * splits} "
+              f"CTAs on {sms} SMs), plain {plain_ms:.5f} ms, sdpa "
+              f"{lib_ms:.5f} ms (device time, graph replay over 4 caches); "
+              f"bound {bound:.5f} ms ({by}, {byts / 1e6:.1f} MB); kernel at "
+              f"{byts / ms / 1e6:.1f} GB/s, {bound / ms:.3f} of the bound, "
+              f"{lib_ms / ms:.3f}x sdpa's speed")
+        del sets
+
+
 # -- phase 6 ----------------------------------------------------------------
 
-def teacher_forced(eng, prompt, forced, backend):
+def teacher_forced(eng, prompt, forced, backend, extra=None):
     """Logits [B, n, V] of a prefill and n - 1 decode steps fed the
     tokens ``forced`` [B, n] (each step's input is the previous column),
-    decode loop under sync-debug "error"."""
+    decode loop under sync-debug "error"; ``extra``: the batch's
+    ``src_embeds`` / ``image_embeds``."""
     from repro_torch._device import no_host_sync
     from repro_torch.models import api
 
     b, s = prompt.shape
     n = forced.shape[1]
-    cache, logits = api.prefill(eng.params, eng.cfg, {"tokens": prompt})
-    cache = api.grow_cache(eng.cfg, cache, b, s, s + n)
+    cache, logits = api.prefill(eng.params, eng.cfg,
+                                {"tokens": prompt, **(extra or {})})
+    cache = api.grow_cache(eng.cfg, cache, b, s, s + n,
+                           src_len=_src_len(extra))
     out = [logits]
     with no_host_sync(torch.device("cuda")):
         for i in range(n - 1):
@@ -2937,11 +3106,11 @@ def teacher_forced(eng, prompt, forced, backend):
     return torch.stack(out, dim=1)
 
 
-def compare_backends(eng, prompt, ref_tokens, what):
+def compare_backends(eng, prompt, ref_tokens, what, extra=None):
     """The kernel's decode teacher-forced on the "ref" tokens, against
     "ref": (max |diff|, max |diff| / max |logit|, greedy agreement)."""
-    lr = teacher_forced(eng, prompt, ref_tokens, "ref")
-    lc = teacher_forced(eng, prompt, ref_tokens, "cuda")
+    lr = teacher_forced(eng, prompt, ref_tokens, "ref", extra)
+    lc = teacher_forced(eng, prompt, ref_tokens, "cuda", extra)
     require(bool(torch.isfinite(lc).all()), f"{what}: non-finite logits")
     diff = float((lc - lr).abs().max())
     rel = diff / float(lr.abs().max())
@@ -2953,7 +3122,7 @@ def compare_backends(eng, prompt, ref_tokens, what):
 
 
 def profile_decode(eng, prompt, steps, what, bound_ms=WEIGHT_READ_MS,
-                   attn_layers=None):
+                   attn_layers=None, extra=None):
     """``steps`` steps of the engine's decode loop under torch.profiler,
     replayed from the prompt's position after a generate (graph replays
     on a graph engine, the step body op by op on an eager one): ms a
@@ -2963,14 +3132,16 @@ def profile_decode(eng, prompt, steps, what, bound_ms=WEIGHT_READ_MS,
     events around back-to-back replays, as a cross-check; the profile
     must hold as many of the port's kernels as the counters count, and
     ``attn_layers`` (default: every layer) decode attention launches a
-    step.  Returns (ms a step, busy ms a step)."""
+    step; ``extra``: the batch's ``src_embeds`` / ``image_embeds``.
+    Returns (ms a step, busy ms a step)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     b, s = prompt.shape
     require(steps < eng.scfg.max_new_tokens, "more steps than the cache")
-    eng.generate({"tokens": prompt})
-    bufs, graph = eng._decode_bufs[(b, s)], eng._graphs.get((b, s))
+    eng.generate({"tokens": prompt, **(extra or {})})
+    key = (b, s, _src_len(extra))
+    bufs, graph = eng._decode_bufs[key], eng._graphs.get(key)
     body = eng._decode_body(s)
 
     def loop():
@@ -2981,7 +3152,8 @@ def profile_decode(eng, prompt, steps, what, bound_ms=WEIGHT_READ_MS,
             if graph is not None:
                 graph.replay()
             else:
-                body(bufs)
+                with record_function(STEP_SPAN):
+                    body(bufs)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -2991,14 +3163,19 @@ def profile_decode(eng, prompt, steps, what, bound_ms=WEIGHT_READ_MS,
                  acc_events=True) as prof:
         sec = loop()
     avgs = prof.key_averages()
-    kern = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
+    kern = sorted((a for a in avgs if a.device_type == DeviceType.CUDA
+                   and a.key != STEP_SPAN),    # the span's device mirror
                   key=_dev_us, reverse=True)
-    seen = counts_match_profile(kern, f"decode ({what})")
     if attn_layers is None:
         attn_layers = eng.cfg.num_layers
-    require(seen["decode_attention"] == attn_layers * steps,
+    seen, kept, lost = steps_match_counts(
+        prof, step_units(prof, graph is not None), steps, f"decode ({what})")
+    require(seen["decode_attention"] == attn_layers,
             f"decode ({what}): {seen['decode_attention']} attention "
-            f"kernels for {steps} steps")
+            "kernels a step")
+    held = (f"port kernels a step {seen} == the counters', in {kept} of "
+            f"{steps} steps ({lost} records lost by the profiler in the "
+            "others)")
     busy = sum(_dev_us(a) for a in kern) / 1e6
     n_launch, n_copy = _launches(avgs)
     note = ""
@@ -3015,8 +3192,7 @@ def profile_decode(eng, prompt, steps, what, bound_ms=WEIGHT_READ_MS,
           f" ms a step without the profiler: {1 - busy / sec_plain:.3f}); "
           f"{n_launch} launch calls = "
           f"{n_launch / steps:.1f} per step, {n_copy} memcpy calls; "
-          f"port kernels in the profile {seen} == the counters; "
-          f"bound {bound_ms} ms a step")
+          f"{held}; bound {bound_ms} ms a step")
     for a in kern[:10] + _port_kernels(kern[10:]):
         print(f"  device {_dev_us(a) / 1e3:9.3f} ms  x{a.count:6d}  "
               f"{a.key[:90]}")
@@ -3071,7 +3247,7 @@ def phase_lm(args):
     torch.cuda.reset_peak_memory_stats()
     cap = eng.generate({"tokens": prompt})["capture_s"]
     peak_cap = torch.cuda.max_memory_allocated() / 1e9
-    g = eng._graphs[(b, s)]
+    g = eng._graphs[(b, s, None)]
     print(f"capture (decode step, batch {b}, prompt {s}): {cap:.4f} s "
           "(warm-up on the step's own buffers, a copy of pos, + capture), "
           f"outside every timed loop; peak memory of that generate, the "
@@ -3193,21 +3369,24 @@ def phase_lm(args):
 MOE_CUT_LAYERS = 4     # depth of the float32 copy (57 GB at full depth)
 
 
-def _decode_bound(cfg, params, b, smax, routed=None):
+def _decode_bound(cfg, params, b, smax, routed=None, src_len=None):
     """(ms, GB of weights, GB of cache traffic) one decode step needs at
-    3.35 TB/s: every weight read once (an untied embedding table gives
-    the B rows gathered; a tied one is the logits head's operand, read
-    whole), the K/V cache (entries with a ``kv_seq`` axis, the hybrid's
-    rings included) read once, and the recurrent states and conv tails
-    (no ``kv_seq`` axis) read and written.  ``routed``: the experts the
-    step routes to, summed over its layers; only their weights count.
-    With ``None`` every expert counts: the read volume of the port's
-    capacity dispatch, which runs each expert every step, not the step's
-    bound."""
+    3.35 TB/s: every weight the step reads once (an untied embedding
+    table gives the B rows gathered; a tied one is the logits head's
+    operand, read whole; an encoder's weights are not read), the K/V
+    cache (entries with a ``kv_seq`` axis: the hybrid's rings, the cross
+    K/V of ``src_len`` rows included) read once, and the recurrent states
+    and conv tails (no ``kv_seq`` axis) read and written.  ``routed``:
+    the experts the step routes to, summed over its layers; only their
+    weights count.  With ``None`` every expert counts: the read volume of
+    the port's capacity dispatch, which runs each expert every step, not
+    the step's bound."""
     from repro_torch.models import api
 
     w = 0.0
     for k, v in params.items():
+        if k.startswith(("enc/", "ln_enc_f/")):
+            continue
         byts = v.numel() * v.element_size()
         if k.startswith("embed/") and not cfg.tie_embeddings:
             byts = b * cfg.d_model * v.element_size() if k.endswith(
@@ -3217,7 +3396,8 @@ def _decode_bound(cfg, params, b, smax, routed=None):
             byts *= routed / (v.shape[0] * v.shape[1])   # [L, e, ...]
         w += byts
     cache = 0.0
-    for shape, dt, axes in api.cache_specs(cfg, b, smax).values():
+    for shape, dt, axes in api.cache_specs(cfg, b, smax,
+                                           src_len=src_len).values():
         n = math.prod(shape) * torch.empty((), dtype=dt).element_size()
         cache += n if "kv_seq" in axes else 2 * n
     return (w + cache) / HBM_BYTES_PER_S * 1e3, w / 1e9, cache / 1e9
@@ -3430,16 +3610,27 @@ def _init_model(cfg, seed):
     return params
 
 
-def serve_subquadratic(cfg, params, prompt, n_new, attn_layers, bound_ms):
-    """The main path of a sub-quadratic family: ``generate`` on the decode
+def _src_len(extra):
+    """The source length of a batch's ``src_embeds`` / ``image_embeds``
+    (None without): the third part of the engine's shape key."""
+    return None if not extra else next(iter(extra.values())).shape[1]
+
+
+def serve_family(cfg, params, prompt, n_new, attn_layers, bound_ms,
+                       extra=None):
+    """The main path of a family served whole: ``generate`` on the decode
     graph with the kernel counts at 0 just before it (``attn_layers``
     decode attention launches a step, nothing else of the port's), graph
     tokens and counts == the eager step's, ms a step of both in turns
-    beside the bound, and the graph's decode loop profiled.  Returns
-    (the generate's output, its launches, the graph engine)."""
+    beside the bound, and the graph's decode loop profiled.  ``extra``:
+    the batch's ``src_embeds`` / ``image_embeds`` (the cross-attention
+    families).  Returns (the generate's output, its launches, the graph
+    engine)."""
     from repro_torch.serve.engine import ServeConfig, ServingEngine
 
     b, s = prompt.shape
+    extra = extra or {}
+    batch = {"tokens": prompt, **extra}
     eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=n_new,
                                                  attn_backend="cuda"),
                         device="cuda")
@@ -3447,17 +3638,17 @@ def serve_subquadratic(cfg, params, prompt, n_new, attn_layers, bound_ms):
         max_new_tokens=n_new, attn_backend="cuda", step_backend="eager"),
         device="cuda")
     for e in (eng, eng_eager):
-        e.generate({"tokens": prompt[:, :64]})
-    cap = eng.generate({"tokens": prompt})["capture_s"]
+        e.generate({"tokens": prompt[:, :64], **extra})
+    cap = eng.generate(batch)["capture_s"]
     zero_counts()
-    out = eng.generate({"tokens": prompt})
+    out = eng.generate(batch)
     launches = read_counts()
     steps = n_new - 1
     require(launches == {"fused_gate": 0, "fused_gate_prng": 0,
                          "int8_gemm": 0,
                          "decode_attention": attn_layers * steps},
             f"{cfg.name} generate launches {launches}, want "
-            f"decode_attention = {attn_layers} layers x {steps} steps")
+            f"decode_attention = {attn_layers} a step x {steps} steps")
     require(out["capture_s"] == 0.0, f"{cfg.name}: captured again")
     toks = out["tokens"]
     require(toks.shape == (b, n_new) and toks.dtype == torch.int32
@@ -3468,12 +3659,13 @@ def serve_subquadratic(cfg, params, prompt, n_new, attn_layers, bound_ms):
           f"{out['decode_s']:.4f} s for {steps} steps = "
           f"{out['decode_s'] / steps * 1e3:.3f} ms a step, "
           f"{out['decode_tok_per_s']:.1f} tok/s; capture {cap:.4f} s "
-          "(the warm-up on copies of pos and of every recurrent state); "
+          "(the warm-up on copies of the cache entries without a kv_seq "
+          "axis: pos, recurrent states); "
           f"decode_attention launches {launches['decode_attention']} = "
-          f"{attn_layers} attention layers x {steps} steps; decode loop "
+          f"{attn_layers} a step x {steps} steps; decode loop "
           "under sync debug mode 'error'")
     zero_counts()
-    out_e = eng_eager.generate({"tokens": prompt})
+    out_e = eng_eager.generate(batch)
     require(read_counts() == launches,
             f"{cfg.name} eager launches {read_counts()} != graph {launches}")
     require(torch.equal(out_e["tokens"], toks),
@@ -3481,7 +3673,7 @@ def serve_subquadratic(cfg, params, prompt, n_new, attn_layers, bound_ms):
     turns = {}
     for name, e in (("eager", eng_eager), ("graph", eng), ("graph", eng),
                     ("eager", eng_eager)):
-        r = e.generate({"tokens": prompt})
+        r = e.generate(batch)
         require(torch.equal(r["tokens"], toks), f"{cfg.name} {name} tokens "
                 "moved")
         turns.setdefault(name, []).append(r)
@@ -3495,7 +3687,7 @@ def serve_subquadratic(cfg, params, prompt, n_new, attn_layers, bound_ms):
               + " s; greedy tokens graph == eager")
     del eng_eager
     profile_decode(eng, prompt, 16, f"{cfg.name} graph", round(bound_ms, 3),
-                   attn_layers=attn_layers)
+                   attn_layers=attn_layers, extra=extra)
     return out, launches, eng
 
 
@@ -3522,16 +3714,17 @@ def decode_vs_prefill(eng, prompt, forced, what):
     return rel
 
 
-def int8_generate(cfg, params, prompt, n_new, toks, bound_ms):
+def int8_generate(cfg, params, prompt, n_new, toks, bound_ms, extra=None):
     """An int8-weight generate (the FENIX Model Engine scheme on the LM;
     ``conv/w`` enters the recurrent blocks raw, as in the reference)."""
     from repro_torch.serve.engine import ServeConfig, ServingEngine
 
+    extra = extra or {}
     eng8 = ServingEngine(cfg, params, ServeConfig(max_new_tokens=n_new,
                                                   quant="int8"),
                          device="cuda")
-    eng8.generate({"tokens": prompt[:, :64]})
-    out8 = eng8.generate({"tokens": prompt})
+    eng8.generate({"tokens": prompt[:, :64], **extra})
+    out8 = eng8.generate({"tokens": prompt, **extra})
     require(out8["tokens"].shape == toks.shape, f"{cfg.name} int8 shape")
     agree8 = float((out8["tokens"] == toks).float().mean())
     print(f"generate ({cfg.name}, int8 weights, graph): prefill "
@@ -3541,10 +3734,14 @@ def int8_generate(cfg, params, prompt, n_new, toks, bound_ms):
           f" ms); tokens equal to the bf16 run's: {agree8:.4f}")
 
 
-def reduced_card_vs_cpu(name, prompt, seed, s_small):
-    """The reduced model in float32, 8 new tokens after the first
-    ``s_small`` tokens of ``prompt`` (each row): the card (the decode
-    graph, the attention kernel) == the CPU (eager, the einsum path)."""
+def reduced_card_vs_cpu(name, prompt, seed, s_small, extra_for=None,
+                        **over):
+    """The reduced model in float32 (config fields ``over``), 8 new tokens
+    after the first ``s_small`` tokens of ``prompt`` (each row): the card
+    (the decode graph, the attention kernel) == the CPU (eager, the einsum
+    path).  ``extra_for(cfg, params)``: the batch's other inputs for the
+    reduced config (CPU tensors), after setting what it must in the
+    params (the vision LM's gates)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3553,11 +3750,13 @@ def reduced_card_vs_cpu(name, prompt, seed, s_small):
 
     small = dataclasses.replace(get_config(name, reduced=True),
                                 param_dtype="float32",
-                                activation_dtype="float32")
+                                activation_dtype="float32", **over)
     p_small, _ = api.init_params(small, seed=seed, device="cpu")
-    tok_small = prompt[:, :s_small].cpu() % small.vocab_size
+    batch = {"tokens": prompt[:, :s_small].cpu() % small.vocab_size}
+    if extra_for is not None:
+        batch.update(extra_for(small, p_small))
     runs = {dev: ServingEngine(small, p_small, ServeConfig(max_new_tokens=8),
-                               device=dev).generate({"tokens": tok_small})
+                               device=dev).generate(batch)
             ["tokens"].cpu() for dev in ("cuda", "cpu")}
     require(torch.equal(runs["cuda"], runs["cpu"]),
             f"reduced {name}: card tokens differ from the CPU's")
@@ -3586,7 +3785,7 @@ def phase_ssm(args):
           f"weights + {c_gb:.3f} GB of state traffic (the float32 SSM "
           f"states and conv tails read and written) at 3.35 TB/s = "
           f"{bound_ms:.3f} ms")
-    out, launches, eng = serve_subquadratic(cfg, params, prompt, n_new, 0,
+    out, launches, eng = serve_family(cfg, params, prompt, n_new, 0,
                                             bound_ms)
     toks = out["tokens"]
     del eng
@@ -3619,7 +3818,8 @@ def phase_ssm(args):
                           device="cuda")
     out_l = eng_l.generate({"tokens": prompt_l})
     peak_l = torch.cuda.max_memory_allocated() / 1e9
-    cache_l = eng_l._decode_bufs[(shape.global_batch, shape.seq_len)]["cache"]
+    cache_l = eng_l._decode_bufs[(shape.global_batch, shape.seq_len,
+                                  None)]["cache"]
     require(int(cache_l["pos"]) == shape.seq_len + 8, "long_500k position")
     require(bool(torch.isfinite(cache_l["scan/h"]).all()),
             "long_500k: non-finite SSM state")
@@ -3665,7 +3865,7 @@ def phase_hybrid(args):
           f"and written) at 3.35 TB/s = {bound_ms:.3f} ms; decode attention"
           f" at {cfg.num_heads} query heads over {cfg.num_kv_heads} KV head"
           f" (G {cfg.num_heads // cfg.num_kv_heads}), D {cfg.head_dim}")
-    out, launches, eng = serve_subquadratic(cfg, params, prompt, n_new,
+    out, launches, eng = serve_family(cfg, params, prompt, n_new,
                                             attn_layers, bound_ms)
     toks = out["tokens"]
     # a prompt that is not a multiple of the window (the prefill's roll
@@ -3736,6 +3936,199 @@ def phase_hybrid(args):
     del e32, p32
     torch.cuda.empty_cache()
     reduced_card_vs_cpu(cfg.name, prompt, args.seed, 45)
+    return launches["decode_attention"]
+
+
+# -- phases 6e and 6f: the cross-attention families ------------------------
+
+VISION_GATE = 0.5       # the vision LM's cross-layer gates while served
+VISION_CUT_SUPERBLOCKS = 1  # depth of its float32 copy: 5 layers
+
+
+def _normals(rng, shape):
+    """float32 standard normals from ``rng`` on the card (the stub
+    frontends' frame and patch embeddings)."""
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                            ).cuda()
+
+
+def float32_backends(cfg32, p32, prompt, n_new, extra, per_step, what):
+    """On a float32 copy: the greedy tokens of the kernel's decode equal
+    the einsum path's, with ``per_step`` kernel launches a step, and the
+    kernel's teacher-forced logits within 1e-3 of the largest."""
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    runs = {}
+    for backend in ("ref", "cuda"):
+        e32 = ServingEngine(cfg32, p32, ServeConfig(max_new_tokens=n_new,
+                                                    attn_backend=backend),
+                            device="cuda")
+        zero_counts()
+        runs[backend] = e32.generate({"tokens": prompt, **extra})["tokens"]
+        require(read_counts()["decode_attention"] ==
+                (per_step * (n_new - 1) if backend == "cuda" else 0),
+                f"{what}: decode attention launches {read_counts()}")
+    require(torch.equal(runs["ref"], runs["cuda"]),
+            f"{what}: the kernel's greedy tokens differ from the einsum "
+            "path's")
+    print(f"{what}: greedy tokens attn cuda == attn ref over {n_new} tokens")
+    _, rel32, _ = compare_backends(e32, prompt, runs["ref"], what, extra)
+    require(rel32 <= 1e-3, f"{what}: logits off by {rel32}")
+
+
+def phase_encdec(args):
+    """6e. Full-width seamless-m4t-medium served on the card; returns the
+    decode attention launches of its main path's generate."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = get_config("seamless-m4t-medium")
+    b, s, n_new = 8, args.prompt_len, args.new_tokens
+    per_step = 2 * cfg.num_decoder_layers       # self + cross
+    rng = np.random.default_rng(args.seed + 2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                              .astype(np.int32)).cuda()
+    extra = {"src_embeds": _normals(rng, (b, SEAMLESS_SRC, cfg.d_model))}
+    params = _init_model(cfg, args.seed)
+    bound_ms, w_gb, c_gb = _decode_bound(cfg, params, b, s + n_new,
+                                         src_len=SEAMLESS_SRC)
+    print(f"decode step bound ({cfg.name}, batch {b}): {w_gb:.3f} GB of "
+          f"decoder and head weights + {c_gb:.3f} GB of K/V ({s + n_new} "
+          f"self rows and {SEAMLESS_SRC} cross rows a layer, "
+          f"{cfg.num_decoder_layers} layers) at 3.35 TB/s = {bound_ms:.3f} "
+          f"ms; the encoder runs at prefill only; source {SEAMLESS_SRC} "
+          f"frames, prompt {s} tokens")
+    out, launches, eng = serve_family(cfg, params, prompt, n_new,
+                                            per_step, bound_ms, extra=extra)
+    toks = out["tokens"]
+    del eng
+    # requests with two source lengths on one graph engine: a cache and a
+    # graph each, every request's tokens those of a fresh engine
+    eng2 = ServingEngine(cfg, params, ServeConfig(max_new_tokens=8),
+                         device="cuda")
+    arrivals = []
+    for i, s_src in enumerate((SEAMLESS_SRC, SEAMLESS_SRC // 2,
+                               SEAMLESS_SRC, SEAMLESS_SRC // 2)):
+        arrivals.append({"stream": i, "t_us": i * 1000, "batch": {
+            "tokens": prompt[2 * i:2 * i + 2, :256],
+            "src_embeds": extra["src_embeds"][2 * i:2 * i + 2, :s_src]}})
+    res = eng2.serve_requests(arrivals)
+    captured = [r["capture_s"] > 0 for r in res["results"]]
+    require(res["admitted"] == 4 and captured == [True, True, False, False],
+            f"{cfg.name} serve_requests: {res['admitted']} admitted, "
+            f"captures {captured}")
+    require(sorted(eng2._graphs) == [(2, 256, SEAMLESS_SRC // 2),
+                                     (2, 256, SEAMLESS_SRC)],
+            f"{cfg.name} serve_requests graphs {sorted(eng2._graphs)}")
+    for req, r in zip(arrivals, res["results"]):
+        fresh = ServingEngine(cfg, params, ServeConfig(max_new_tokens=8),
+                              device="cuda").generate(req["batch"])
+        require(torch.equal(fresh["tokens"], r["tokens"]),
+                f"{cfg.name}: a served request's tokens differ from a "
+                "fresh engine's")
+    print(f"serve_requests ({cfg.name}): 4 requests with sources of "
+          f"{SEAMLESS_SRC} and {SEAMLESS_SRC // 2} frames in turns: one "
+          f"cache and graph each ({sorted(eng2._graphs)}), captured "
+          f"{captured}; tokens == fresh engines'")
+    del eng2
+    int8_generate(cfg, params, prompt, n_new, toks, bound_ms, extra)
+    print(f"peak memory of phase 6e: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # float32 at full depth (3.9 GB): kernel == einsum path
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    p32 = {k: v.float() for k, v in params.items()}
+    del params
+    float32_backends(cfg32, p32, prompt, n_new, extra, per_step,
+                     f"{cfg.name} float32")
+    del p32
+    torch.cuda.empty_cache()
+    reduced_card_vs_cpu(cfg.name, prompt, args.seed, 16,
+                        extra_for=lambda c, p: {"src_embeds": torch.randn(
+                            b, 11, c.d_model, generator=torch.Generator()
+                            .manual_seed(args.seed))})
+    return launches["decode_attention"]
+
+
+def _set_gates(params, gate):
+    """The params with every cross layer's ``gate_attn`` / ``gate_mlp`` at
+    ``gate`` (new tensors; the others shared)."""
+    return {k: (torch.full_like(v, gate) if k.endswith(
+        ("gate_attn", "gate_mlp")) else v) for k, v in params.items()}
+
+
+def phase_vlm(args):
+    """6f. Full-width llama-3.2-vision-11b served on the card with its
+    gates at ``VISION_GATE``; returns the decode attention launches of its
+    main path's generate."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = get_config("llama-3.2-vision-11b")
+    b, s, n_new = 8, args.prompt_len, args.new_tokens
+    rng = np.random.default_rng(args.seed + 3)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                              .astype(np.int32)).cuda()
+    extra = {"image_embeds": _normals(rng, (b, cfg.num_image_tokens,
+                                            cfg.d_model))}
+    drawn = _init_model(cfg, args.seed)
+    # at the reference's gates (0) every cross layer is the identity: the
+    # image, and the kernel's cross launches, would reach no logit
+    params = _set_gates(drawn, VISION_GATE)
+    bound_ms, w_gb, c_gb = _decode_bound(cfg, params, b, s + n_new)
+    print(f"decode step bound ({cfg.name}, batch {b}): {w_gb:.3f} GB of "
+          f"weights (the embedding gather B rows) + {c_gb:.3f} GB of K/V "
+          f"({s + n_new} rows in each of the {cfg.num_layers // 5 * 4} self "
+          f"layers, {cfg.num_image_tokens} image rows in each of the "
+          f"{cfg.num_layers // 5} cross layers) at 3.35 TB/s = "
+          f"{bound_ms:.3f} ms; gates at {VISION_GATE}")
+    out, launches, eng = serve_family(cfg, params, prompt, n_new,
+                                            cfg.num_layers, bound_ms,
+                                            extra=extra)
+    toks = out["tokens"]
+    del eng
+    eng0 = ServingEngine(cfg, drawn, ServeConfig(max_new_tokens=n_new),
+                         device="cuda")
+    toks0 = eng0.generate({"tokens": prompt, **extra})["tokens"]
+    same = float((toks0 == toks).float().mean())
+    require(same < 1.0, f"{cfg.name}: the gates at {VISION_GATE} give the "
+            "tokens of gates 0 (the image reaches no logit)")
+    print(f"generate ({cfg.name}) at the reference's gates 0 (every cross "
+          f"layer the identity): tokens equal to those at gates "
+          f"{VISION_GATE}: {same:.4f}")
+    del eng0, drawn
+    int8_generate(cfg, params, prompt, n_new, toks, bound_ms, extra)
+    print(f"peak memory of phase 6f: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (weights, "
+          "engines' caches, prefill, the int8 copy)")
+
+    # float32 on the first superblock (5 layers) of the same weights
+    cut = VISION_CUT_SUPERBLOCKS
+    cfg32 = dataclasses.replace(cfg, num_layers=cut * cfg.cross_attn_every,
+                                param_dtype="float32",
+                                activation_dtype="float32")
+    p32 = {k: (v[:cut] if k.startswith("sb/") else v).float()
+           for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    float32_backends(cfg32, p32, prompt, n_new, extra, cfg32.num_layers,
+                     f"{cfg.name} float32, {cfg32.num_layers} layers")
+    del p32
+    torch.cuda.empty_cache()
+
+    def reduced_extra(c, p):
+        p.update(_set_gates(p, VISION_GATE))
+        return {"image_embeds": torch.randn(
+            b, c.num_image_tokens, c.d_model,
+            generator=torch.Generator().manual_seed(args.seed))}
+
+    reduced_card_vs_cpu(cfg.name, prompt, args.seed, 16,
+                        extra_for=reduced_extra, num_layers=10)
     return launches["decode_attention"]
 
 
@@ -3812,11 +4205,15 @@ def main():
     moe_attn = phase("6b MoE", phase_moe, args)
     ssm_attn = phase("6c ssm", phase_ssm, args)
     hybrid_attn = phase("6d hybrid", phase_hybrid, args)
+    encdec_attn = phase("6e encdec", phase_encdec, args)
+    vlm_attn = phase("6f vlm", phase_vlm, args)
     launches["decode_attention"] = lm_attn + moe_attn + ssm_attn \
-        + hybrid_attn
+        + hybrid_attn + encdec_attn + vlm_attn
     print(f"decode_attention launches on the main paths: llama3.2-1b "
           f"{lm_attn} + qwen2-moe-a2.7b {moe_attn} + mamba2-370m "
-          f"{ssm_attn} + recurrentgemma-9b {hybrid_attn}")
+          f"{ssm_attn} + recurrentgemma-9b {hybrid_attn} + "
+          f"seamless-m4t-medium {encdec_attn} + llama-3.2-vision-11b "
+          f"{vlm_attn}")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items())
           + f"; total {sum(seconds.values()):.1f} s")

@@ -5,7 +5,11 @@ admission gate (core/gate.py).  Port of ``repro/launch/serve.py``.
 Runs on the card by default (``--device cpu`` for the CPU), on the
 reduced config unless ``--full`` asks for the published widths, with
 random weights drawn from seed 0.  The decode step is a CUDA graph on
-the card and runs op by op on the CPU.
+the card and runs op by op on the CPU.  The encoder-decoder family gets
+``src_embeds`` [batch, prompt length, d_model] and the vision family
+``image_embeds`` [batch, num_image_tokens, d_model], float32 normals from
+seed 0 (their frontends are stubs), as the reference's launcher makes
+them.
 """
 
 from __future__ import annotations
@@ -79,6 +83,14 @@ def main(argv=None):
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
                                     (args.batch, args.prompt_len))
              .astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["src_embeds"] = rng.normal(
+            0, 1, (args.batch, args.prompt_len, cfg.d_model)
+        ).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.normal(
+            0, 1, (args.batch, cfg.num_image_tokens, cfg.d_model)
+        ).astype(np.float32)
     t0 = time.time()
     out = eng.generate(batch)
     print(f"arch={cfg.name} device={device} quant={args.quant} "

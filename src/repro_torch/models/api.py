@@ -1,14 +1,18 @@
 """Uniform Model API: one facade over the model families.
 
 Port of ``repro/models/api.py`` for the ``transformer`` family (GQA,
-dense and MoE), the ``ssm`` family (mamba2) and the ``hybrid`` family
-(recurrentgemma); MLA and the encdec and vlm families raise
-``NotImplementedError`` naming their ROADMAP item.  Provides:
+dense and MoE), the ``ssm`` family (mamba2), the ``hybrid`` family
+(recurrentgemma), the ``encdec`` family (seamless-m4t) and the ``vlm``
+family (llama-3.2-vision); MLA raises ``NotImplementedError`` naming its
+ROADMAP item.  Provides:
   init_params(cfg)          — concrete (on a device) or abstract (meta)
   quantize_for_serving      — int8 weights + per-tensor/per-layer scales
-  prefill / decode_step     — the serving entry points
-  cache_specs / grow_cache  — decode-cache shapes, and growing a prefill
-                              cache so decode can append
+  prefill / decode_step     — the serving entry points (encdec and vlm
+                              take the batch's ``src_embeds`` /
+                              ``image_embeds`` beside its tokens)
+  cache_specs / grow_cache  — decode-cache shapes (encdec's cross entries
+                              at ``src_len``), and growing a prefill cache
+                              so decode can append
   analytic_param_count      — N for the 6·N·D roofline term
 """
 
@@ -22,19 +26,20 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mamba2, recurrentgemma, transformer
+from repro_torch.models import (encdec, mamba2, recurrentgemma, transformer,
+                                vlm)
 from repro_torch.models.param import Registrar, fill_drawn
 
 _FAMILIES: Dict[str, Any] = {"transformer": transformer, "ssm": mamba2,
-                             "hybrid": recurrentgemma}
+                             "hybrid": recurrentgemma, "encdec": encdec,
+                             "vlm": vlm}
 
 
 def _family(cfg: ModelConfig):
     fam = _FAMILIES.get(cfg.family)
     if fam is None:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP: the "
-            f"other LM families); the port serves {sorted(_FAMILIES)}")
+        raise ValueError(f"unknown model family {cfg.family!r}; the port "
+                         f"serves {sorted(_FAMILIES)}")
     return fam
 
 
@@ -114,8 +119,13 @@ def quantize_for_serving(cfg: ModelConfig, params: Dict[str, Any],
 
 
 def prefill(params, cfg: ModelConfig, batch):
-    """batch {"tokens": [B,S]} -> (cache, last-position logits [B,V])."""
-    return _family(cfg).prefill(params, cfg, batch["tokens"])
+    """batch {"tokens": [B,S]} (encdec: + ``src_embeds`` [B,S_src,d]; vlm:
+    + ``image_embeds`` [B,S_img,d]) -> (cache, last-position logits
+    [B,V])."""
+    fam = _family(cfg)
+    if cfg.family in ("encdec", "vlm"):
+        return fam.prefill(params, cfg, batch)
+    return fam.prefill(params, cfg, batch["tokens"])
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens,
@@ -137,28 +147,35 @@ def decode_step(params, cfg: ModelConfig, cache, tokens,
 # ---------------------------------------------------------------------------
 
 
-def cache_specs(cfg: ModelConfig, batch: int, smax: int
+def cache_specs(cfg: ModelConfig, batch: int, smax: int,
+                src_len: Optional[int] = None
                 ) -> Dict[str, Tuple[Tuple[int, ...], Any, Tuple[str, ...]]]:
-    """name -> (shape, dtype, logical axes) of the decode cache."""
-    return _family(cfg).cache_spec(cfg, batch, smax)
+    """name -> (shape, dtype, logical axes) of the decode cache; encdec's
+    cross entries have ``src_len`` rows (default ``smax``)."""
+    fam = _family(cfg)
+    if cfg.family == "encdec":
+        return fam.cache_spec(cfg, batch, smax,
+                              src_len=src_len if src_len else smax)
+    return fam.cache_spec(cfg, batch, smax)
 
 
 def grow_cache(cfg: ModelConfig, cache: Dict[str, Any], batch: int,
-               old_smax: int, new_smax: int,
+               old_smax: int, new_smax: int, src_len: Optional[int] = None,
                out: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Zero-pad the kv_seq axes of a prefill cache so decode can append.
 
     Identifies the sequence axis per entry by diffing cache_specs at the two
-    lengths; the grown entries are new tensors on the cache's device.
-    Entries whose shape does not depend on the length (recurrent states
-    and conv tails, the hybrid's ring, ``pos``) are kept as they are.
+    lengths (at one ``src_len``); the grown entries are new tensors on the
+    cache's device.  Entries whose shape does not depend on the length
+    (recurrent states and conv tails, the hybrid's ring, the encdec and
+    vlm cross K/V, ``pos``) are kept as they are.
     Given ``out`` (a grown cache of these shapes from an earlier call),
     the entries are written into its tensors instead, which keep their
     addresses (the buffers a captured decode step reads).  ``pos``, the
     next position as a 0-d int32 device tensor, is carried over.
     """
-    old = cache_specs(cfg, batch, old_smax)
-    new = cache_specs(cfg, batch, new_smax)
+    old = cache_specs(cfg, batch, old_smax, src_len=src_len)
+    new = cache_specs(cfg, batch, new_smax, src_len=src_len)
     res = dict(cache) if out is None else out
     for k, (oshp, _dt, _ax) in old.items():
         if k not in cache:
@@ -185,8 +202,8 @@ def grow_cache(cfg: ModelConfig, cache: Dict[str, Any], batch: int,
 
 def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """Matmul-participating parameters per token (the transformer
-    family, MoE and MLA included; ssm; hybrid): pure arithmetic on the
-    config.
+    family, MoE and MLA included; ssm; hybrid; encdec; vlm): pure
+    arithmetic on the config.
 
     Excludes the embedding *gather* (not a matmul); includes the LM head
     (tied or not — the logits matmul runs either way).  For MoE with
@@ -244,5 +261,14 @@ def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
         rec = 2 * d * w + 2 * (w * w) // 16 + w * d
         total += n_rec * rec + n_att * attn_gqa()
         total += cfg.num_layers * mlp_dense(f)
+    elif cfg.family == "encdec":
+        enc = cfg.num_encoder_layers * (attn_gqa() + mlp_dense(f))
+        dec = cfg.num_decoder_layers * (2 * attn_gqa() + mlp_dense(f))
+        total += enc + dec
+    elif cfg.family == "vlm":
+        per = cfg.cross_attn_every
+        n_super = cfg.num_layers // per
+        total += n_super * ((per - 1) * (attn_gqa() + mlp_dense(f))
+                            + attn_gqa() + mlp_dense(f))
     total += d * v  # logits head matmul
     return total

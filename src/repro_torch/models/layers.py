@@ -1,13 +1,16 @@
 """Shared model layers: norms, RoPE, embeddings, attention, GLU MLP, MoE.
 
-Port of ``repro/models/layers.py`` (the decoder subset: dense and MoE,
-and the activations the ssm and hybrid families call; the ``chunked``
-attention is a ROADMAP item).  Functions take the
-reference's flat parameter dict and keys, so parity stays key for key.
+Port of ``repro/models/layers.py`` (the serving subset: dense and MoE,
+and the activations the ssm and hybrid families call).  Functions take
+the reference's flat parameter dict and keys, so parity stays key for
+key.
 
 Attention implementations (selected by ``cfg.attention_impl``):
 
 - ``naive``    — full [Sq,Skv] score matrix. Oracle for tests.
+- ``chunked``  — flash-style loops over (q-chunk, kv-chunk) pairs with an
+                 online softmax; computes every block (the causal upper
+                 half masked).
 - ``bands``    — triangular band decomposition: band b computes blocks
                  (i, i-b) for all i>=b as one batched einsum, flash merge
                  across bands (the square causal layout); other layouts
@@ -186,9 +189,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = torch.einsum("bhgqk,bkhe->bqhge", p.to(v.dtype), v)
         return o.reshape(b, sq, hq, dv)
     if impl == "chunked":
-        raise NotImplementedError(
-            "attention_impl='chunked' is not ported yet (ROADMAP: the other "
-            "LM families); use 'bands' or 'naive'")
+        return _chunked_attention(q, k, v, causal=causal, chunk_q=chunk_q,
+                                  chunk_kv=chunk_kv, window=window,
+                                  kv_len=kv_len, scale=scale)
     if impl == "bands":
         if not causal or sq != skv:
             # bands requires the square causal layout; use the kv-block loop
@@ -251,6 +254,55 @@ def _xblock_attention(q, k, v, *, causal, chunk_kv, window, kv_len, scale):
             + torch.einsum("bhgqk,bkhe->bhgqe", p, vb).to(F32)
     out = acc / torch.clamp_min(lse, 1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(v.dtype)
+
+
+def _chunked_attention(q, k, v, *, causal, chunk_q, chunk_kv, window, kv_len,
+                       scale):
+    """Flash attention over (q-chunk, kv-chunk) pairs with an online
+    softmax: the reference's two nested ``lax.scan``s as Python loops.
+    Every block is computed (the causal upper half too, masked); padded
+    keys are masked by the key count (``kv_len``, else Skv)."""
+    b, sq, hq, dk = q.shape
+    _, skv, hkv, _ = k.shape
+    dv = v.shape[-1]
+    g = hq // hkv
+    dev = q.device
+    cq = min(chunk_q, sq)
+    ck = min(chunk_kv, skv)
+    q, _ = _pad_to(q, 1, cq)
+    k, _ = _pad_to(k, 1, ck)
+    v, _ = _pad_to(v, 1, ck)
+    nq, nk = q.shape[1] // cq, k.shape[1] // ck
+    q_r = q.reshape(b, nq, cq, hkv, g, dk).to(F32)
+    k_r = k.reshape(b, nk, ck, hkv, dk).to(F32)
+    v_r = v.reshape(b, nk, ck, hkv, dv)
+    off = skv - sq if causal else 0
+    eff_len = kv_len if kv_len is not None else torch.full(
+        (b,), skv, device=dev)
+    outs = []
+    for qi in range(nq):
+        qpos = qi * cq + torch.arange(cq, device=dev) + off        # [cq]
+        m = torch.full((b, hkv, g, cq), -torch.inf, dtype=F32, device=dev)
+        lse = torch.zeros((b, hkv, g, cq), dtype=F32, device=dev)
+        acc = torch.zeros((b, hkv, g, cq, dv), dtype=F32, device=dev)
+        for ki in range(nk):
+            kpos = ki * ck + torch.arange(ck, device=dev)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_r[:, qi],
+                             k_r[:, ki]).mul_(scale)
+            msk = torch.ones((cq, ck), dtype=torch.bool, device=dev)
+            if causal:
+                msk &= kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                msk &= (qpos[:, None] - kpos[None, :]) < window
+            msk = msk[None] & (kpos[None, None, :] < eff_len[:, None, None])
+            s = s.masked_fill_(~msk[:, None, None], -torch.inf)
+            m, lse, corr, p = _merge(m, lse, s, v.dtype)
+            acc = acc * corr[..., None] \
+                + torch.einsum("bhgqk,bkhe->bhgqe", p, v_r[:, ki]).to(F32)
+        outs.append(acc / torch.clamp_min(lse, 1e-30)[..., None])
+    # [nq][B, hkv, g, cq, dv] -> [B, nq * cq, Hq, dv]
+    out = torch.stack(outs, 1).permute(0, 1, 4, 2, 3, 5)
+    return out.reshape(b, nq * cq, hq, dv)[:, :sq].to(v.dtype)
 
 
 def _band_attention(q, k, v, *, chunk, window, scale):

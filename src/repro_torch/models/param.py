@@ -35,7 +35,7 @@ from typing import (Any, Callable, Dict, Iterable, Iterator, Optional,
 import numpy as np
 import torch
 
-from repro_torch._device import DeviceLike
+from repro_torch._device import DeviceLike, resolve_device
 
 Axes = Tuple[str, ...]
 
@@ -235,11 +235,14 @@ def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_numpy(params: Dict[str, Any], device: DeviceLike = "cpu"
+def params_from_numpy(params: Dict[str, Any], device: DeviceLike = None
                       ) -> Dict[str, torch.Tensor]:
     """The weight converter: the reference's flat parameter dict, as
     numpy arrays (``np.asarray`` of each JAX array), -> the port's
-    tensors on ``device``, key for key and bit for bit.  JAX's bfloat16
-    arrays arrive as the ``bfloat16`` numpy dtype and are reinterpreted
-    through ``uint16``, so neither JAX nor ``ml_dtypes`` is imported."""
-    return {k: _tensor_from_numpy(v).to(device) for k, v in params.items()}
+    tensors on ``device`` (``None`` means ``cuda``, and raises without
+    it, as every entry point of the port), key for key and bit for bit.
+    JAX's bfloat16 arrays arrive as the ``bfloat16`` numpy dtype and are
+    reinterpreted through ``uint16``, so neither JAX nor ``ml_dtypes`` is
+    imported."""
+    dev = resolve_device(device)
+    return {k: _tensor_from_numpy(v).to(dev) for k, v in params.items()}

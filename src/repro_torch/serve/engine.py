@@ -18,11 +18,14 @@ layer, reads each sequence's last token from a [B, max_new_tokens]
 device buffer at the cache's device position, writes the new K/V rows
 and the greedy token back at that position, and advances it.  With
 ``ServeConfig.step_backend="graph"`` (the default on CUDA) the body is
-captured as a CUDA graph once per (batch, prompt length) on the engine
-and replayed each step; ``"eager"`` (the default on the CPU) runs it op
+captured as a CUDA graph once per shape on the engine and replayed
+each step; ``"eager"`` (the default on the CPU) runs it op
 by op.  Prefill stays eager and writes into the grown cache, which is
 allocated once per shape and kept with the graph, so ``serve_requests``
-reuses both across requests of one shape.
+reuses both across requests of one shape.  A shape is (batch, prompt
+length, source length): the encoder-decoder's ``src_embeds`` and the
+vision LM's ``image_embeds`` set the length of the cross K/V, and
+requests with two source lengths get a cache and a graph each.
 """
 
 from __future__ import annotations
@@ -92,10 +95,13 @@ class ServingEngine:
         if scfg.gate_backend_rate:
             self.gate = ServeGate(GateConfig(
                 backend_rate=scfg.gate_backend_rate))
-        # by (batch, prompt length): the decode buffers (grown cache,
-        # token buffer) and, on "graph", the captured step
-        self._decode_bufs: Dict[Tuple[int, int], Dict[str, Any]] = {}
-        self._graphs: Dict[Tuple[int, int], _graph.Graph] = {}
+        # by (batch, prompt length, source length or None): the decode
+        # buffers (grown cache, token buffer) and, on "graph", the
+        # captured step
+        self._decode_bufs: Dict[Tuple[int, int, Optional[int]],
+                                Dict[str, Any]] = {}
+        self._graphs: Dict[Tuple[int, int, Optional[int]],
+                           _graph.Graph] = {}
         self._pool = None
 
     def _sync(self) -> None:
@@ -123,7 +129,8 @@ class ServingEngine:
         return body
 
     def generate(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """batch: tokens [B,S] (tensor or array). Greedy decode; returns
+        """batch: tokens [B,S] (tensor or array; encdec: + src_embeds
+        [B,S_src,d], vlm: + image_embeds [B,S_img,d]). Greedy decode; returns
         the tokens [B, max_new_tokens] and the wall times of the prefill
         (``prefill_s``), of the decode step's capture (``capture_s``: 0
         when the graph of this shape is reused, and on "eager") and of the
@@ -131,21 +138,28 @@ class ServingEngine:
         ``decode_tok_per_s`` counts the decode loop only: graph replays on
         "graph", eager steps on "eager"."""
         cfg, scfg = self.cfg, self.scfg
-        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
-        b, s = tokens.shape
+        inputs = {k: torch.as_tensor(batch[k]).to(self.device)
+                  for k in ("tokens", "src_embeds", "image_embeds")
+                  if k in batch}
+        b, s = inputs["tokens"].shape
+        src = inputs.get("src_embeds", inputs.get("image_embeds"))
+        src_len = None if src is None else src.shape[1]
         n_new = scfg.max_new_tokens
-        key = (b, s)
+        key = (b, s, src_len)
         self._sync()
         t0 = time.perf_counter()
-        cache, logits = api.prefill(self.params, cfg, {"tokens": tokens})
+        cache, logits = api.prefill(self.params, cfg, inputs)
+        del inputs, src
         bufs = self._decode_bufs.get(key)
         if bufs is None:
             bufs = self._decode_bufs[key] = {
-                "cache": api.grow_cache(cfg, cache, b, s, s + n_new),
+                "cache": api.grow_cache(cfg, cache, b, s, s + n_new,
+                                        src_len=src_len),
                 "tokens": torch.zeros((b, n_new), dtype=torch.int32,
                                       device=self.device)}
         else:
-            api.grow_cache(cfg, cache, b, s, s + n_new, out=bufs["cache"])
+            api.grow_cache(cfg, cache, b, s, s + n_new, src_len=src_len,
+                           out=bufs["cache"])
         del cache
         bufs["tokens"][:, 0] = torch.argmax(logits, -1).to(torch.int32)
         self._sync()
@@ -163,7 +177,8 @@ class ServingEngine:
             # rewrites; the entries without a kv_seq axis (pos, recurrent
             # states, conv tails) it would advance, so it runs on copies
             scratch = tuple(("cache", k) for k, (_, _, axes) in
-                            api.cache_specs(cfg, b, s + n_new).items()
+                            api.cache_specs(cfg, b, s + n_new,
+                                            src_len=src_len).items()
                             if "kv_seq" not in axes)
             graph = self._graphs[key] = _graph.capture(
                 body, bufs, self.device, pool=self._pool, scratch=scratch,

@@ -174,15 +174,19 @@ def _jit_decode():
     return jax.jit(japi.decode_step, static_argnums=1)
 
 
-def lm_run_both(cfg_j, cfg_t, jp, tp, toks, steps=8):
+def lm_run_both(cfg_j, cfg_t, jp, tp, toks, steps=8, extra=None):
     """Prefill, grow, then ``steps`` greedy decode steps on the
     reference's tokens, on both packages: (the logits of every call as
     (reference, port) pairs, the final caches, the reference's greedy
-    tokens [B, steps + 1]).  The port's ``pos`` is checked at every
-    step: a 0-d int32 tensor on the cache's device, a new tensor each
-    step, equal to the reference's.  A scanned reference's decode step
-    is jitted, as its serving engine jits it (its ``lax.scan`` over
-    layers would otherwise compile again at every call)."""
+    tokens [B, steps + 1]).  ``extra``: the batch's other inputs as numpy
+    arrays (``src_embeds`` of the encdec family, ``image_embeds`` of the
+    vlm); the cache grows at the source length of ``src_embeds`` (else
+    the prompt's), as the reference's serving engine grows it.  The
+    port's ``pos`` is checked at every step: a 0-d int32 tensor on the
+    cache's device, a new tensor each step, equal to the reference's.  A
+    scanned reference's decode step is jitted, as its serving engine
+    jits it (its ``lax.scan`` over layers would otherwise compile again
+    at every call)."""
     import jax.numpy as jnp
     import torch
 
@@ -190,11 +194,15 @@ def lm_run_both(cfg_j, cfg_t, jp, tp, toks, steps=8):
     from repro_torch.models import api
 
     b, s = toks.shape
-    jc, jl = japi.prefill(jp, cfg_j, {"tokens": jnp.asarray(toks)})
-    tc, tl = api.prefill(tp, cfg_t, {"tokens": torch.from_numpy(toks)})
+    extra = extra or {}
+    src_len = extra.get("src_embeds", toks).shape[1]
+    jc, jl = japi.prefill(jp, cfg_j, {"tokens": jnp.asarray(toks), **{
+        k: jnp.asarray(v) for k, v in extra.items()}})
+    tc, tl = api.prefill(tp, cfg_t, {"tokens": torch.from_numpy(toks), **{
+        k: torch.from_numpy(v) for k, v in extra.items()}})
     assert tl.dtype == torch.float32 and tl.shape == (b, cfg_t.vocab_size)
-    jc = japi.grow_cache(cfg_j, jc, b, s, s + steps)
-    tc = api.grow_cache(cfg_t, tc, b, s, s + steps)
+    jc = japi.grow_cache(cfg_j, jc, b, s, s + steps, src_len=src_len)
+    tc = api.grow_cache(cfg_t, tc, b, s, s + steps, src_len=src_len)
     assert sorted(tc) == sorted(jc)
     out = [(np.asarray(jl, np.float32), tl)]
     decode = _jit_decode() if cfg_j.scan_layers else japi.decode_step

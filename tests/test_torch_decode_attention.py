@@ -46,7 +46,7 @@ def _case(shape, dtype, seed, empty=False):
         lens[-1] = 0
     jax_in = (q, k, v, jnp.asarray(lens))
     port_in = params_from_numpy({i: np.asarray(x)
-                                 for i, x in enumerate(jax_in)})
+                                 for i, x in enumerate(jax_in)}, "cpu")
     return jax_in, tuple(port_in[i] for i in range(4))
 
 

@@ -65,12 +65,13 @@ def _both(reduced=True, **over):
 
 
 def _converted(jp):
-    return params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+    return params_from_numpy({k: np.asarray(v) for k, v in jp.items()},
+                             "cpu")
 
 
 def _pair(rng, shape, dtype, scale=1.0):
     j = jnp.asarray(rng.normal(0, scale, shape), getattr(jnp, dtype))
-    return j, params_from_numpy({"x": np.asarray(j)})["x"]
+    return j, params_from_numpy({"x": np.asarray(j)}, "cpu")["x"]
 
 
 def _caches_close(jc, tc, tol, where):

@@ -47,11 +47,12 @@ def _both(arch, **over):
 
 def _pair(rng, shape, dtype, scale=1.0):
     j = jnp.asarray(rng.normal(0, scale, shape), getattr(jnp, dtype))
-    return j, params_from_numpy({"x": np.asarray(j)})["x"]
+    return j, params_from_numpy({"x": np.asarray(j)}, "cpu")["x"]
 
 
 def _converted(jp):
-    return params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+    return params_from_numpy({k: np.asarray(v) for k, v in jp.items()},
+                             "cpu")
 
 
 # -- layers -------------------------------------------------------------------
@@ -81,7 +82,7 @@ def test_rmsnorm_rope_match(dtype):
 
 
 @pytest.mark.parametrize("window", [None, 24])
-@pytest.mark.parametrize("impl", ["naive", "bands"])
+@pytest.mark.parametrize("impl", ["naive", "bands", "chunked"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_matches(impl, dtype, window):
     rng = np.random.default_rng(1)
@@ -108,6 +109,33 @@ def test_xblock_attention_matches():
         assert_close(JL.attention(jq, jk, jv, kv_len=jnp.asarray(lens), **kw),
                      TL.attention(tq, tk, tv, kv_len=torch.from_numpy(lens),
                                   **kw), 1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq", [37, 70])
+def test_chunked_attention_matches(causal, sq):
+    """``impl="chunked"`` (the reference's q-chunk x kv-chunk online
+    softmax, ``_chunked_attention``) against the reference in float32
+    within 1e-5: causal and not, a square and a non-square layout (37
+    queries over 70 keys: ragged q and kv chunks of 32), with and
+    without a window, with key counts ``kv_len`` (a full row, one cut
+    inside a chunk) and G = 4."""
+    rng = np.random.default_rng(11)
+    jq, tq = _pair(rng, (2, sq, 8, 16), "float32")
+    jk, tk = _pair(rng, (2, 70, 2, 16), "float32")
+    jv, tv = _pair(rng, (2, 70, 2, 16), "float32")
+    lens = np.array([70, 45], np.int32)
+    for window in (None, 24):
+        for kv_len in (None, lens):
+            kw = dict(impl="chunked", chunk_q=32, chunk_kv=32,
+                      causal=causal, window=window)
+            want = JL.attention(jq, jk, jv, kv_len=None if kv_len is None
+                                else jnp.asarray(kv_len), **kw)
+            got = TL.attention(tq, tk, tv, kv_len=None if kv_len is None
+                               else torch.from_numpy(kv_len), **kw)
+            assert got.shape == (2, sq, 8, 16)
+            assert_close(want, got, 1e-5, f"window {window} kv_len "
+                                          f"{kv_len is not None}")
 
 
 @pytest.mark.parametrize("window", [None, 40])
@@ -369,6 +397,24 @@ def test_registrar_draws_match(arch, monkeypatch):
         assert np.array_equal(v.astype(got.dtype), got), k
 
 
+def test_converter_defaults_to_cuda(monkeypatch):
+    """``params_from_numpy`` without a device puts the tensors on
+    ``cuda``, as every entry point of the port, and raises on a host
+    without it (never a silent CPU copy)."""
+    from repro_torch.models import param as tparam
+
+    arrays = {"w": np.ones((2, 3), np.float32)}
+    if torch.cuda.is_available():
+        assert params_from_numpy(arrays)["w"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            params_from_numpy(arrays)
+    monkeypatch.setattr(tparam, "resolve_device",
+                        lambda device: torch.device("cpu")
+                        if device is None else torch.device(device))
+    assert params_from_numpy(arrays)["w"].device.type == "cpu"
+
+
 def test_converter_is_bit_exact_and_copies():
     jp, _ = japi.init_params(jax_config("llama3.2-1b", reduced=True), seed=1)
     tp = _converted(jp)
@@ -400,15 +446,18 @@ def test_specs_and_param_counts_match():
             for k in js:
                 assert js[k][0] == ts[k][0] and js[k][2] == ts[k][2], k
                 assert str(ts[k][1]) == f"torch.{js[k][1].__name__}", k
-    # the transformers here, and the ssm and hybrid families
-    # (tests/test_torch_ssm.py, tests/test_torch_hybrid.py)
-    assert set(list_archs()) == set(ARCHS) | {"mamba2-370m",
-                                              "recurrentgemma-9b"}
+    # the transformers here, the ssm and hybrid families
+    # (tests/test_torch_ssm.py, tests/test_torch_hybrid.py), the encdec
+    # and vlm families (tests/test_torch_encdec.py, tests/test_torch_vlm.py)
+    assert set(list_archs()) == set(ARCHS) | {
+        "mamba2-370m", "recurrentgemma-9b", "seamless-m4t-medium",
+        "llama-3.2-vision-11b"}
 
 
 def test_unported_families_raise():
-    """MLA attention (deepseek-v2's) and the unported families (encdec,
-    vlm) raise, naming their ROADMAP item; MoE blocks are served."""
+    """MLA attention (deepseek-v2's) raises, naming its ROADMAP item; MoE
+    blocks are served, and so is every family of the reference (an
+    unknown family name is refused)."""
     mla = dataclasses.replace(get_config("llama3.2-1b", reduced=True),
                               attention="mla", kv_lora_rank=32,
                               moe=MoEConfig(num_experts=4, top_k=2,
@@ -417,10 +466,10 @@ def test_unported_families_raise():
         api.init_params(mla, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.cache_specs(mla, 2, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.init_params(ModelConfig(name="m", family="encdec"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.attention(*(torch.zeros(1, 4, 2, 16),) * 3, impl="chunked")
+    assert sorted(api._FAMILIES) == ["encdec", "hybrid", "ssm",
+                                     "transformer", "vlm"]
+    with pytest.raises(ValueError, match="unknown model family"):
+        api.init_params(ModelConfig(name="m", family="rnn"), device="cpu")
 
 
 # -- MoE ----------------------------------------------------------------------

@@ -1316,7 +1316,7 @@ def test_subquadratic_decode_graph_tokens_match_eager(arch, prompt,
         before = decode_attention_kernel.launches
         out[backend] = eng.generate({"tokens": toks})["tokens"].cpu()
         assert decode_attention_kernel.launches - before == n_attn * 16
-        caches[backend] = eng._decode_bufs[(4, prompt)]["cache"]
+        caches[backend] = eng._decode_bufs[(4, prompt, None)]["cache"]
     assert torch.equal(out["eager"], out["graph"])
     for k, v in caches["eager"].items():
         assert torch.equal(v, caches["graph"][k]), k
@@ -1332,8 +1332,118 @@ def test_recurrent_state_warm_up_leaves_the_state(arch, cuda_device):
     res = {b: e.generate({"tokens": toks}) for b, e in engines.items()}
     assert res["graph"]["capture_s"] > 0
     assert torch.equal(res["eager"]["tokens"], res["graph"]["tokens"])
-    eager = engines["eager"]._decode_bufs[(2, 40)]["cache"]
-    graph = engines["graph"]._decode_bufs[(2, 40)]["cache"]
+    eager = engines["eager"]._decode_bufs[(2, 40, None)]["cache"]
+    graph = engines["graph"]._decode_bufs[(2, 40, None)]["cache"]
     assert int(graph["pos"]) == 41
     for k, v in eager.items():
         assert torch.equal(v, graph[k]), k
+
+
+# -- the cross-attention families (encdec, vlm) on the card ------------------
+
+# (b, hkv, g, d, keys, full): the decode attention's four shapes on the
+# seamless-m4t-medium and llama-3.2-vision-11b decode paths (self: a
+# 4096-token prompt + 32 new tokens, ragged lengths; cross: every row at
+# the full source length, 2048 frames / 4096 image tokens)
+_CROSS_SHAPES = [(8, 16, 1, 64, 4128, False), (8, 16, 1, 64, 2048, True),
+                 (8, 8, 4, 128, 4128, False), (8, 8, 4, 128, 4096, True)]
+
+
+@pytest.mark.parametrize("shape", _CROSS_SHAPES)
+def test_decode_attention_at_the_cross_attention_shapes(shape, cuda_device):
+    """bfloat16 at each new main-path shape: within one ulp of the plain
+    output + 1e-5, and the planted fault (every row one 128-row tile
+    short) breaks that bound."""
+    b, hkv, g, d, s, full = shape
+    rng = np.random.default_rng(s + d + g)
+    q, k, v, lens = _attn_case(rng, b, hkv, g, d, s, torch.bfloat16,
+                               torch.bfloat16, cuda_device, empty=False)
+    if full:
+        lens.fill_(s)
+    want = attn_ops.decode_attention(q, k, v, lens, backend="ref")
+    before = decode_attention_kernel.launches
+    _check_attn(attn_ops.decode_attention(q, k, v, lens, backend="cuda"),
+                want, lens)
+    assert decode_attention_kernel.launches == before + 1
+    short = torch.where(lens > 128, lens - 128, lens)
+    got = attn_ops.decode_attention(q, k, v, short, backend="cuda")
+    assert _attn_excess(got, want, lens) > 1.0
+
+
+def _cross_batch(cfg, b, s, s_src, seed):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s))}
+    shape = (b, s_src if cfg.family == "encdec" else cfg.num_image_tokens,
+             cfg.d_model)
+    batch["src_embeds" if cfg.family == "encdec" else "image_embeds"] = \
+        rng.normal(0, 1, shape).astype(np.float32)
+    return batch
+
+
+def _gates_at(params, gate):
+    return {k: (torch.full_like(v, gate) if k.endswith(
+        ("gate_attn", "gate_mlp")) else v) for k, v in params.items()}
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llama-3.2-vision-11b"])
+def test_cross_attention_decode_graph_tokens_match_eager(arch, cuda_device):
+    """Reduced seamless-m4t (a 13-frame source) and llama-3.2-vision (2
+    superblocks, gates 0.5) served on the card: the decode graph's tokens,
+    caches and launches (self and cross attention, every layer, every
+    step) equal the eager step's over 16 steps, and the float32 tokens
+    equal the CPU's."""
+    import dataclasses
+
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    over = {"num_layers": 10} if arch.startswith("llama") else {}
+    cfg, engines = _reduced_engines(arch, cuda_device, 17, **over)
+    params = _gates_at(engines["eager"].params, 0.5)
+    engines = {b: ServingEngine(cfg, params, ServeConfig(
+        max_new_tokens=17, step_backend=b), device=cuda_device)
+        for b in ("eager", "graph")}
+    batch = _cross_batch(cfg, 4, 40, 13, 5)
+    per_step = 2 * cfg.num_decoder_layers if cfg.family == "encdec" \
+        else cfg.num_layers
+    out, caches = {}, {}
+    for backend, eng in engines.items():
+        before = decode_attention_kernel.launches
+        out[backend] = eng.generate(batch)["tokens"].cpu()
+        assert decode_attention_kernel.launches - before == per_step * 16
+        (key,) = eng._decode_bufs
+        caches[backend] = eng._decode_bufs[key]["cache"]
+    assert torch.equal(out["eager"], out["graph"])
+    for k, v in caches["eager"].items():
+        assert torch.equal(v, caches["graph"][k]), k
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              activation_dtype="float32")
+    p32, _ = api.init_params(f32, seed=0, device="cpu")
+    p32 = _gates_at(p32, 0.5)
+    runs = {dev: ServingEngine(f32, p32, ServeConfig(max_new_tokens=9),
+                               device=dev).generate(batch)["tokens"].cpu()
+            for dev in ("cpu", cuda_device)}
+    assert torch.equal(runs["cpu"], runs[cuda_device])
+
+
+def test_two_source_lengths_get_their_own_graphs(cuda_device):
+    """Reduced seamless-m4t on the decode graph: requests with 11- and
+    17-frame sources, in turns, capture one graph each and reuse it, and
+    each request's tokens equal a fresh engine's."""
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg, engines = _reduced_engines("seamless-m4t-medium", cuda_device, 6)
+    eng = engines["graph"]
+    captures = []
+    for seed, s_src in ((1, 11), (2, 17), (3, 11), (4, 17)):
+        batch = _cross_batch(cfg, 2, 12, s_src, seed)
+        res = eng.generate(batch)
+        captures.append(res["capture_s"] > 0)
+        fresh = ServingEngine(cfg, eng.params, ServeConfig(
+            max_new_tokens=6), device=cuda_device).generate(batch)
+        assert torch.equal(res["tokens"], fresh["tokens"])
+    assert captures == [True, True, False, False]
+    assert sorted(eng._graphs) == [(2, 12, 11), (2, 12, 17)]
+    for key, bufs in eng._decode_bufs.items():
+        assert bufs["cache"]["dec/xk"].shape[2] == key[2]

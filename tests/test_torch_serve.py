@@ -36,7 +36,8 @@ def _llama(**over):
     cj = dataclasses.replace(jax_config("llama3.2-1b", reduced=True), **over)
     ct = dataclasses.replace(get_config("llama3.2-1b", reduced=True), **over)
     jp, _ = japi.init_params(cj, seed=0)
-    tp = params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+    tp = params_from_numpy({k: np.asarray(v) for k, v in jp.items()},
+                           "cpu")
     return cj, ct, jp, tp
 
 
@@ -157,7 +158,8 @@ def _arch(arch, **over):
     cj = dataclasses.replace(jax_config(arch, reduced=True), **over)
     ct = dataclasses.replace(get_config(arch, reduced=True), **over)
     jp, _ = japi.init_params(cj, seed=0)
-    tp = params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+    tp = params_from_numpy({k: np.asarray(v) for k, v in jp.items()},
+                           "cpu")
     return cj, ct, jp, tp
 
 
@@ -177,7 +179,7 @@ def test_generate_tokens_match_float32_each_config(arch):
         got = eng.generate({"tokens": toks})
         assert np.array_equal(want, got["tokens"].numpy()), (arch, call)
         assert got["capture_s"] == 0.0
-    assert list(eng._decode_bufs) == [(2, 12)]
+    assert list(eng._decode_bufs) == [(2, 12, None)]
 
 
 def test_serve_step_backend_knob():
