@@ -128,7 +128,8 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    128 and 256) 9, 12, 16, 32 (query heads in tiles of 8), ragged
    lengths with 1, S and an empty row (which must give 0), at the
    full-width Llama and qwen2-moe decode shapes, at recurrentgemma-9b's
-   (B 8, one KV head, G 16, D 256, rings of 2048 keys, two of them full),
+   (B 8, one KV head, G 16, D 256, rings of 2048 keys, two of them full)
+   and at its long_500k decode's (B 1, the ring full),
    at the four of the cross-attention families (B 8: seamless-m4t-medium's
    16 KV heads, G 1, D 64, self over the generate's cache with ragged
    lengths and cross over 2048 source frames, every row full;
@@ -141,7 +142,8 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    ``scaled_dot_product_attention`` (the library yardstick, never on the
    path), each against its bytes bound, with the split count the wrapper
    picks, the other split counts, GB/s and the share of the bound, and
-   the clusters the card holds at once; recurrentgemma's shape and the
+   the clusters the card holds at once; recurrentgemma's shapes (B 8 and
+   B 1) and the
    four cross-attention-family shapes each in turns beside SDPA.
 6. LM serving: ``ServingEngine.generate`` on the full-width
    ``llama3.2-1b`` (16 layers, d_model 2048, 32/8 heads, vocab 128256)
@@ -195,7 +197,12 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    einsum path's decode attention beside the kernel's (printed), and on
    a float32 copy cut to the first 2 superblocks (6 layers): greedy
    tokens of the kernel == the einsum path's, logits within 1e-3, and the
-   decode against a prefill within 1e-3.
+   decode against a prefill within 1e-3; on that cut, batch 1, a
+   16384-token prefill in 4 segments of 4096 (``PREFILL_TOKENS`` forced)
+   against one piece: last logits within 1e-3, greedy tokens equal.
+   Then ``long_500k``: batch 1, a 524288-token prefill (in segments of
+   ``recurrentgemma.PREFILL_TOKENS``) and 8 decode steps with 12
+   ``decode_attention`` launches each, its seconds and peak memory.
 6e. The encoder-decoder family: ``generate`` on the full-width
    ``seamless-m4t-medium`` (12 + 12 layers, d_model 1024, 16/16 heads, D
    64, vocab 256206; 0.98 B parameters), batch 8, the same prompt and
@@ -218,11 +225,29 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    float32 from the seed: 40 launches a step (32 self + 8 cross), the
    checks of 6e (but two source lengths), the float32 one on a copy cut
    to the first superblock (5 layers).
+6g. MLA: ``generate`` on ``deepseek-v2-236b`` at full width (d_model
+   5120, 128 heads, q-LoRA 1536, latent 512, rope 64, vocab 102400; 160
+   experts top-6 + 2 shared, layer 0 dense with d_ff 12288), cut in depth
+   to ``MLA_LAYERS`` = 4 layers (the full model's 236 B parameters, from
+   ``init_params(abstract=True)``, printed beside ``analytic_param_count``:
+   they do not fit one card), batch 8, the same prompt and new tokens:
+   no kernel of the port on its path (the absorbed decode is plain torch
+   ops; every count 0), graph tokens and counts == eager, ms a step of
+   both in turns beside the step's bound (the routed experts an eager
+   generate picks, the MLA, dense, shared and head weights, the latent
+   cache; the dispatch's all-expert read volume printed beside it), a
+   profile of the graph's decode loop, an int8 generate, peak memory; on
+   a float32 copy cut to 2 layers (batch 1, a 1024-token prompt, a
+   capacity factor at which no MoE pair drops) the absorbed decode's
+   logits within 1e-3 of a decompressed prefill's of the same tokens,
+   step by step, greedy tokens equal; the reduced model on the card
+   against the CPU.
 7. Each phase's seconds and the total, the ``kernels`` JSON line
    (``int8_gemm``'s launches count the CNN's and the RNN's main paths,
    the trained models' replays and the pipes and farm paths;
-   ``decode_attention``'s the llama, MoE, recurrentgemma, seamless-m4t
-   and llama-3.2-vision generates; the ``*_pipes`` rows are the
+   ``decode_attention``'s the llama, MoE, recurrentgemma (long_500k's
+   included), seamless-m4t and llama-3.2-vision generates (deepseek-v2's
+   adds 0); the ``*_pipes`` rows are the
    pipe-batched gates of 4f),
    then the last line: ``{"ok": true, "device": {"platform": "gpu",
    ...}}``.
@@ -2872,6 +2897,9 @@ def phase_attention(rng, decode_s):
     rg_in = _attn_inputs(rng, 8, RG_HKV, RG_G, RG_D, RG_WIN, torch.bfloat16,
                          [RG_WIN, RG_WIN] + list(rng.integers(1, RG_WIN, 5))
                          + [0])
+    # its long_500k decode: batch 1, the ring full
+    rg_long_in = _attn_inputs(rng, 1, RG_HKV, RG_G, RG_D, RG_WIN,
+                              torch.bfloat16, [RG_WIN])
     long_s = 32768
     long_in = _attn_inputs(rng, 32, hkv, g, d, long_s, torch.bfloat16,
                            rng.integers(long_s // 2, long_s + 1, 32))
@@ -2885,6 +2913,7 @@ def phase_attention(rng, decode_s):
     for name, x in (("Llama decode shape", llama_in),
                     ("qwen2-moe decode shape", moe_in),
                     ("recurrentgemma decode shape", rg_in),
+                    ("recurrentgemma long_500k decode shape", rg_long_in),
                     *cross_in,
                     (f"B=32 S={long_s}", long_in)):
         err = check(torch.bfloat16, x)
@@ -2902,7 +2931,7 @@ def phase_attention(rng, decode_s):
     for dtype, r in ratio.items():
         require(r <= 1.0, f"decode_attention {dtype} max|diff| "
                 f"{worst[dtype]} over its tolerance ({r:.3g} of it)")
-    del llama_in, moe_in, rg_in, cross_in
+    del llama_in, moe_in, rg_in, rg_long_in, cross_in
 
     # timing at the decode shape: lengths mid-decode, four caches in turn
     # (4 x 34 MB > L2), as the 16 layers of one step read 16 caches
@@ -2945,7 +2974,8 @@ def phase_attention(rng, decode_s):
     row = {"max_abs_err": max(worst.values()), "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": lib_ms}
-    rg_turns(rng, sms)
+    for rg_b in (8, 1):
+        rg_turns(rng, sms, rg_b)
     cross_turns(rng, sms, decode_s)
     q, k, v, lens_l = long_in
     splits_l = num_splits(32, hkv, long_s, rows, sms)
@@ -2976,18 +3006,19 @@ def phase_attention(rng, decode_s):
 RG_HKV, RG_G, RG_D, RG_WIN = 1, 16, 256, 2048
 
 
-def rg_turns(rng, sms):
-    """Time the kernel at recurrentgemma-9b's decode shape (batch 8, full
-    rings: every step of a 4096-token prompt's decode reads all 2048
-    slots) in turns beside SDPA (``enable_gqa=True``), over four caches
-    in turn (4 x 16.8 MB > L2), as the 12 attention layers of a step read
-    12; the bytes bound counts each K/V row once, the kernel's two head
-    tiles read it twice."""
+def rg_turns(rng, sms, b):
+    """Time the kernel at recurrentgemma-9b's decode shape (batch ``b``:
+    8 at a 4096-token prompt, 1 at long_500k; full rings: every step of
+    such a prompt's decode reads all 2048 slots) in turns beside SDPA
+    (``enable_gqa=True``), over four caches in turn, as the 12 attention
+    layers of a step read 12 (at batch 8, 4 x 16.8 MB > L2; at batch 1
+    the four 2.1 MB rings fit it, as a step's 12 do); the bytes bound
+    counts each K/V row once, the kernel's two head tiles read it
+    twice."""
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention, head_tiles, num_splits, tile_rows)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-    b = 8
     sets = [_attn_inputs(rng, b, RG_HKV, RG_G, RG_D, RG_WIN, torch.bfloat16,
                          [RG_WIN] * b) for _ in range(4)]
     tiles = head_tiles(RG_G)
@@ -3000,8 +3031,8 @@ def rg_turns(rng, sms):
     ms, lib_ms = turns[2], turns[3]
     plain_ms = cold_ms([lambda x=x: decode_attention_ref(*x) for x in sets])
     bound, by, byts = _attn_bound(sets[0][0], sets[0][1], sets[0][3])
-    print("  recurrentgemma decode shape in turns (kernel, sdpa, kernel, "
-          "sdpa): " + ", ".join(f"{t:.5f}" for t in turns) + " ms")
+    print(f"  recurrentgemma decode shape B={b} in turns (kernel, sdpa, "
+          "kernel, sdpa): " + ", ".join(f"{t:.5f}" for t in turns) + " ms")
     print(f"decode_attention recurrentgemma decode shape B={b} S={RG_WIN} "
           f"Hkv={RG_HKV} Hq={RG_G} (G {RG_G}, {tiles} head tiles) D={RG_D} "
           f"bf16 (full rings): kernel {ms:.5f} ms with {splits} splits "
@@ -3016,7 +3047,7 @@ def rg_turns(rng, sms):
         if sp != splits:
             t = cold_ms([lambda x=x: decode_attention(*x, splits=sp)
                          for x in sets])
-            print(f"  recurrentgemma decode shape with {sp} splits: "
+            print(f"  recurrentgemma decode shape B={b} with {sp} splits: "
                   f"{t:.5f} ms ({bound / t:.3f} of the bound)")
     del sets
 
@@ -3408,7 +3439,8 @@ def _routed_experts(eng, prompt):
     the experts they route to (``layers._top_k`` wrapped; the recorded
     indices are counted after the loop, so it stays free of host syncs).
     Returns (the generate's output, the distinct experts routed a step
-    summed over the layers, the distinct experts of each layer's step)."""
+    summed over the MoE layers, the distinct experts of each MoE layer's
+    step)."""
     from repro_torch.models import layers
 
     top_k, seen = layers._top_k, []
@@ -3426,7 +3458,9 @@ def _routed_experts(eng, prompt):
     finally:
         layers._top_k = top_k
     per = [int(torch.unique(i).numel()) for i in seen]
-    return out, sum(per) / max(len(per) // eng.cfg.num_layers, 1), per
+    cfg = eng.cfg
+    n_moe = cfg.num_layers - cfg.moe.first_dense_layers
+    return out, sum(per) / max(len(per) // n_moe, 1), per
 
 
 def phase_moe(args):
@@ -3771,7 +3805,7 @@ def phase_ssm(args):
     has no attention)."""
     import dataclasses
 
-    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs import get_config
     from repro_torch.serve.engine import ServeConfig, ServingEngine
 
     cfg = get_config("mamba2-370m")
@@ -3806,35 +3840,59 @@ def phase_ssm(args):
     del eng32, p32
     torch.cuda.empty_cache()
     reduced_card_vs_cpu(cfg.name, prompt, args.seed, 45)
+    serve_long_500k(cfg, params, rng, 0, "the state is O(1): the same "
+                    "step as at 4096 tokens, batch 1")
+    del params
+    torch.cuda.empty_cache()
+    return launches["decode_attention"]
 
-    # long_500k: batch 1, a 524288-token prefill, 8 decode steps
+
+def serve_long_500k(cfg, params, rng, per_step, note):
+    """long_500k: batch 1, a 524288-token prefill (in segments: each
+    family's ``PREFILL_*`` budget) and 8 decode steps on the decode
+    graph, the kernel counts at 0 just before and read just after
+    (``per_step`` decode attention launches a step, nothing else of the
+    port's); its seconds, peak memory, position, the recurrent states
+    finite.  Returns the decode attention launches."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
     shape = SHAPES["long_500k"]
+    b, s = shape.global_batch, shape.seq_len
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    prompt_l = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (shape.global_batch, shape.seq_len))
-        .astype(np.int32)).cuda()
-    eng_l = ServingEngine(cfg, params, ServeConfig(max_new_tokens=9),
+    prompt_l = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                                .astype(np.int32)).cuda()
+    eng_l = ServingEngine(cfg, params, ServeConfig(max_new_tokens=9,
+                                                   attn_backend="cuda"),
                           device="cuda")
+    zero_counts()
     out_l = eng_l.generate({"tokens": prompt_l})
+    launches = read_counts()
+    require(launches == {"fused_gate": 0, "fused_gate_prng": 0,
+                         "int8_gemm": 0, "decode_attention": per_step * 8},
+            f"long_500k ({cfg.name}) launches {launches}, want "
+            f"decode_attention = {per_step} a step x 8 steps")
     peak_l = torch.cuda.max_memory_allocated() / 1e9
-    cache_l = eng_l._decode_bufs[(shape.global_batch, shape.seq_len,
-                                  None)]["cache"]
-    require(int(cache_l["pos"]) == shape.seq_len + 8, "long_500k position")
-    require(bool(torch.isfinite(cache_l["scan/h"]).all()),
-            "long_500k: non-finite SSM state")
+    cache_l = eng_l._decode_bufs[(b, s, None)]["cache"]
+    require(int(cache_l["pos"]) == s + 8, "long_500k position")
+    for k, (_, _, axes) in api.cache_specs(cfg, b, s + 8).items():
+        if k != "pos" and "kv_seq" not in axes:
+            require(bool(torch.isfinite(cache_l[k]).all()),
+                    f"long_500k ({cfg.name}): non-finite {k}")
     tl = out_l["tokens"]
     require(bool(((tl >= 0) & (tl < cfg.vocab_size)).all()),
             "long_500k token outside the vocabulary")
-    print(f"long_500k ({cfg.name}): batch {shape.global_batch}, a "
-          f"{shape.seq_len}-token prefill in {out_l['prefill_s']:.3f} s "
-          f"({shape.seq_len / out_l['prefill_s']:.0f} tok/s), capture "
-          f"{out_l['capture_s']:.3f} s, 8 decode steps in "
+    print(f"long_500k ({cfg.name}): batch {b}, a {s}-token prefill in "
+          f"{out_l['prefill_s']:.3f} s ({s / out_l['prefill_s']:.0f} "
+          f"tok/s), capture {out_l['capture_s']:.3f} s, 8 decode steps in "
           f"{out_l['decode_s'] * 1e3:.3f} ms = "
-          f"{out_l['decode_s'] / 8 * 1e3:.3f} ms a step (the state is O(1):"
-          f" the same step as at 4096 tokens, batch 1); peak memory "
-          f"{peak_l:.2f} GB; the SSM state finite after 8 steps")
-    del eng_l, params
+          f"{out_l['decode_s'] / 8 * 1e3:.3f} ms a step ({note}); "
+          f"decode_attention launches {launches['decode_attention']} = "
+          f"{per_step} a step x 8 steps; peak memory {peak_l:.2f} GB; the "
+          "recurrent states finite after 8 steps")
+    del eng_l, cache_l
     torch.cuda.empty_cache()
     return launches["decode_attention"]
 
@@ -3903,6 +3961,10 @@ def phase_hybrid(args):
     print(f"peak memory of phase 6d: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (weights, "
           "engines' caches, prefill, the int8 copy)")
+    long_attn = serve_long_500k(
+        cfg, params, rng, attn_layers,
+        f"{attn_layers} attention layers over full {win}-slot rings; the "
+        "prefill in segments of recurrentgemma.PREFILL_TOKENS")
 
     # float32 on a cut of whole (r, r, a) superblocks of the same weights
     cut = RG_CUT_SUPERBLOCKS
@@ -3933,10 +3995,51 @@ def phase_hybrid(args):
     require(rel32 <= 1e-3, f"{what}: logits off by {rel32}")
     rel = decode_vs_prefill(e32, prompt, runs["cuda"], what)
     require(rel <= 1e-3, f"{what}: decode off the prefill by {rel}")
-    del e32, p32
+    del e32
+    segmented_vs_whole(cfg32, p32, rng, what)
+    del p32
     torch.cuda.empty_cache()
     reduced_card_vs_cpu(cfg.name, prompt, args.seed, 45)
-    return launches["decode_attention"]
+    return launches["decode_attention"] + long_attn
+
+
+RG_SEG_CHECK = (16384, 4096)   # (tokens, forced segment) of 6d's check
+
+
+def segmented_vs_whole(cfg32, p32, rng, what):
+    """The hybrid's segmented prefill against its prefill in one piece,
+    at a length where both fit: batch 1, a 16384-token prompt, segments
+    of 4096 positions forced (``recurrentgemma.PREFILL_TOKENS``): the last
+    logits within 1e-3 of the largest (the scan's tree and the
+    attention's blocks differ by segment: rounding only) and the greedy
+    tokens of 8 decode steps on each cache equal."""
+    from repro_torch.models import api
+    from repro_torch.models import recurrentgemma as rg
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    n, seg = RG_SEG_CHECK
+    toks = torch.from_numpy(rng.integers(0, cfg32.vocab_size, (1, n))
+                            .astype(np.int32)).cuda()
+    budget, runs = rg.PREFILL_TOKENS, {}
+    try:
+        for name, tokens in (("whole", n), ("segmented", seg)):
+            rg.PREFILL_TOKENS = tokens
+            _, logits = api.prefill(p32, cfg32, {"tokens": toks})
+            out = ServingEngine(cfg32, p32, ServeConfig(max_new_tokens=9),
+                                device="cuda").generate({"tokens": toks})
+            runs[name] = logits, out["tokens"]
+    finally:
+        rg.PREFILL_TOKENS = budget
+    (lw, tw), (ls, ts) = runs["whole"], runs["segmented"]
+    require(bool(torch.isfinite(ls).all()), f"{what}: non-finite logits")
+    rel = float((lw - ls).abs().max()) / float(lw.abs().max())
+    require(rel <= 1e-3, f"{what}: the segmented prefill's logits off the "
+            f"whole prompt's by {rel}")
+    require(torch.equal(tw, ts), f"{what}: the segmented prefill's greedy "
+            "tokens differ from the whole prompt's")
+    print(f"{what}: a {n}-token prefill in {n // seg} segments of {seg} "
+          f"against one piece: last logits max|diff| = {rel:.3g} of the "
+          "largest logit; greedy tokens of 8 decode steps equal")
 
 
 # -- phases 6e and 6f: the cross-attention families ------------------------
@@ -4132,6 +4235,148 @@ def phase_vlm(args):
     return launches["decode_attention"]
 
 
+# -- phase 6g: MLA (deepseek-v2-236b) ---------------------------------------
+
+MLA_LAYERS = 4          # the depth served on one card: layer 0 (dense) + 3 MoE
+MLA_CUT_LAYERS = 2      # its float32 copy: layer 0 + 1 MoE layer
+MLA_CHECK_LEN = 1024    # the float32 check's prompt (batch 1)
+
+
+def _gb(params, prefix, per=1):
+    return sum(v.numel() * v.element_size() for k, v in params.items()
+               if k.startswith(prefix)) / per / 1e9
+
+
+def decode_vs_prefill_greedy(eng, prompt, what):
+    """The decode path against the prefill path, in float32, token by
+    token: a generate's greedy tokens, teacher-forced through the decode
+    steps, against a prefill of the prompt and the tokens before each:
+    every step's logits within 1e-3 of the largest and each greedy token
+    the prefill's argmax.  Returns the largest relative difference."""
+    from repro_torch.models import api
+
+    toks = eng.generate({"tokens": prompt})["tokens"]
+    lc = teacher_forced(eng, prompt, toks, "ref")
+    worst = 0.0
+    for i in range(1, toks.shape[1]):
+        full = torch.cat([prompt, toks[:, :i]], dim=1)
+        _, lp = api.prefill(eng.params, eng.cfg, {"tokens": full})
+        require(bool(torch.isfinite(lc[:, i]).all()
+                     and torch.isfinite(lp).all()),
+                f"{what}: non-finite logits")
+        worst = max(worst, float((lc[:, i] - lp).abs().max())
+                    / float(lp.abs().max()))
+        require(torch.equal(lp.argmax(-1).to(torch.int32), toks[:, i]),
+                f"{what}: greedy token {i} of the decode differs from the "
+                "prefill's argmax")
+    print(f"{what}: {toks.shape[1] - 1} absorbed decode steps after a "
+          f"{prompt.shape[1]}-token prefill against a decompressed prefill "
+          f"of the prompt and the tokens before each: logits max|diff| = "
+          f"{worst:.3g} of the largest; greedy tokens equal")
+    return worst
+
+
+def phase_mla(args):
+    """6g. deepseek-v2-236b (MLA over MoE) served on the card at full
+    width, cut in depth to ``MLA_LAYERS``; returns the decode attention
+    launches of its main path's generate (0: MLA's absorbed decode is
+    plain torch ops, as the reference's is plain einsums)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    full = get_config("deepseek-v2-236b")
+    meta, _ = api.init_params(full, abstract=True)
+    n_full = sum(v.numel() for v in meta.values())
+    side = sum(v.numel() for k, v in meta.items()
+               if k == "embed/table" or k.endswith("/scale"))
+    require(n_full - side == api.analytic_param_count(full),
+            "deepseek-v2-236b's matmul parameters != analytic_param_count")
+    print(f"model: {full.name} at full width and depth (abstract, meta "
+          f"tensors): {n_full} parameters, {_gb(meta, ''):.1f} GB (bf16, "
+          f"the norms float32); {n_full - side} matmul parameters (all but "
+          f"the embedding table and the norm scales) == "
+          f"analytic_param_count; it does not fit one 80 GB card")
+    cfg = dataclasses.replace(full, num_layers=MLA_LAYERS)
+    m = cfg.moe
+    n_moe = cfg.num_layers - m.first_dense_layers
+    b, s, n_new = 8, args.prompt_len, args.new_tokens
+    rng = np.random.default_rng(args.seed + 4)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                              .astype(np.int32)).cuda()
+    params = _init_model(cfg, args.seed)
+    print(f"depth cut: {cfg.num_layers} of {full.num_layers} layers (layer "
+          f"0 dense, d_ff {m.first_dense_d_ff}; {n_moe} MoE layers of "
+          f"{m.num_experts} experts top-{m.top_k} + {m.num_shared_experts} "
+          f"shared), full width: d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads, q-LoRA {cfg.q_lora_rank}, latent {cfg.kv_lora_rank}, "
+          f"rope {cfg.qk_rope_head_dim}, vocab {cfg.vocab_size}; a MoE "
+          f"layer carries {_gb(params, 'layers/moe/experts/', n_moe):.3f} GB "
+          f"of experts, {_gb(params, 'layers/attn/', n_moe):.3f} GB of MLA "
+          f"attention, {_gb(params, 'layers/moe/shared/', n_moe):.3f} GB of "
+          f"shared experts; layer 0 {_gb(params, 'layer0/'):.3f} GB; embed "
+          f"{_gb(params, 'embed/'):.3f} GB, head {_gb(params, 'head/'):.3f} "
+          f"GB")
+    read_ms, _, kv_gb = _decode_bound(cfg, params, b, s + n_new)
+    eng_rec = ServingEngine(cfg, params, ServeConfig(
+        max_new_tokens=n_new, step_backend="eager"), device="cuda")
+    out_r, routed, per = _routed_experts(eng_rec, prompt)
+    del eng_rec
+    require(len(per) == n_moe * (n_new - 1),
+            f"{len(per)} routings recorded for {n_new - 1} decode steps")
+    bound_ms, w_r, _ = _decode_bound(cfg, params, b, s + n_new, routed)
+    print(f"decode step bound ({cfg.name}, batch {b}): the experts each "
+          f"step routes to, {routed / n_moe:.3f} of {m.num_experts} a MoE "
+          f"layer on average ({min(per)}-{max(per)}; at most min(e, B k) = "
+          f"{min(m.num_experts, b * m.top_k)}), from an eager generate: "
+          f"{w_r:.3f} GB of weights (the MLA, dense, shared and head "
+          f"weights, the embedding rows gathered) + {kv_gb:.4f} GB of "
+          f"latent cache ({kv_gb / cfg.num_layers * 1e3:.1f} MB a layer at "
+          f"{s + n_new} rows: ckv and kpe read once) at 3.35 TB/s = "
+          f"{bound_ms:.3f} ms; the port's dispatch runs every expert at "
+          f"decode capacity {max(1, int(m.capacity_factor * b * m.top_k / m.num_experts))}"
+          f": a read volume of {read_ms:.3f} ms, not a bound")
+    out, launches, eng = serve_family(cfg, params, prompt, n_new, 0,
+                                      bound_ms)
+    toks = out["tokens"]
+    require(torch.equal(out_r["tokens"], toks),
+            f"{cfg.name}: the recording generate's tokens differ")
+    del eng
+    int8_generate(cfg, params, prompt, n_new, toks, bound_ms)
+    print(f"peak memory of phase 6g: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (weights, "
+          "engines' caches, prefill, the int8 copy)")
+
+    # float32: the absorbed decode against the decompressed prefill, on
+    # the first layers of the same weights, at batch 1 and a capacity
+    # factor at which no MoE pair is dropped (prefill and decode each
+    # take their capacity from their own token count, so at the config's
+    # 1.25 they would drop different pairs)
+    cut = MLA_CUT_LAYERS
+    cfg32 = dataclasses.replace(
+        cfg, num_layers=cut, param_dtype="float32",
+        activation_dtype="float32", moe=dataclasses.replace(
+            m, capacity_factor=(m.num_experts + 0.5) / m.top_k))
+    p32 = {k: (v[:cut - m.first_dense_layers] if k.startswith("layers/")
+               else v).float() for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    e32 = ServingEngine(cfg32, p32, ServeConfig(max_new_tokens=8),
+                        device="cuda")
+    rel = decode_vs_prefill_greedy(
+        e32, prompt[:1, :MLA_CHECK_LEN],
+        f"{cfg.name} float32, {cut} layers, batch 1, capacity factor "
+        f"{cfg32.moe.capacity_factor:.4f}")
+    require(rel <= 1e-3, f"{cfg.name} float32: decode off the prefill by "
+            f"{rel}")
+    del e32, p32
+    torch.cuda.empty_cache()
+    reduced_card_vs_cpu(cfg.name, prompt, args.seed, 16)
+    return launches["decode_attention"]
+
+
 KERNEL_ROWS = (
     ("fused_gate", "src/repro_torch/csrc/fused_gate.cu",
      "src/repro/kernels/rate_gate/kernel.py:191"),
@@ -4207,13 +4452,14 @@ def main():
     hybrid_attn = phase("6d hybrid", phase_hybrid, args)
     encdec_attn = phase("6e encdec", phase_encdec, args)
     vlm_attn = phase("6f vlm", phase_vlm, args)
+    mla_attn = phase("6g mla", phase_mla, args)
     launches["decode_attention"] = lm_attn + moe_attn + ssm_attn \
-        + hybrid_attn + encdec_attn + vlm_attn
+        + hybrid_attn + encdec_attn + vlm_attn + mla_attn
     print(f"decode_attention launches on the main paths: llama3.2-1b "
           f"{lm_attn} + qwen2-moe-a2.7b {moe_attn} + mamba2-370m "
-          f"{ssm_attn} + recurrentgemma-9b {hybrid_attn} + "
-          f"seamless-m4t-medium {encdec_attn} + llama-3.2-vision-11b "
-          f"{vlm_attn}")
+          f"{ssm_attn} + recurrentgemma-9b {hybrid_attn} (its long_500k "
+          f"included) + seamless-m4t-medium {encdec_attn} + "
+          f"llama-3.2-vision-11b {vlm_attn} + deepseek-v2-236b {mla_attn}")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items())
           + f"; total {sum(seconds.values()):.1f} s")

@@ -5,12 +5,12 @@ One ``ModelConfig`` dataclass covers every architecture family of the
 reference (dense / MoE decoder LMs with GQA, MLA, qk-norm and GLU
 variants, SSM, hybrid, encoder-decoder, VLM).  Architectures register
 themselves into ``REGISTRY`` and are selected with ``--arch <id>``.  The
-port registers every config it serves: the dense GQA decoders
+port registers every config of the reference: the dense GQA decoders
 (``llama3.2-1b``, ``qwen3-4b``, ``qwen2.5-14b``, ``gemma-7b``), the MoE
-``qwen2-moe-a2.7b``, ``mamba2-370m``, ``recurrentgemma-9b``, the
-encoder-decoder ``seamless-m4t-medium`` and the vision LM
-``llama-3.2-vision-11b``; each has a ``reduced()`` variant for the CPU
-tests.
+``qwen2-moe-a2.7b``, the MLA + MoE ``deepseek-v2-236b``,
+``mamba2-370m``, ``recurrentgemma-9b``, the encoder-decoder
+``seamless-m4t-medium`` and the vision LM ``llama-3.2-vision-11b``; each
+has a ``reduced()`` variant for the CPU tests.
 """
 
 from __future__ import annotations
@@ -184,10 +184,10 @@ def _ensure_imported() -> None:
     if _IMPORTED:
         return
     # import the config modules for their registration side effects: the
-    # GQA decoders, dense and MoE, the ssm and hybrid families, the
-    # encoder-decoder and the vision LM (MLA's deepseek-v2 is a ROADMAP
-    # item)
+    # GQA decoders, dense and MoE, MLA's deepseek-v2, the ssm and hybrid
+    # families, the encoder-decoder and the vision LM
     from repro_torch.configs import (  # noqa: F401
+        deepseek_v2_236b,
         gemma_7b,
         llama3_2_1b,
         llama3_2_vision_11b,

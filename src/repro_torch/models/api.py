@@ -1,10 +1,10 @@
 """Uniform Model API: one facade over the model families.
 
-Port of ``repro/models/api.py`` for the ``transformer`` family (GQA,
-dense and MoE), the ``ssm`` family (mamba2), the ``hybrid`` family
-(recurrentgemma), the ``encdec`` family (seamless-m4t) and the ``vlm``
-family (llama-3.2-vision); MLA raises ``NotImplementedError`` naming its
-ROADMAP item.  Provides:
+Port of ``repro/models/api.py`` for every family of the reference: the
+``transformer`` family (GQA and MLA attention, dense and MoE MLPs), the
+``ssm`` family (mamba2), the ``hybrid`` family (recurrentgemma), the
+``encdec`` family (seamless-m4t) and the ``vlm`` family
+(llama-3.2-vision).  Provides:
   init_params(cfg)          — concrete (on a device) or abstract (meta)
   quantize_for_serving      — int8 weights + per-tensor/per-layer scales
   prefill / decode_step     — the serving entry points (encdec and vlm

@@ -305,13 +305,28 @@ def _chunked_attention(q, k, v, *, causal, chunk_q, chunk_kv, window, kv_len,
     return out.reshape(b, nq * cq, hq, dv)[:, :sq].to(v.dtype)
 
 
+# the most bytes the first band's float32 scores [B, n, Hq, c, c] may
+# take: past it the batch runs a slice of sequences at a time (they are
+# independent, so the values are the same).  deepseek-v2-236b's 128 heads
+# at batch 8 x 4096 tokens would take 17.2 GB (and 8.6 GB of bf16 p);
+# llama3.2-1b's and llama-3.2-vision-11b's 32 heads take 4 GiB, whole
+BAND_BYTES = 1 << 32
+
+
 def _band_attention(q, k, v, *, chunk, window, scale):
     b, s, hq, dk = q.shape
+    c = min(chunk, s)
+    per_seq = -(-s // c) * hq * c * c * 4
+    if b > 1 and b * per_seq > BAND_BYTES:
+        step = max(1, BAND_BYTES // per_seq)
+        return torch.cat([_band_attention(q[i:i + step], k[i:i + step],
+                                          v[i:i + step], chunk=chunk,
+                                          window=window, scale=scale)
+                          for i in range(0, b, step)])
     hkv = k.shape[2]
     dv = v.shape[-1]
     g = hq // hkv
     dev = q.device
-    c = min(chunk, s)
     q, pad = _pad_to(q, 1, c)
     k, _ = _pad_to(k, 1, c)
     v, _ = _pad_to(v, 1, c)

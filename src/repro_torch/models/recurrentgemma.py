@@ -13,7 +13,9 @@ RG-LRU: r_t = sigma(block_diag(W_a) x_t); i_t = sigma(block_diag(W_i) x_t)
         log a_t = -c * softplus(Lambda) * r_t   (c = 8)
         h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 Prefill runs the recurrence through ``param.associative_scan`` (JAX's
-log-depth algorithm, each level a few whole-tensor ops).
+log-depth algorithm, each level a few whole-tensor ops).  A prompt of
+more than ``PREFILL_TOKENS`` tokens runs each layer in segments
+(long_500k's 524288 tokens would not fit one card in one piece).
 
 Attention block: MQA (kv=1) with rope and a 2048-token sliding window;
 the decode cache is a ring of window slots (slot = pos % window).  A
@@ -41,6 +43,19 @@ from repro_torch.models.transformer import (_Prefixed, _Stacked, _Step,
                                             _gqa_qkv)
 
 F32 = torch.float32
+# a prefill of more than this many tokens (batch x length) runs each layer
+# over segments of ``PREFILL_TOKENS // batch`` positions, carrying the
+# recurrent blocks' conv tail and state and the attention blocks' last
+# ``window - 1`` K/V rows from one segment to the next.  A layer's
+# transients at full width are ~200 KB a token: the band attention's
+# float32 scores of one band, 16 heads x 1024 keys x 4 bytes = 64 KB,
+# and its bfloat16 p, 32 KB; the GeGLU's gate and up, 24 KB each; the
+# RG-LRU's float32 gates, 16 KB each, and the scan's levels about as much
+# again.  65536 tokens hold ~13 GB; long_500k's 524288 in one piece
+# would hold ~105 GB beside the 17.2 GB of weights.  The associative
+# scan's tree and the attention's blocks differ by segment, so the
+# values differ from one whole-prompt pass by rounding only.
+PREFILL_TOKENS = 1 << 16
 _LRU_C = 8.0
 _N_BLOCKS = 16  # block-diagonal gate projections (Griffin appendix)
 
@@ -206,25 +221,47 @@ def _recurrent_block_step(p, cfg, x, conv_state, h_state):
 # ---------------------------------------------------------------------------
 
 
-def _attn_block_seq(p, cfg, x):
+def _attn_block_seq(p, cfg, x, start=0, prefix=None):
+    """x [B,S,d], the prompt's positions ``start`` .. ``start + S - 1``;
+    ``prefix`` the (k, v) rows of the positions before, at most
+    ``window - 1`` (a later segment's).  Returns (x + out, (k, v) of the
+    prefix and this segment: the keys in the window of the next)."""
     hx = L.rmsnorm(p, "ln", x, cfg.norm_eps)
     win = cfg.hybrid.attention_window
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    positions = torch.arange(start, start + x.shape[1],
+                             device=x.device)[None, :]
     q, k, v = _gqa_qkv(p, cfg, hx, positions)
+    n_pre = 0
+    if prefix is not None:
+        # the prefix rows go through the square causal layout with zero
+        # queries, whose outputs are dropped: the band attention's work
+        # (S x window), where the Sq < Skv layout's kv-block loop would
+        # take S x (S + window - 1)
+        n_pre = prefix[0].shape[1]
+        q = torch.cat([q.new_zeros((q.shape[0], n_pre, *q.shape[2:])), q],
+                      dim=1)
+        k = torch.cat([prefix[0], k], dim=1)
+        v = torch.cat([prefix[1], v], dim=1)
     o = L.attention(q, k, v, causal=True, impl=cfg.attention_impl,
                     chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
-                    window=win)
+                    window=win)[:, n_pre:]
     out = L.dense(p, "attn/wo", o, "...hk,hkd->...d")
-    # ring cache: the last `win` K/V entries, in ring order slot = pos % win
-    s = x.shape[1]
-    if s >= win:
-        # rotate so that slot index = position % win
-        kr = torch.roll(k[:, -win:], s % win, dims=1)
-        vr = torch.roll(v[:, -win:], s % win, dims=1)
-    else:
-        kr = F.pad(k, (0, 0, 0, 0, 0, win - s))
-        vr = F.pad(v, (0, 0, 0, 0, 0, win - s))
-    return x + out, {"k": kr, "v": vr}
+    return x + out, (k, v)
+
+
+def _ring(kv, s: int, win: int):
+    """The decode cache of an attention layer after ``s`` prompt
+    positions, from (k, v) whose last row is position ``s - 1`` (and
+    that hold every position when ``s < win``): the last ``win`` rows in
+    ring order, slot = pos % win."""
+    out = {}
+    for name, t in zip(("k", "v"), kv):
+        if s >= win:
+            # rotate so that slot index = position % win
+            out[name] = torch.roll(t[:, -win:], s % win, dims=1)
+        else:
+            out[name] = F.pad(t, (0, 0, 0, 0, 0, win - s))
+    return out
 
 
 def _attn_block_step(p, cfg, x, cache_l, step: _Step,
@@ -258,12 +295,32 @@ def _mlp_block(p, cfg, x):
 
 
 def _layer_seq(p_l, cfg, x, kind):
+    """One layer (temporal block + MLP) over the prompt: in one piece, or
+    past ``PREFILL_TOKENS`` in segments, each carrying the recurrent
+    state or the attention's last ``window - 1`` K/V rows into the next.
+    Returns (x, the layer's decode cache)."""
+    b, s = x.shape[:2]
+    win = cfg.hybrid.attention_window
+    seg = max(1, PREFILL_TOKENS // b)
+    out = x if s <= seg else torch.empty_like(x)
+    state = None
+    for lo in range(0, s, seg):
+        xs = x[:, lo:lo + seg]
+        if kind == "recurrent":
+            y, state = _recurrent_block_seq(p_l, cfg, xs, state=state)
+        else:
+            y, kv = _attn_block_seq(p_l, cfg, xs, start=lo, prefix=state)
+            # copies: views would keep the segment's K/V alive
+            state = tuple(t[:, max(0, t.shape[1] - win + 1):].clone()
+                          for t in kv)
+        y = _mlp_block(p_l, cfg, y)
+        if s <= seg:
+            out = y
+        else:
+            out[:, lo:lo + seg] = y
     if kind == "recurrent":
-        x, st = _recurrent_block_seq(p_l, cfg, x)
-        cache = {"conv": st[0], "h": st[1]}
-    else:
-        x, cache = _attn_block_seq(p_l, cfg, x)
-    return _mlp_block(p_l, cfg, x), cache
+        return out, {"conv": state[0], "h": state[1]}
+    return out, _ring(kv, s, win)
 
 
 def _embed_in(params, cfg: ModelConfig, tokens):

@@ -1,27 +1,36 @@
-"""Decoder-only transformer LM, GQA branch (dense and MoE MLPs),
-config-driven.
+"""Decoder-only transformer LM: dense and MoE MLPs, GQA and MLA
+attention, config-driven.
 
 Port of ``repro/models/transformer.py`` for llama3.2-1b, qwen2.5-14b
-(QKV bias), qwen3-4b (qk-norm), gemma-7b (GeGLU, embedding scale) and
+(QKV bias), qwen3-4b (qk-norm), gemma-7b (GeGLU, embedding scale),
 qwen2-moe-a2.7b (``moe_ffn`` blocks; a config's ``first_dense_layers``
 are dense blocks ``layer{i}/`` ahead of the stacked ones, each with its
-own cache entries ``layer{i}/k``, ``layer{i}/v``).  MLA is a ROADMAP
-item and raises.
+own cache entries) and deepseek-v2-236b (MLA: multi-head latent
+attention, over MoE blocks).
 
 Two serving entry points:
   - ``prefill``     — emits the KV cache + last-position logits
   - ``decode_step`` — one token against the cache
 
-Cache layout (stacked over layers): k, v [L, B, Smax, Hkv, Dh] under
-``"scan/k"`` / ``"scan/v"``; ``"pos"`` is the next position as a 0-d
-int32 tensor on the cache's device, as the reference's scalar.  No step
-reads it back to the host: the positions and key counts are built from
-it on the device, and the new token's K/V row is written with
+Cache layouts (stacked over layers): GQA k, v [L, B, Smax, Hkv, Dh]
+under ``"scan/k"`` / ``"scan/v"``; MLA the compressed latent ckv [L, B,
+Smax, R] and the shared rope key kpe [L, B, Smax, Dr] under
+``"scan/ckv"`` / ``"scan/kpe"``.  ``"pos"`` is the next position as a
+0-d int32 tensor on the cache's device, as the reference's scalar.  No
+step reads it back to the host: the positions and key counts are built
+from it on the device, and the new token's row is written with
 ``index_copy_`` at a one-lane device index (a 0-d tensor index would be
 read back).  ``decode_step`` writes that row into the cache in place and
 returns the same tensors: the reference's ``dynamic_update_slice`` +
 stacked scan output without a copy of the whole cache per step.  Every
 step is the same program, so it can be captured as a CUDA graph.
+
+MLA prefill attends over per-head K/V decompressed from the latent
+(``_mla_qkv_full``) and caches the latent; MLA decode is the reference's
+matrix-absorbed form (``_mla_decode``): W_UK folded into the query,
+float32 scores over the latent cache, W_UV applied after the softmax.
+It is plain torch ops, as the reference's is plain ``jnp.einsum``: no
+kernel of the port runs on it.
 """
 
 from __future__ import annotations
@@ -45,9 +54,6 @@ class _Step(NamedTuple):
     row: torch.Tensor
     positions: torch.Tensor
     lengths: torch.Tensor
-
-
-_MLA = "MLA attention is not ported yet (ROADMAP: the other LM families)"
 
 
 # ---------------------------------------------------------------------------
@@ -76,11 +82,6 @@ class _Prefixed:
         return self.reg.param(f"{self.prefix}{path}", shape, axes, **kw)
 
 
-def _check_gqa(cfg: ModelConfig) -> None:
-    if cfg.attention != "gqa":
-        raise NotImplementedError(f"{cfg.name}: {_MLA}")
-
-
 def _n_dense_first(cfg: ModelConfig) -> int:
     return cfg.moe.first_dense_layers if cfg.moe.num_experts else 0
 
@@ -91,6 +92,33 @@ def _mlp_kind(cfg: ModelConfig) -> str:
 
 def _init_attention(reg, cfg: ModelConfig, path: str = "attn") -> None:
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cfg.attention == "mla":
+        r, dr, dn, dv = (cfg.kv_lora_rank, cfg.qk_rope_head_dim,
+                         cfg.qk_nope_head_dim, cfg.v_head_dim)
+        if cfg.q_lora_rank:
+            reg.param(f"{path}/wdq/w", (d, cfg.q_lora_rank),
+                      ("embed", "q_lora"), scale=d ** -0.5)
+            reg.param(f"{path}/q_norm/scale", (cfg.q_lora_rank,), ("q_lora",),
+                      init="ones", dtype=F32)
+            reg.param(f"{path}/wuq/w", (cfg.q_lora_rank, h, dn + dr),
+                      ("q_lora", "heads", "qk_dim"),
+                      scale=cfg.q_lora_rank ** -0.5)
+        else:
+            reg.param(f"{path}/wq/w", (d, h, dn + dr),
+                      ("embed", "heads", "qk_dim"), scale=d ** -0.5)
+        reg.param(f"{path}/wdkv/w", (d, r), ("embed", "kv_lora"),
+                  scale=d ** -0.5)
+        reg.param(f"{path}/kv_norm/scale", (r,), ("kv_lora",), init="ones",
+                  dtype=F32)
+        reg.param(f"{path}/wkr/w", (d, dr), ("embed", "qk_dim"),
+                  scale=d ** -0.5)
+        reg.param(f"{path}/wuk/w", (r, h, dn), ("kv_lora", "heads", "qk_dim"),
+                  scale=r ** -0.5)
+        reg.param(f"{path}/wuv/w", (r, h, dv), ("kv_lora", "heads", "v_dim"),
+                  scale=r ** -0.5)
+        reg.param(f"{path}/wo/w", (h, dv, d), ("heads", "v_dim", "embed"),
+                  scale=(h * dv) ** -0.5)
+        return
     reg.param(f"{path}/wq/w", (d, h, dh), ("embed", "heads", "head_dim"),
               scale=d ** -0.5)
     reg.param(f"{path}/wk/w", (d, hkv, dh), ("embed", "kv_heads", "head_dim"),
@@ -124,7 +152,6 @@ def _init_block(reg, cfg: ModelConfig, mlp_kind: str,
 
 
 def init_params(reg: Registrar, cfg: ModelConfig) -> None:
-    _check_gqa(cfg)
     L.init_embedding(reg, "embed", cfg.vocab_size, cfg.d_model)
     n_first = _n_dense_first(cfg)
     for i in range(n_first):
@@ -163,9 +190,57 @@ def _gqa_qkv(p, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
+def _mla_q(p, cfg: ModelConfig, x):
+    """The per-head query [..., H, Dn + Dr] through the q-LoRA (wdq, its
+    norm, wuq) or the full-rank wq.  The reference's ``_rms`` (the q and
+    latent norms) is ``rmsnorm_1d`` op for op."""
+    if cfg.q_lora_rank:
+        cq = L.rmsnorm_1d(p["attn/q_norm/scale"],
+                          L.dense(p, "attn/wdq", x, "...d,dr->...r"),
+                          cfg.norm_eps)
+        return L.einsum("...r,rhk->...hk", cq, L.W(p, "attn/wuq/w"))
+    return L.dense(p, "attn/wq", x, "...d,dhk->...hk")
+
+
+def _mla_latent(p, cfg: ModelConfig, x):
+    """The normed latent ckv [..., R] and the shared rope key before its
+    rope [..., Dr]."""
+    ckv = L.rmsnorm_1d(p["attn/kv_norm/scale"],
+                       L.dense(p, "attn/wdkv", x, "...d,dr->...r"),
+                       cfg.norm_eps)
+    return ckv, L.dense(p, "attn/wkr", x, "...d,dk->...k")
+
+
+def _mla_qkv_full(p, cfg: ModelConfig, x, positions):
+    """Decompressed MLA for prefill: per-head K/V materialized from the
+    latent.  Returns (q, k, v, the latent ckv [B,S,R], the shared rope key
+    k_pe [B,S,Dr]); q and k are Dn + Dr wide, v Dv."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    qh = _mla_q(p, cfg, x)
+    q_nope, q_pe = qh[..., :dn], qh[..., dn:]
+    ckv, k_pe = _mla_latent(p, cfg, x)
+    q_pe = L.rope(q_pe.transpose(-2, -3), positions,
+                  cfg.rope_theta).transpose(-2, -3)
+    k_pe = L.rope(k_pe, positions, cfg.rope_theta)
+    k_nope = L.einsum("...r,rhk->...hk", ckv, L.W(p, "attn/wuk/w"))
+    v = L.einsum("...r,rhe->...he", ckv, L.W(p, "attn/wuv/w"))
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[..., None, :].expand(*k_nope.shape[:-1], dr)],
+                  dim=-1)
+    return q, k, v, ckv, k_pe
+
+
 def _attn_prefill(p, cfg: ModelConfig, x):
     """Returns (out, cache_entry_dict)."""
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    if cfg.attention == "mla":
+        # cache the compressed latent and the shared rope key (the whole
+        # point of MLA); the reference computes them twice, the same ops
+        q, k, v, ckv, k_pe = _mla_qkv_full(p, cfg, x, positions)
+        o = L.attention(q, k, v, causal=True, impl=cfg.attention_impl,
+                        chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
+        out = L.dense(p, "attn/wo", o, "...hk,hkd->...d")
+        return out, {"ckv": ckv, "kpe": k_pe}
     q, k, v = _gqa_qkv(p, cfg, x, positions)
     o = L.attention(q, k, v, causal=True, impl=cfg.attention_impl,
                     chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
@@ -179,6 +254,8 @@ def _attn_decode(p, cfg: ModelConfig, x, cache_l, step: _Step,
     ``step`` the step's position index and int32 tensors.  Writes the
     new K/V row at ``step.row`` in place and returns (out, the same cache
     views)."""
+    if cfg.attention == "mla":
+        return _mla_decode(p, cfg, x, cache_l, step)
     row, posv, lengths = step
     q, k, v = _gqa_qkv(p, cfg, x, posv)
     kc, vc = cache_l["k"], cache_l["v"]
@@ -188,6 +265,38 @@ def _attn_decode(p, cfg: ModelConfig, x, cache_l, step: _Step,
                            lengths, backend=attn_backend)
     out = L.dense(p, "attn/wo", o, "...hk,hkd->...d")
     return out, {"k": kc, "v": vc}
+
+
+def _mla_decode(p, cfg: ModelConfig, x, cache_l, step: _Step):
+    """Matrix-absorbed MLA decode over the compressed latent cache: the
+    new latent and rope-key rows go in at ``step.row`` in place (one-lane
+    ``index_copy_``; an int8 cache from ``cache_spec`` refuses the
+    activation-dtype rows, as the reference's update does), the scores
+    are float32 and masked by ``step.lengths``.  Returns (out, the same
+    cache views)."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    row, posv, lengths = step
+    qh = _mla_q(p, cfg, x)
+    q_nope, q_pe = qh[..., :dn], qh[..., dn:]
+    q_pe = L.rope(q_pe, posv[:, None], cfg.rope_theta)
+    ckv_new, kpe_new = _mla_latent(p, cfg, x)
+    kpe_new = L.rope(kpe_new, posv, cfg.rope_theta)
+    ckv, kpe = cache_l["ckv"], cache_l["kpe"]                # [B,Smax,*]
+    ckv.index_copy_(1, row, ckv_new[:, None])
+    kpe.index_copy_(1, row, kpe_new[:, None])
+    # absorb W_UK into q
+    q_abs = L.einsum("bhd,rhd->bhr", q_nope, L.W(p, "attn/wuk/w"))
+    s = (torch.einsum("bhr,bsr->bhs", q_abs.to(F32), ckv.to(F32))
+         + torch.einsum("bhk,bsk->bhs", q_pe.to(F32), kpe.to(F32)))
+    s = s * ((dn + dr) ** -0.5)
+    mask = torch.arange(ckv.shape[1], device=x.device)[None, :] \
+        < lengths[:, None]
+    s = torch.where(mask[:, None], s, -torch.inf)
+    pr = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", pr.to(ckv.dtype), ckv)
+    v_ctx = L.einsum("bhr,rhe->bhe", ctx, L.W(p, "attn/wuv/w"))
+    out = L.dense(p, "attn/wo", v_ctx, "bhe,hed->bd")
+    return out, {"ckv": ckv, "kpe": kpe}
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +345,6 @@ def _embed_in(params, cfg: ModelConfig, tokens):
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
             ) -> Tuple[Dict, torch.Tensor]:
     """tokens [B,S] -> (cache, last-position logits [B,V] float32)."""
-    _check_gqa(cfg)
     x = _embed_in(params, cfg, tokens)
     head_caches = []
     for i in range(_n_dense_first(cfg)):
@@ -269,7 +377,6 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     that keeps the old dict sees the new rows).  Returns (the same
     tensors with ``pos + 1``, a new 0-d int32 tensor, and logits [B,V]
     float32).  Reads nothing back to the host."""
-    _check_gqa(cfg)
     pos = cache["pos"]
     x = _embed_in(params, cfg, tokens)
     # the step's position index, positions and key counts, built once on
@@ -323,18 +430,28 @@ def _kv_load(cfg: ModelConfig, x):
 
 
 def cache_spec(cfg: ModelConfig, batch: int, smax: int) -> Dict[str, Tuple]:
-    """name -> (shape, dtype, logical axes)."""
-    _check_gqa(cfg)
+    """name -> (shape, dtype, logical axes).  MLA's ``ckv`` / ``kpe``
+    take the reference's dtype here, int8 under ``kv_cache_dtype="int8"``,
+    though its prefill emits them in the activation dtype and its decode
+    keeps that (the reference's own disagreement, reproduced)."""
     dt = torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
     n_first = _n_dense_first(cfg)
     out: Dict[str, Tuple] = {}
 
-    def entry(prefix, lead=()):
-        la = ("layers",) if lead else ()
-        shp = (*lead, batch, smax, cfg.num_kv_heads, cfg.head_dim)
-        ax = (*la, "batch", "kv_seq", "kv_heads", "head_dim")
-        out[f"{prefix}k"] = (shp, dt, ax)
-        out[f"{prefix}v"] = (shp, dt, ax)
+    if cfg.attention == "mla":
+        def entry(prefix, lead=()):
+            la = ("layers",) if lead else ()
+            out[f"{prefix}ckv"] = ((*lead, batch, smax, cfg.kv_lora_rank), dt,
+                                   (*la, "batch", "kv_seq", "kv_lora"))
+            out[f"{prefix}kpe"] = ((*lead, batch, smax, cfg.qk_rope_head_dim),
+                                   dt, (*la, "batch", "kv_seq", "qk_dim"))
+    else:
+        def entry(prefix, lead=()):
+            la = ("layers",) if lead else ()
+            shp = (*lead, batch, smax, cfg.num_kv_heads, cfg.head_dim)
+            ax = (*la, "batch", "kv_seq", "kv_heads", "head_dim")
+            out[f"{prefix}k"] = (shp, dt, ax)
+            out[f"{prefix}v"] = (shp, dt, ax)
 
     for i in range(n_first):
         entry(f"layer{i}/")

@@ -283,6 +283,55 @@ def test_prefill_decode_match(variant, s):
                               greedy)
 
 
+# (prompt, segment): a cut inside the window (24 < 32: the second
+# segment's rows reach back across it), segments shorter than the window
+# (three: 16, 16, 13), and three segments longer than it (40, 40, 20)
+SEGMENTS = [(45, 24), (45, 16), (100, 40)]
+
+
+@pytest.mark.parametrize("variant", ["float32", "bf16"])
+@pytest.mark.parametrize("s,seg", SEGMENTS)
+def test_segmented_prefill_matches(variant, s, seg, monkeypatch):
+    """A prompt longer than ``PREFILL_TOKENS`` (patched small: a segment
+    of ``seg`` positions at batch 2) runs each layer in segments, carrying
+    the recurrent state and the attention's last ``window - 1`` K/V rows;
+    the logits, then 4 greedy decode steps on its cache, and the final
+    caches against the reference's whole-prompt prefill, within the
+    tolerance: float32 1e-5 (the scan's tree and the attention's blocks
+    differ by segment, rounding only; measured 3.4e-6); bfloat16 5e-2,
+    the family's 3e-2 (module docstring) plus the segments' own bfloat16
+    roundings of the attention output and the carried state (measured
+    3.4e-2 of a largest logit of 0.52 at the 24-token cut, 2.6e-2 at the
+    others).  The same against the port's own whole-prompt prefill."""
+    over, _ = VARIANTS[variant]
+    tol = 1e-5 if variant == "float32" else 5e-2
+    cfg_j, cfg_t = _both(**over)
+    jp, _ = japi.init_params(cfg_j, seed=0)
+    tp = _converted(jp)
+    toks = np.random.default_rng(s + seg).integers(
+        0, cfg_j.vocab_size, (2, s)).astype(np.int32)
+    _, whole = api.prefill(tp, cfg_t, {"tokens": torch.from_numpy(toks)})
+    starts = []
+    attn_block = TR._attn_block_seq
+
+    def spy(p, cfg, x, start=0, prefix=None):
+        starts.append((start, None if prefix is None
+                       else prefix[0].shape[1]))
+        return attn_block(p, cfg, x, start=start, prefix=prefix)
+
+    monkeypatch.setattr(TR, "_attn_block_seq", spy)
+    monkeypatch.setattr(TR, "PREFILL_TOKENS", 2 * seg)
+    out, (jc, tc), _ = lm_run_both(cfg_j, cfg_t, jp, tp, toks, steps=4)
+    # one attention layer (sb/l2); each segment's key prefix is the
+    # window - 1 positions before it, or all of them
+    assert starts == [(lo, min(lo, WIN - 1) if lo else None)
+                      for lo in range(0, s, seg)]
+    for i, (want, got) in enumerate(out):
+        assert_close(want, got, tol, f"{variant} S={s} seg={seg} call {i}")
+    assert_close(out[0][1], whole, tol, "segmented against whole, port")
+    _caches_close(jc, tc, tol, f"{variant} S={s} seg={seg}")
+
+
 def test_int8_serving_matches_reading_conv_w_raw():
     """``quantize_for_serving`` quantizes the recurrent blocks' ``conv/w``
     and both packages read it raw (the block-diagonal gates through

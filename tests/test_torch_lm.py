@@ -446,26 +446,31 @@ def test_specs_and_param_counts_match():
             for k in js:
                 assert js[k][0] == ts[k][0] and js[k][2] == ts[k][2], k
                 assert str(ts[k][1]) == f"torch.{js[k][1].__name__}", k
-    # the transformers here, the ssm and hybrid families
-    # (tests/test_torch_ssm.py, tests/test_torch_hybrid.py), the encdec
-    # and vlm families (tests/test_torch_encdec.py, tests/test_torch_vlm.py)
+    # the transformers here, MLA's deepseek-v2 (tests/test_torch_mla.py),
+    # the ssm and hybrid families (tests/test_torch_ssm.py,
+    # tests/test_torch_hybrid.py), the encdec and vlm families
+    # (tests/test_torch_encdec.py, tests/test_torch_vlm.py)
     assert set(list_archs()) == set(ARCHS) | {
-        "mamba2-370m", "recurrentgemma-9b", "seamless-m4t-medium",
-        "llama-3.2-vision-11b"}
+        "deepseek-v2-236b", "mamba2-370m", "recurrentgemma-9b",
+        "seamless-m4t-medium", "llama-3.2-vision-11b"}
 
 
 def test_unported_families_raise():
-    """MLA attention (deepseek-v2's) raises, naming its ROADMAP item; MoE
-    blocks are served, and so is every family of the reference (an
-    unknown family name is refused)."""
+    """Every family of the reference is served: MLA attention (here on a
+    GQA config switched to it, over MoE blocks) initializes and caches
+    its latent ``ckv`` and rope key ``kpe``, each with a ``kv_seq`` axis;
+    an unknown family name is refused."""
     mla = dataclasses.replace(get_config("llama3.2-1b", reduced=True),
                               attention="mla", kv_lora_rank=32,
                               moe=MoEConfig(num_experts=4, top_k=2,
                                             expert_d_ff=32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.init_params(mla, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.cache_specs(mla, 2, 16)
+    params, _ = api.init_params(mla, device="cpu")
+    assert params["layers/attn/wdkv/w"].shape == (2, 64, 32)
+    assert "layers/attn/wk/w" not in params
+    specs = api.cache_specs(mla, 2, 16)
+    assert sorted(specs) == ["pos", "scan/ckv", "scan/kpe"]
+    assert specs["scan/ckv"][0] == (2, 2, 16, 32)
+    assert all(specs[k][2][2] == "kv_seq" for k in ("scan/ckv", "scan/kpe"))
     assert sorted(api._FAMILIES) == ["encdec", "hybrid", "ssm",
                                      "transformer", "vlm"]
     with pytest.raises(ValueError, match="unknown model family"):

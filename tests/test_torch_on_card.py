@@ -1447,3 +1447,96 @@ def test_two_source_lengths_get_their_own_graphs(cuda_device):
     assert sorted(eng._graphs) == [(2, 12, 11), (2, 12, 17)]
     for key, bufs in eng._decode_bufs.items():
         assert bufs["cache"]["dec/xk"].shape[2] == key[2]
+
+
+# -- MLA (deepseek-v2) and recurrentgemma's long_500k on the card ------------
+
+
+def test_mla_decode_graph_tokens_match_eager_and_cpu(cuda_device):
+    """Reduced deepseek-v2 (MLA over MoE blocks) served on the card: the
+    decode graph's tokens and latent caches equal the eager step's over
+    16 steps, with no kernel of the port launched (the absorbed decode
+    is plain torch ops, as the reference's is plain einsums), and the
+    float32 tokens equal the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg, engines = _reduced_engines("deepseek-v2-236b", cuda_device, 17)
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, 40))
+    out, caches = {}, {}
+    for backend, eng in engines.items():
+        before = decode_attention_kernel.launches
+        out[backend] = eng.generate({"tokens": toks})["tokens"].cpu()
+        assert decode_attention_kernel.launches == before
+        caches[backend] = eng._decode_bufs[(4, 40, None)]["cache"]
+    assert torch.equal(out["eager"], out["graph"])
+    assert sorted(caches["graph"]) == ["layer0/ckv", "layer0/kpe", "pos",
+                                       "scan/ckv", "scan/kpe"]
+    for k, v in caches["eager"].items():
+        assert torch.equal(v, caches["graph"][k]), k
+    f32 = dataclasses.replace(get_config("deepseek-v2-236b", reduced=True),
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    p32, _ = api.init_params(f32, seed=0, device="cpu")
+    runs = {dev: ServingEngine(f32, p32, ServeConfig(max_new_tokens=9),
+                               device=dev).generate({"tokens": toks})
+            ["tokens"].cpu() for dev in ("cpu", cuda_device)}
+    assert torch.equal(runs["cpu"], runs[cuda_device])
+
+
+@pytest.mark.parametrize("seg", [24, 16, 40])
+def test_segmented_prefill_on_card_matches_whole(seg, cuda_device,
+                                                 monkeypatch):
+    """Reduced recurrentgemma (float32) on the card: a 100-token prompt
+    prefilled in segments of ``seg`` positions (PREFILL_TOKENS patched)
+    against the whole-prompt prefill: logits and every cache entry (the
+    ring in slot order, conv tails, states) within 1e-5 of the largest
+    (the scan's tree and the attention's blocks differ by segment), and
+    the greedy tokens of 8 decode steps equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models import recurrentgemma as rg
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b", reduced=True),
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    params, _ = api.init_params(cfg, seed=0, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(seg).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32)).to(cuda_device)
+    runs = {}
+    for name, budget in (("whole", 1 << 16), ("segmented", 2 * seg)):
+        monkeypatch.setattr(rg, "PREFILL_TOKENS", budget)
+        cache, logits = api.prefill(params, cfg, {"tokens": toks})
+        gen = ServingEngine(cfg, params, ServeConfig(max_new_tokens=9),
+                            device=cuda_device).generate({"tokens": toks})
+        runs[name] = cache, logits, gen["tokens"].cpu()
+    (cw, lw, tw), (cs, ls, ts) = runs["whole"], runs["segmented"]
+    for want, got, what in [(lw, ls, "logits")] + [
+            (cw[k], cs[k], k) for k in cw if k != "pos"]:
+        err = float((want - got).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (what, err)
+    assert torch.equal(tw, ts)
+
+
+def test_decode_attention_at_the_long_500k_shape(cuda_device):
+    """recurrentgemma-9b's long_500k decode: batch 1, 16 query heads over
+    one KV head, D 256, the full 2048-slot ring, bfloat16: within one ulp
+    of the plain output + 1e-5, and the planted fault (the row one
+    128-row tile short) breaks that bound."""
+    rng = np.random.default_rng(500)
+    q, k, v, lens = _attn_case(rng, 1, 1, 16, 256, 2048, torch.bfloat16,
+                               torch.bfloat16, cuda_device, empty=False)
+    lens.fill_(2048)
+    want = attn_ops.decode_attention(q, k, v, lens, backend="ref")
+    before = decode_attention_kernel.launches
+    _check_attn(attn_ops.decode_attention(q, k, v, lens, backend="cuda"),
+                want, lens)
+    assert decode_attention_kernel.launches == before + 1
+    got = attn_ops.decode_attention(q, k, v, lens - 128, backend="cuda")
+    assert _attn_excess(got, want, lens) > 1.0
