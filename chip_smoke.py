@@ -162,19 +162,20 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    share, launch calls a step: at most 3 on the graph), an int8-weight
    generate, gated ``serve_requests`` through ``ServeGate`` (one graph
    for its one shape), and the reduced model on the card against the CPU.
-6b. MoE serving: ``ServingEngine.generate`` on the full-width
-   ``qwen2-moe-a2.7b`` (24 layers, d_model 2048, 16 heads, 60 experts
-   top-4 + 4 gated shared experts, vocab 151936; 14.31 B parameters)
-   with random bfloat16 weights from ``--seed`` (init seconds printed),
+6b. MoE serving: ``ServingEngine.generate`` on ``qwen2-moe-a2.7b`` at
+   full width (d_model 2048, 16 heads, 60 experts top-4 + 4 gated shared
+   experts, vocab 151936) cut in depth to ``MOE_LAYERS`` = 4 of its 24
+   layers (the full depth's 14.31 B parameters took 94 s to draw), with
+   random bfloat16 weights from ``--seed`` (init seconds printed),
    batch 8, the same prompt and new tokens: ``decode_attention``
-   launches must equal 24 layers x decode steps, graph tokens == eager,
+   launches must equal the layers x decode steps, graph tokens == eager,
    the decode loop under sync-debug "error"; ms a step and tok/s of both
    in turns beside the step's bound (every weight and the K/V cache read
    once); a profile of the graph's decode loop; an int8-weight generate;
    peak memory; float32 logits, kernel against the einsum path, within
-   1e-3 on a float32 copy cut to the first 4 layers (at full depth it
-   would not fit beside the bf16 model); the reduced model on the card
-   against the CPU.
+   1e-3 on a float32 copy of those 4 layers (at full depth it would not
+   fit beside the bf16 model); the reduced model on the card against the
+   CPU.
 6c. The ssm family: ``generate`` on the full-width ``mamba2-370m`` (48
    layers, d_model 1024, SSM state 128, 32 heads; random bf16 weights
    from ``--seed``), batch 8, the same prompt and new tokens: no kernel
@@ -242,12 +243,33 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    logits within 1e-3 of a decompressed prefill's of the same tokens,
    step by step, greedy tokens equal; the reduced model on the card
    against the CPU.
+6h. LM training: the port's ``Trainer`` over ``api.loss_fn`` on the
+   full-width ``llama3.2-1b`` (16 layers, d_model 2048, 32/8 heads, vocab
+   128256, tied; bfloat16 params, float32 moments, remat "nothing") at
+   train_4k's sequence of 4096, batch 2 (its global batch of 256 cut to
+   what one card holds), batches from ``launch.train.token_batches`` and
+   its OptConfig for 20 steps: the graph step (captured at its first
+   step; the counts at 0 just before, none of the port's kernels on
+   the path) == the eager step over 5 steps from one init (every step's
+   metrics, params, moments, counter bit for bit); tokens/s and MFU
+   (``api.model_flops`` / step / 989 TFLOP/s) of both in turns; the
+   graph run to step 20, whose loss must be below step 1's; 8 graph
+   steps profiled (launch calls and host syncs a step, busy, idle share,
+   the top kernels); peak memory; the float32 head's backward
+   (``_MatmulF32``) against the cast path's, timed; every family's
+   reduced config (llama3.2-1b, qwen2-moe-a2.7b, deepseek-v2-236b,
+   mamba2-370m, recurrentgemma-9b, seamless-m4t-medium and
+   llama-3.2-vision-11b at gates 0.5) in float32, loss and gradients on
+   the card against the CPU (1e-5, 1e-4); and the launcher
+   (``repro_torch.launch.train.main``, in this process) on the card for
+   6 steps with checkpoints every 3, rerun from its directory to step 10
+   (it must resume from step 6).  About 80 s.
 7. Each phase's seconds and the total, the ``kernels`` JSON line
    (``int8_gemm``'s launches count the CNN's and the RNN's main paths,
    the trained models' replays and the pipes and farm paths;
    ``decode_attention``'s the llama, MoE, recurrentgemma (long_500k's
    included), seamless-m4t and llama-3.2-vision generates (deepseek-v2's
-   adds 0); the ``*_pipes`` rows are the
+   and the training's add 0); the ``*_pipes`` rows are the
    pipe-batched gates of 4f),
    then the last line: ``{"ok": true, "device": {"platform": "gpu",
    ...}}``.
@@ -2320,39 +2342,54 @@ def _trainers(mcfg, x, y, steps, seed):
     return out
 
 
-def _train_profile(t, batches, steps, what):
-    """``steps`` steps timed, then as many under torch.profiler: launch
-    calls a step, device busy time and the idle share (against the
-    steps without the profiler); and host syncs a step, counted by the
-    warnings of sync-debug "warn" over as many steps again."""
+def _count_syncs(run):
+    """Host syncs of ``run()``: the warnings of sync-debug "warn"."""
     import warnings
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    t.run(batches, steps=steps)
-    sec_plain = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t.run(batches, steps=steps)
-    sec = time.perf_counter() - t0
-    avgs = prof.key_averages()
-    busy = sum(_dev_us(a) for a in avgs
-               if a.device_type == DeviceType.CUDA) / 1e6
-    n_launch, n_copy = _launches(avgs)
     prev = torch.cuda.get_sync_debug_mode()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            t.run(batches, steps=steps)
+            run()
         finally:
             torch.cuda.set_sync_debug_mode(prev)
-    syncs = sum("synchroniz" in str(c.message) for c in caught)
+    return sum("synchroniz" in str(c.message) for c in caught)
+
+
+def _profile_run(run):
+    """``run()`` under torch.profiler: (its seconds, the device events by
+    device time, the device busy seconds, launch calls, memcpy calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        run()
+    sec = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    dev = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
+                 key=_dev_us, reverse=True)
+    busy = sum(_dev_us(a) for a in dev) / 1e6
+    return (sec, dev, busy, *_launches(avgs))
+
+
+def _train_profile(t, batches, steps, what):
+    """``steps`` steps timed, then as many under torch.profiler: launch
+    calls a step, device busy time and the idle share (against the
+    steps without the profiler); and host syncs a step, counted by the
+    warnings of sync-debug "warn" over as many steps again."""
+    def run():
+        t.run(batches, steps=steps)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    sec_plain = time.perf_counter() - t0
+    sec, _, busy, n_launch, n_copy = _profile_run(run)
+    syncs = _count_syncs(run)
     print(f"training profile ({what}): {steps} steps, {sec:.4f} s under the "
           f"profiler, device busy {busy:.4f} s = {busy / steps * 1e3:.4f} ms "
           f"a step, idle share {1 - busy / sec_plain:.3f} against the same "
@@ -3397,6 +3434,9 @@ def phase_lm(args):
 
 # -- phase 6b ---------------------------------------------------------------
 
+MOE_LAYERS = 4         # the depth served: a sixth of the 24 (the init of
+#                        the full depth's 14.31 B parameters took 94 s of the
+#                        phase's 139; the widths are the published ones)
 MOE_CUT_LAYERS = 4     # depth of the float32 copy (57 GB at full depth)
 
 
@@ -3472,7 +3512,8 @@ def phase_moe(args):
     from repro_torch.models import api
     from repro_torch.serve.engine import ServeConfig, ServingEngine
 
-    cfg = get_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              num_layers=MOE_LAYERS)
     b, s, n_new = 8, args.prompt_len, args.new_tokens
     rng = np.random.default_rng(args.seed)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
@@ -3485,7 +3526,8 @@ def phase_moe(args):
     n_params = sum(v.numel() for v in params.values())
     gb = sum(v.numel() * v.element_size() for v in params.values()) / 1e9
     m = cfg.moe
-    print(f"model: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+    print(f"model: {cfg.name} L={cfg.num_layers} (of 24: cut in depth) "
+          f"d={cfg.d_model} "
           f"H={cfg.num_heads}/{cfg.num_kv_heads} Dh={cfg.head_dim} experts "
           f"{m.num_experts} top-{m.top_k} (ff {m.expert_d_ff}) + "
           f"{m.num_shared_experts} shared (ff {m.shared_d_ff}, gated) "
@@ -4377,6 +4419,341 @@ def phase_mla(args):
     return launches["decode_attention"]
 
 
+# -- phase 6h: LM training --------------------------------------------------
+
+TRAIN_LM_ARCH = "llama3.2-1b"
+TRAIN_LM_BATCH = 2      # train_4k's global batch of 256 cut to what one card
+#                         holds beside the float32 moments
+TRAIN_LM_STEPS = 20     # the run whose loss must fall (launch/train's
+#                         OptConfig for --steps 20: warm-up 2, cosine to 20)
+TRAIN_LM_SAME = 5       # graph == eager steps from one init
+TRAIN_LM_PROFILED = 8   # the run's last graph steps, under the profiler
+# (a full-width step takes ~1.5 s on the card: each turn of the rates,
+# eager, graph, graph, eager, is one step; steps 8-12 are timed as one
+# block without the profiler, and the profiled steps are the last of the
+# 20)
+# one config per family and attention variant, (arch, vlm gate or None)
+TRAIN_VARIANTS = (("llama3.2-1b", None), ("qwen2-moe-a2.7b", None),
+                  ("deepseek-v2-236b", None), ("mamba2-370m", None),
+                  ("recurrentgemma-9b", None), ("seamless-m4t-medium", None),
+                  ("llama-3.2-vision-11b", VISION_GATE))
+
+
+def _lm_batch(cfg, batch, rng):
+    """A ``token_batches`` batch plus the family's source / image: float32
+    normals from ``rng`` (at the launcher's zeros the cross-attention
+    weights get zero gradients)."""
+    from repro_torch.launch.train import token_batches
+
+    out = next(token_batches(cfg.vocab_size, batch, 32,
+                             seed=int(rng.integers(1 << 30))))
+    if cfg.family == "encdec":
+        out["src_embeds"] = rng.standard_normal((batch, 24, cfg.d_model),
+                                                dtype=np.float32)
+    if cfg.family == "vlm":
+        out["image_embeds"] = rng.standard_normal(
+            (batch, cfg.num_image_tokens, cfg.d_model), dtype=np.float32)
+    return out
+
+
+def _rel_diff(x, ref):
+    """max |x - ref| over max |ref| (float)."""
+    ref = ref.float()
+    return float((x.float() - ref).abs().max()) / max(
+        float(ref.abs().max()), 1e-30)
+
+
+def train_card_vs_cpu(seed):
+    """Every family's ``api.loss_fn`` and gradients on the card against
+    the CPU, on the reduced configs in float32 (the vision LM at gates
+    0.5): the loss within 1e-5 relative, each gradient leaf within 1e-4
+    of its largest magnitude.  The card's path differs from the CPU's in
+    its kernels only (cuBLAS, the embedding's sorted backward)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.train.optimizer import value_and_grad
+
+    rng = np.random.default_rng(seed)
+    for arch, gate in TRAIN_VARIANTS:
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  param_dtype="float32",
+                                  activation_dtype="float32")
+        params, _ = api.init_params(cfg, seed=seed, device="cpu")
+        if gate is not None:
+            params = _set_gates(params, gate)
+        batch = {k: torch.from_numpy(v)
+                 for k, v in _lm_batch(cfg, 2, rng).items()}
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p = {k: v.to(dev) for k, v in params.items()}
+            b = {k: v.to(dev) for k, v in batch.items()}
+            res[dev] = value_and_grad(lambda pp, bb: api.loss_fn(pp, cfg, bb),
+                                      p, b)
+        (l_c, _, g_c), (l_g, _, g_g) = res["cpu"], res["cuda"]
+        rel = abs(float(l_g) - float(l_c)) / abs(float(l_c))
+        worst = max(_rel_diff(g_g[k].cpu(), g_c[k]) for k in g_c)
+        require(rel <= 1e-5, f"reduced {arch}: card loss off by {rel:.3g}")
+        require(worst <= 1e-4, f"reduced {arch}: card gradients off by "
+                f"{worst:.3g} of a leaf's largest")
+        print(f"train card vs CPU, reduced {arch} (float32"
+              + (f", gates {gate}" if gate is not None else "")
+              + f", batch 2 x 32): loss {float(l_g):.6f}, relative diff "
+              f"{rel:.3g}; {len(g_c)} gradient leaves, worst max|diff| "
+              f"{worst:.3g} of the leaf's largest (bounds 1e-5, 1e-4)")
+
+
+def head_backward_check(cfg, table, tokens):
+    """The float32 logits head's backward on the card (``_MatmulF32``,
+    bfloat16 operands; ``table`` the tied embedding) against the cast
+    path's autograd on the same operands, at the training step's shape,
+    and the milliseconds of its forward and backward."""
+    from repro_torch.models.layers import _MatmulF32
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((tokens, cfg.d_model), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    g = torch.randn((tokens, cfg.vocab_size), generator=gen, device="cuda")
+    a, t = x.clone().requires_grad_(), table.detach().clone().requires_grad_()
+    _MatmulF32.apply(a, t.t()).backward(g)
+    a2, t2 = x.clone().requires_grad_(), table.detach().clone() \
+        .requires_grad_()
+    torch.matmul(a2.float(), t2.t().float()).backward(g)
+    err = max(_rel_diff(a.grad, a2.grad), _rel_diff(t.grad, t2.grad))
+    require(a.grad.dtype == t.grad.dtype == torch.bfloat16 and err <= 1e-6,
+            f"matmul_f32 backward off the cast path's by {err}")
+    del a2, t2
+    fwd = host_ms(lambda: _MatmulF32.apply(x, table.t()), iters=5, warmup=1)
+    out = _MatmulF32.apply(a, t.t())
+
+    def bwd():
+        torch.autograd.grad(out, (a, t), g, retain_graph=True)
+
+    bwd_ms = host_ms(bwd, iters=5, warmup=1)
+    flops = 2.0 * tokens * cfg.d_model * cfg.vocab_size
+    print(f"logits head backward (_MatmulF32, {tokens} x {cfg.d_model} @ "
+          f"{cfg.d_model} x {cfg.vocab_size}): against the cast path's "
+          f"autograd, max|diff| {err:.3g} of the largest gradient (bf16 "
+          f"grads; bound 1e-6); forward {fwd:.3f} ms (bf16 GEMM, "
+          f"float32 out: {flops / fwd / 1e9:.1f} TFLOP/s), backward "
+          f"{bwd_ms:.3f} ms (two float32 GEMMs + the table's float32 copy: "
+          f"{2 * flops / bwd_ms / 1e9:.1f} TFLOP/s; bound at 67 TFLOP/s "
+          f"{2 * flops / FP32_OPS_PER_S * 1e3:.1f} ms)")
+    del a, t, out, x, g
+    torch.cuda.empty_cache()
+    return fwd, bwd_ms
+
+
+def cli_resume():
+    """``repro_torch.launch.train.main`` (the entry point of ``python -m
+    repro_torch.launch.train``, called in this process with its argv) on
+    the card, reduced llama3.2-1b: 6 steps with ``--ckpt-every 3``, then
+    again from that directory, which must resume from step 6 and train
+    to step 10."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import train
+
+    outs = []
+    with tempfile.TemporaryDirectory() as d:
+        for steps in (6, 10):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                train.main(["--arch", TRAIN_LM_ARCH, "--steps", str(steps),
+                            "--ckpt-every", "3", "--ckpt-dir", d])
+            outs.append((buf.getvalue().strip().splitlines(),
+                         time.perf_counter() - t0))
+    (first, t_first), (second, t_second) = outs
+    require(first[-1] == "done" and any(ln.startswith("step 6: loss=")
+                                        for ln in first),
+            f"launch.train, 6 steps: {first}")
+    require("resumed from step 6" in second
+            and any(ln.startswith("step 10: loss=") for ln in second),
+            f"launch.train resumed: {second}")
+    print(f"launch.train --arch {TRAIN_LM_ARCH} (reduced, on the card, "
+          f"main() in this process): {' | '.join(first)} ({t_first:.1f} s); "
+          f"rerun to --steps 10 from its checkpoints: {' | '.join(second)} "
+          f"({t_second:.1f} s)")
+
+
+def phase_train(args):
+    """6h. LM training on the card: full-width llama3.2-1b at train_4k's
+    sequence, the graph step against the eager one, every family's
+    reduced loss and gradients card == CPU, the launcher's resume.
+    Returns the kernel launches of the main path (none: no kernel of the
+    port is on it)."""
+    import gc
+
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.launch.train import token_batches
+    from repro_torch.models import api
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock = [time.perf_counter()]
+
+    def lap():
+        now = time.perf_counter()
+        out, clock[0] = now - clock[0], now
+        return out
+
+    cfg = get_config(TRAIN_LM_ARCH)
+    b, s = TRAIN_LM_BATCH, SHAPES["train_4k"].seq_len
+    params = _init_model(cfg, args.seed)
+    data = token_batches(cfg.vocab_size, b, s, seed=args.seed)
+    batches = [next(data) for _ in range(TRAIN_LM_STEPS)]
+    opt = OptConfig(lr=3e-4, warmup_steps=TRAIN_LM_STEPS // 10,
+                    total_steps=TRAIN_LM_STEPS)
+
+    def make(step_backend):
+        return Trainer(lambda p, bt: api.loss_fn(p, cfg, bt), params,
+                       TrainerConfig(total_steps=TRAIN_LM_STEPS, opt=opt,
+                                     step_backend=step_backend),
+                       device="cuda")
+
+    def steps(t, items):
+        return [t.train_step(batches, item) for item in items]
+
+    t_init = lap()
+    # the main path: the graph step (captured at its first step) from one
+    # init, counts at 0 just before it
+    g = make("graph")
+    torch.cuda.empty_cache()
+    zero_counts()
+    metrics = steps(g, batches[:TRAIN_LM_SAME])
+    launches = read_counts()
+    require(not any(launches.values()),
+            f"training launched the port's kernels {launches}: none is on "
+            "its path")
+    t_graph = lap()
+    e = make("eager")
+    del params
+    m_eager = steps(e, batches[:TRAIN_LM_SAME])
+    require(metrics == m_eager, f"graph metrics {metrics} != eager "
+            f"{m_eager}")
+    for part, x, y in (("params", g.params, e.params),
+                       ("m", g.opt_state["m"], e.opt_state["m"]),
+                       ("v", g.opt_state["v"], e.opt_state["v"])):
+        for k in x:
+            require(torch.equal(x[k], y[k]),
+                    f"{cfg.name}: graph {part}[{k!r}] != eager, "
+                    f"{_rel_diff(x[k], y[k]):.3g} of the largest")
+    require(torch.equal(g.opt_state["step"], e.opt_state["step"])
+            and int(g.opt_state["step"]) == TRAIN_LM_SAME, "step counter")
+    print(f"train step {cfg.name} (full width, batch {b} x {s}, bf16 params, "
+          f"float32 moments, remat {cfg.remat_policy!r}): graph == eager "
+          f"over {TRAIN_LM_SAME} steps from one init (every step's metrics, "
+          f"params, m, v, step bit for bit); capture {g.capture_s:.3f} s "
+          "(warm-up on copies of params and moments + capture); the port's "
+          f"kernel launches {launches} (none on this path)")
+    t_eager = lap()
+
+    # training rate in turns: eager, graph, graph, eager (a step each)
+    flops = api.model_flops(cfg, ShapeConfig("train_4k", s, b, "train"))
+    rest = iter(batches[TRAIN_LM_SAME:])
+    rate = {}
+    for name, t in (("eager", e), ("graph", g), ("graph", g),
+                    ("eager", e)):
+        # the graph run goes on through the batches; the eager trainer,
+        # timed only, takes the first of them
+        item = next(rest) if name == "graph" else batches[TRAIN_LM_SAME]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = t.train_step(batches, item)
+        rate.setdefault(name, []).append(time.perf_counter() - t0)
+        if name == "graph":
+            metrics.append(m)
+    for name, sec in rate.items():
+        print(f"training rate {cfg.name} ({name}): "
+              + ", ".join(f"{x * 1e3:.1f} ms a step = {b * s / x:.0f} "
+                          f"tokens/s, MFU {flops / x / BF16_OPS_PER_S:.4f}"
+                          for x in sec)
+              + f" (in turns: eager, graph, graph, eager; MFU = "
+              f"model_flops {flops:.4g} (6 N D, N "
+              f"{api.analytic_param_count(cfg, active_only=True)}, D "
+              f"{b * s}) / step / 989 TFLOP/s; as run, the remat's second "
+              f"forward makes it 8 N D = {flops * 8 / 6:.4g})")
+    del e
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_turns = lap()
+
+    # the graph run to step TRAIN_LM_STEPS: the steps before the last
+    # TRAIN_LM_PROFILED timed as one block, the wall the profiled steps'
+    # idle share is read against; the loss must fall
+    left = list(rest)
+    n_prof = TRAIN_LM_PROFILED
+    first = TRAIN_LM_STEPS - n_prof + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics += steps(g, left[:-n_prof])
+    wall = (time.perf_counter() - t0) / len(left[:-n_prof])
+    n_syncs = []
+
+    def profiled():             # host syncs counted under the profiler
+        n_syncs.append(_count_syncs(
+            lambda: metrics.extend(steps(g, left[-n_prof:]))))
+
+    sec, dev, busy, n_launch, n_copy = _profile_run(profiled)
+    launch_calls, syncs = n_launch / n_prof, n_syncs[0] / n_prof
+    idle = 1 - busy / (wall * n_prof)
+    print(f"training profile ({cfg.name} graph, batch {b} x {s}, steps "
+          f"{first}-{TRAIN_LM_STEPS}): {sec:.4f} s under the profiler, "
+          f"device busy {busy:.4f} s = {busy / n_prof * 1e3:.4f} ms a step, "
+          f"idle share {idle:.4f} against the wall of steps "
+          f"{first - len(left[:-n_prof])}-{first - 1} without the profiler "
+          f"({wall * 1e3:.4f} ms a step"
+          + ("; below 0: the profiled kernel times exceed the unprofiled "
+             "wall, so the device idles less than the profiler resolves"
+             if idle < 0 else "")
+          + f"; {1 - busy / sec:.4f} under it); {launch_calls:.2f} launch "
+          "calls and "
+          f"{n_copy / n_prof:.2f} memcpy calls a step; {syncs:.2f} host "
+          "syncs a step (sync-debug warnings, counted under the profiler); "
+          "the top kernels:")
+    for a in dev[:10]:
+        print(f"  device {_dev_us(a) / 1e3 / n_prof:10.3f} ms a step "
+              f"({_dev_us(a) / 1e6 / busy:.3f} of busy)  x "
+              f"{a.count // n_prof:5d}  {a.key[:100]}")
+    require(len(metrics) == TRAIN_LM_STEPS, f"{len(metrics)} graph steps")
+    l1, l20 = metrics[0]["loss"], metrics[-1]["loss"]
+    require(math.isfinite(l20) and l20 < l1,
+            f"loss did not fall: step 1 {l1}, step {TRAIN_LM_STEPS} {l20}")
+    print(f"train {cfg.name} on the graph: loss {l1:.4f} at step 1 -> "
+          f"{l20:.4f} at step {TRAIN_LM_STEPS} (ce {metrics[-1]['ce']:.4f}, "
+          f"grad norm {metrics[-1]['grad_norm']:.4f}, lr "
+          f"{metrics[-1]['lr']:.3g}; launch/train's OptConfig for --steps "
+          f"{TRAIN_LM_STEPS})")
+    require(launch_calls <= 2, f"{launch_calls} launch calls a graph step")
+    require(syncs == 1, f"{syncs} host syncs a graph step")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"peak memory of phase 6h: {peak:.2f} GB (the bf16 params and "
+          "float32 moments of two trainers, the capture's copies, the "
+          "graph's pool and the eager step's activations and float32 "
+          "logits)")
+    t_run = lap()
+    head_backward_check(cfg, g.params["embed/table"], b * s)
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_head = lap()
+    train_card_vs_cpu(args.seed)
+    t_small = lap()
+    cli_resume()
+    print(f"phase 6h parts: init {t_init:.1f} s, graph steps 1-"
+          f"{TRAIN_LM_SAME} with the capture {t_graph:.1f} s, eager steps "
+          f"and the comparison {t_eager:.1f} s, turns {t_turns:.1f} s, "
+          f"graph run to step {TRAIN_LM_STEPS} with the profile "
+          f"{t_run:.1f} s, head backward {t_head:.1f} s, reduced families "
+          f"card vs CPU {t_small:.1f} s, launcher {lap():.1f} s")
+    return launches
+
 KERNEL_ROWS = (
     ("fused_gate", "src/repro_torch/csrc/fused_gate.cu",
      "src/repro/kernels/rate_gate/kernel.py:191"),
@@ -4453,6 +4830,8 @@ def main():
     encdec_attn = phase("6e encdec", phase_encdec, args)
     vlm_attn = phase("6f vlm", phase_vlm, args)
     mla_attn = phase("6g mla", phase_mla, args)
+    train_launches = phase("6h LM training", phase_train, args)
+    print(f"kernel launches of the training's main path: {train_launches}")
     launches["decode_attention"] = lm_attn + moe_attn + ssm_attn \
         + hybrid_attn + encdec_attn + vlm_attn + mla_attn
     print(f"decode_attention launches on the main paths: llama3.2-1b "

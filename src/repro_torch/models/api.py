@@ -7,13 +7,20 @@ Port of ``repro/models/api.py`` for every family of the reference: the
 (llama-3.2-vision).  Provides:
   init_params(cfg)          — concrete (on a device) or abstract (meta)
   quantize_for_serving      — int8 weights + per-tensor/per-layer scales
+  loss_fn                   — the training entry point: (loss, metrics),
+                              differentiable by autograd
   prefill / decode_step     — the serving entry points (encdec and vlm
                               take the batch's ``src_embeds`` /
                               ``image_embeds`` beside its tokens)
+  input_specs               — ``meta`` tensors standing in for every
+                              input of a shape's step
   cache_specs / grow_cache  — decode-cache shapes (encdec's cross entries
                               at ``src_len``), and growing a prefill cache
-                              so decode can append
+                              so decode can append; cache_pspec_axes
   analytic_param_count      — N for the 6·N·D roofline term
+  model_flops               — the 6·N·D convention of a shape (2·N·D and
+                              the attention's products for prefill and
+                              decode)
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import (encdec, mamba2, recurrentgemma, transformer,
                                 vlm)
 from repro_torch.models.param import Registrar, fill_drawn
@@ -118,6 +125,16 @@ def quantize_for_serving(cfg: ModelConfig, params: Dict[str, Any],
     return new_p, new_ax
 
 
+def loss_fn(params, cfg: ModelConfig, batch
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch {"tokens", "labels": [B,S] [, "mask"]} (encdec: +
+    ``src_embeds`` [B,S_src,d]; vlm: + ``image_embeds`` [B,S_img,d]) ->
+    (the loss, a 0-d float32 tensor, and its metrics: ``ce`` for every
+    family, ``moe_aux`` too for the transformer family); gradients by
+    autograd (``train.optimizer.value_and_grad``)."""
+    return _family(cfg).loss_fn(params, cfg, batch)
+
+
 def prefill(params, cfg: ModelConfig, batch):
     """batch {"tokens": [B,S]} (encdec: + ``src_embeds`` [B,S_src,d]; vlm:
     + ``image_embeds`` [B,S_img,d]) -> (cache, last-position logits
@@ -193,6 +210,45 @@ def grow_cache(cfg: ModelConfig, cache: Dict[str, Any], batch: int,
                     grown.narrow(d, n_old, n_new - n_old).zero_()
         grown[tuple(slice(0, n) for n in arr.shape)] = arr
     return res
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """``meta`` tensors standing in for the step function's inputs (the
+    reference's ``ShapeDtypeStruct``s):
+
+    train  -> {tokens, labels [, src_embeds | image_embeds]}
+    prefill-> {tokens [, src_embeds | image_embeds]}
+    decode -> {tokens [B], cache: {...}}
+    """
+    b, s = shape.global_batch, shape.seq_len
+    act = getattr(torch, cfg.activation_dtype)
+
+    def meta(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    out: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        out["tokens"] = meta((b, s), torch.int32)
+        if shape.kind == "train":
+            out["labels"] = meta((b, s), torch.int32)
+        if cfg.family == "encdec":
+            out["src_embeds"] = meta((b, s, cfg.d_model), act)
+        if cfg.family == "vlm":
+            out["image_embeds"] = meta((b, cfg.num_image_tokens,
+                                        cfg.d_model), act)
+        return out
+    # decode: single token + KV cache of seq_len
+    out["tokens"] = meta((b,), torch.int32)
+    out["cache"] = {name: meta(shp, dt) for name, (shp, dt, _ax)
+                    in cache_specs(cfg, b, s).items()}
+    return out
+
+
+def cache_pspec_axes(cfg: ModelConfig, batch: int, smax: int
+                     ) -> Dict[str, Tuple[str, ...]]:
+    """name -> the logical axes of each decode-cache entry."""
+    return {k: ax for k, (shp, dt, ax) in
+            cache_specs(cfg, batch, smax).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -272,3 +328,73 @@ def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
                             + attn_gqa() + mlp_dense(f))
     total += d * v  # logits head matmul
     return total
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """6*N*D convention. For decode shapes D = global_batch (1 token each);
+    attention-over-cache FLOPs are additionally included (2*bytes-free term:
+    2 * B * S * kv_width) since they dominate long-context decode."""
+    n = analytic_param_count(cfg, active_only=True)
+    if shape.kind == "train":
+        return 6.0 * n * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        flops = 2.0 * n * shape.global_batch * shape.seq_len
+        return flops + _attn_flops(cfg, shape.global_batch, shape.seq_len)
+    # decode: one token per sequence
+    flops = 2.0 * n * shape.global_batch
+    return flops + _decode_attn_flops(cfg, shape.global_batch,
+                                      shape.seq_len)
+
+
+def _n_attention_layers(cfg: ModelConfig) -> int:
+    pat = cfg.hybrid.pattern
+    return sum(pat[i % len(pat)] != "recurrent"
+               for i in range(cfg.num_layers))
+
+
+def _attn_flops(cfg: ModelConfig, b: int, s: int) -> float:
+    """Causal self-attention matmul FLOPs (scores + combine), per model."""
+    if cfg.family == "ssm":
+        return 0.0
+    h, dh = cfg.num_heads, cfg.head_dim
+    if cfg.attention == "mla":
+        dh = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    full = 2.0 * 2.0 * b * h * dh * s * s / 2.0      # causal half
+    if cfg.family == "hybrid":
+        win = cfg.hybrid.attention_window
+        per = 2.0 * 2.0 * b * h * dh * s * min(win, s)
+        return _n_attention_layers(cfg) * per
+    n_layers = cfg.num_layers if cfg.family != "encdec" \
+        else cfg.num_encoder_layers + 2 * cfg.num_decoder_layers
+    return n_layers * full
+
+
+def _decode_attn_flops(cfg: ModelConfig, b: int, s: int) -> float:
+    if cfg.family == "ssm":
+        s_cfg = cfg.ssm
+        d_in = s_cfg.expand * cfg.d_model
+        nh = d_in // s_cfg.head_dim
+        per = 2.0 * 2.0 * b * nh * s_cfg.head_dim * s_cfg.d_state
+        return cfg.num_layers * per
+    h, dh = cfg.num_heads, cfg.head_dim
+    if cfg.attention == "mla":
+        # absorbed decode: q_abs@ckv + probs@ckv over rank R
+        r = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+        return cfg.num_layers * 2.0 * 2.0 * b * cfg.num_heads * r * s
+    if cfg.family == "hybrid":
+        win = cfg.hybrid.attention_window
+        n_att = _n_attention_layers(cfg)
+        n_rec = cfg.num_layers - n_att
+        w = cfg.hybrid.lru_width or cfg.d_model
+        return (n_att * 2.0 * 2.0 * b * h * dh * min(win, s)
+                + n_rec * 2.0 * b * w)
+    n_layers = cfg.num_layers if cfg.family != "encdec" \
+        else cfg.num_decoder_layers
+    per = 2.0 * 2.0 * b * h * dh * s
+    if cfg.family == "encdec":
+        per *= 2  # self + cross
+    if cfg.family == "vlm":
+        n_cross = cfg.num_layers // cfg.cross_attn_every
+        per_cross = 2.0 * 2.0 * b * h * dh * cfg.num_image_tokens
+        return (cfg.num_layers - n_cross) * per + n_cross * per_cross
+    return n_layers * per

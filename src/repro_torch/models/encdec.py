@@ -1,7 +1,10 @@
 """Encoder-decoder transformer backbone (seamless-m4t-medium).
 
-Port of ``repro/models/encdec.py`` (its serving half: ``loss_fn`` waits
-for the LM training path, ROADMAP §1).  The audio/speech frontend is a
+Port of ``repro/models/encdec.py``: ``loss_fn`` (each encoder and
+decoder layer under the transformer's ``_remat``; the encoder's layers
+under it in the prefill too, as the reference's, where without autograd
+it runs them as they are), ``prefill``, ``decode_step`` and
+``cache_spec``.  The audio/speech frontend is a
 stub, as in the reference: the encoder consumes precomputed frame
 embeddings [B, S_src, d_model].  The encoder is non-causal
 self-attention with rope on the encoder positions; the decoder is causal
@@ -28,7 +31,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.param import Registrar, maybe_scan, subtree
-from repro_torch.models.transformer import _Stacked, _Step, _gqa_qkv
+from repro_torch.models.transformer import (_remat, _Stacked, _Step,
+                                            _gqa_qkv)
 
 F32 = torch.float32
 
@@ -127,9 +131,10 @@ def encode(params, cfg: ModelConfig, src_embeds: torch.Tensor
     """src_embeds [B,S_src,d] -> the encoder output in the activation
     dtype."""
     x = src_embeds.to(getattr(torch, cfg.activation_dtype))
+    fn = _remat(lambda pp, xx: _enc_layer(pp, cfg, xx), cfg)
 
     def body(x, p_l):
-        return _enc_layer(p_l, cfg, x), None
+        return fn(p_l, x), None
 
     x, _ = maybe_scan(body, x, subtree(params, "enc/"))
     return L.rmsnorm(params, "ln_enc_f", x, cfg.norm_eps)
@@ -164,20 +169,23 @@ def _dec_layer(p, cfg, x, *, mode: str, enc_out=None, cache_l=None,
                xlens: Optional[torch.Tensor] = None,
                attn_backend: Optional[str] = None):
     """One decoder layer.  ``mode="prefill"``: x [B,S,d] against
-    ``enc_out``; returns (x, the layer's k, v, xk, xv).  ``"decode"``: x
-    [B,d] against ``cache_l`` (views of the stacked cache; the self K/V
-    row written in place, the cross K/V read); returns (x, None)."""
+    ``enc_out``; returns (x, the layer's k, v, xk, xv).  ``"train"``: the
+    same, returning (x, None).  ``"decode"``: x [B,d] against ``cache_l``
+    (views of the stacked cache; the self K/V row written in place, the
+    cross K/V read); returns (x, None)."""
     h = L.rmsnorm(p, "ln_attn", x, cfg.norm_eps)
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         a, new_cache = self_attn_prefill(p, cfg, h)
     else:
         a, new_cache = self_attn_decode(p, cfg, h, cache_l, step,
                                         attn_backend), None
     x = x + a
     h = L.rmsnorm(p, "ln_x", x, cfg.norm_eps)
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         xk, xv = cross_kv(p, cfg, enc_out)
         new_cache.update(xk=xk, xv=xv)
+        if mode == "train":
+            new_cache = None
     else:
         xk, xv = cache_l["xk"], cache_l["xv"]
     x = x + cross_attend(p, cfg, h, xk, xv, lengths=xlens,
@@ -189,6 +197,25 @@ def _dec_layer(p, cfg, x, *, mode: str, enc_out=None, cache_l=None,
 # ---------------------------------------------------------------------------
 # Model API
 # ---------------------------------------------------------------------------
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: src_embeds [B,S_src,d], tokens and labels [B,S] [, mask] ->
+    (CE, {"ce"})."""
+    tokens = batch["tokens"]
+    enc_out = encode(params, cfg, batch["src_embeds"].to(tokens.device))
+    x = L.embed(params, "embed", tokens).to(
+        getattr(torch, cfg.activation_dtype))
+    fn = _remat(lambda pp, xx: _dec_layer(pp, cfg, xx, mode="train",
+                                          enc_out=enc_out)[0], cfg)
+    x, _ = maybe_scan(lambda x, p_l: (fn(p_l, x), None), x,
+                      subtree(params, "dec/"))
+    x = L.rmsnorm(params, "ln_f", x, cfg.norm_eps)
+    logits = L.logits_head(params, x,
+                           None if cfg.tie_embeddings else "head", "embed")
+    ce = L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return ce, {"ce": ce}
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict

@@ -1,9 +1,8 @@
-"""Shared model layers: norms, RoPE, embeddings, attention, GLU MLP, MoE.
+"""Shared model layers: norms, RoPE, embeddings, attention, GLU MLP, MoE,
+the cross-entropy.
 
-Port of ``repro/models/layers.py`` (the serving subset: dense and MoE,
-and the activations the ssm and hybrid families call).  Functions take
-the reference's flat parameter dict and keys, so parity stays key for
-key.
+Port of ``repro/models/layers.py``.  Functions take the reference's flat
+parameter dict and keys, so parity stays key for key.
 
 Attention implementations (selected by ``cfg.attention_impl``):
 
@@ -24,6 +23,16 @@ Softmax math runs in float32.  Where the reference asks an einsum of
 bfloat16 operands for a float32 result (``preferred_element_type``), the
 operands are cast to float32 first: a product of two bfloat16 values is
 exact in float32, so only the order of the float32 sums differs.
+
+Gradients.  Every function here differentiates under autograd (the
+counterpart of ``jax.value_and_grad`` over the reference's ``jnp``
+code).  The serving paths write their flash-attention state and scores
+in place to hold their memory; where the inputs require gradients the
+same operations run out of place, in the same order, so the forward
+values are the same bits either way (``_tracked``).  Row gathers whose
+rows repeat (the embedding lookup, the MoE dispatch) go through
+``gather_rows``, whose backward on CUDA is deterministic, so a captured
+train step and the eager one give the same bits.
 """
 
 from __future__ import annotations
@@ -53,6 +62,21 @@ def _promote(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 def einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, *_promote(*xs))
+
+
+def _tracked(*xs: torch.Tensor) -> bool:
+    """Whether autograd records ops on ``xs``: the gradient path, which
+    runs out of place what serving writes in place."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along the leading axis (x [N, d], idx [...] int64 ->
+    [..., d]): the same gather as ``index_select``, whose backward on
+    CUDA adds repeated rows with atomics in no fixed order; the
+    embedding's backward (``F.embedding``) sorts the indices and sums
+    each row's gradients in one order."""
+    return F.embedding(idx, x)
 
 
 # ---------------------------------------------------------------------------
@@ -102,9 +126,7 @@ def init_embedding(reg: Registrar, path: str, vocab: int, dim: int) -> None:
 
 
 def embed(params: Dict, path: str, ids: torch.Tensor) -> torch.Tensor:
-    table = params[f"{path}/table"]
-    rows = table.index_select(0, ids.reshape(-1)).reshape(
-        *ids.shape, table.shape[-1])
+    rows = gather_rows(params[f"{path}/table"], ids)
     s = params.get(f"{path}/table_scale")
     if s is not None:  # int8 serving table: dequantize the gathered rows
         rows = rows.to(BF16) * s.to(BF16)
@@ -121,13 +143,50 @@ def W(params: Dict, key: str) -> torch.Tensor:
     return w
 
 
+class _MatmulF32(torch.autograd.Function):
+    """a [m, k] @ b [k, n], bfloat16 operands, float32 result, on the
+    card: a GEMM with float32 output (``torch.mm(out_dtype=)``, which has
+    no derivative of its own).  The backward is the derivative of the
+    CPU path's ``a.float() @ b.float()``: float32 products of the float32
+    cotangent, cast to the operands' dtype, each laid out as autograd's
+    ``mm`` backward lays it out (a column-major operand's gradient is
+    computed transposed), so its bits are the cast path's.  For
+    llama3.2-1b's tied head (2048 x 128256) at 2 x 4096 tokens those
+    are two float32 GEMMs of 4.3e12 operations each, 0.13 s at the
+    card's 67 TFLOP/s of float32 outside the tensor cores, and a float32
+    copy of the table (1.05 GB)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        a32, b32 = a.to(F32), b.to(F32)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (b32.mm(g.t()).t() if _column_major(a32)
+                  else g.mm(b32.t())).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = (g.t().mm(a32).t() if _column_major(b32)
+                  else a32.t().mm(g)).to(b.dtype)
+        return ga, gb
+
+
+def _column_major(x: torch.Tensor) -> bool:
+    return x.stride(0) == 1 and x.stride(1) == x.shape[0]
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [..., k] @ b [k, n] with a float32 result: the products are exact
     and summed in float32 (JAX's ``preferred_element_type=F32``).  On the
     card bfloat16 operands go to a GEMM with float32 output, so a large
-    weight is not copied to float32 first; elsewhere they are cast."""
+    weight is not copied to float32 first (``_MatmulF32``: its backward
+    is the cast path's); elsewhere they are cast."""
     if a.is_cuda and a.dtype == b.dtype == BF16:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=F32)
+        out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*a.shape[:-1], b.shape[-1])
     return torch.matmul(a.to(F32), b.to(F32))
 
@@ -139,6 +198,20 @@ def logits_head(params: Dict, x: torch.Tensor, head_path: Optional[str],
     if head_path is not None:
         return matmul_f32(x, W(params, f"{head_path}/w"))       # [d, V]
     return matmul_f32(x, W(params, f"{embed_path}/table").t())  # [V, d]
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy, float32-stable: logits [..., V], labels int
+    [...]; with ``mask`` [...] the mean over its weight (at least 1)."""
+    logits = logits.to(F32)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
 
 
 # ---------------------------------------------------------------------------
@@ -203,13 +276,27 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
+def _scores(s, scale, keep):
+    """Float32 scores ``s`` (an einsum's output) times ``scale``, -inf
+    where ``keep`` (broadcast) is false: in place when serving; out of
+    place under autograd, where an in-place op on the einsum's output
+    view would have the backward copy the whole score tensor."""
+    if _tracked(s):
+        return torch.where(keep, s * scale, -torch.inf)
+    return s.mul_(scale).masked_fill_(~keep, -torch.inf)
+
+
 def _merge(m, lse, s, v_dtype):
     """One flash step over masked float32 scores ``s`` (-inf where masked;
-    overwritten by p): returns (m_new, lse_new, corr, p in ``v_dtype``).
-    The reference zeroes p where s is -inf; exp(-inf) is 0 already."""
+    overwritten by p unless autograd records ``s``): returns (m_new,
+    lse_new, corr, p in ``v_dtype``).  The reference zeroes p where s is
+    -inf; exp(-inf) is 0 already."""
     m_new = torch.maximum(m, s.amax(dim=-1))
     m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
-    p = s.sub_(m_safe[..., None]).exp_()
+    if _tracked(s):
+        p = torch.exp(s - m_safe[..., None])
+    else:
+        p = s.sub_(m_safe[..., None]).exp_()
     m_inf = torch.isinf(m)
     corr = torch.exp(torch.where(m_inf, 0.0, m) - m_safe)
     corr = torch.where(m_inf, 0.0, corr)
@@ -238,17 +325,16 @@ def _xblock_attention(q, k, v, *, causal, chunk_kv, window, kv_len, scale):
         kb = k[:, ki * ck:(ki + 1) * ck]
         vb = v[:, ki * ck:(ki + 1) * ck]
         kpos = ki * ck + torch.arange(ck, device=dev)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb.to(F32)).mul_(scale)
         msk = ((kpos < skv)[None, :]).expand(sq, ck)
         if causal:
             msk = msk & (kpos[None, :] <= qpos)
         if window is not None:
             msk = msk & ((qpos - kpos[None, :]) < window)
         if kv_len is not None:
-            mskb = msk[None] & (kpos[None, None, :] < kv_len[:, None, None])
-            s = s.masked_fill_(~mskb[:, None, None], -torch.inf)
-        else:
-            s = s.masked_fill_(~msk, -torch.inf)
+            msk = (msk[None] & (kpos[None, None, :]
+                                < kv_len[:, None, None]))[:, None, None]
+        s = _scores(torch.einsum("bqhgd,bkhd->bhgqk", qg, kb.to(F32)),
+                    scale, msk)
         m, lse, corr, p = _merge(m, lse, s, v.dtype)
         acc = acc * corr[..., None] \
             + torch.einsum("bhgqk,bkhe->bhgqe", p, vb).to(F32)
@@ -287,15 +373,14 @@ def _chunked_attention(q, k, v, *, causal, chunk_q, chunk_kv, window, kv_len,
         acc = torch.zeros((b, hkv, g, cq, dv), dtype=F32, device=dev)
         for ki in range(nk):
             kpos = ki * ck + torch.arange(ck, device=dev)
-            s = torch.einsum("bqhgd,bkhd->bhgqk", q_r[:, qi],
-                             k_r[:, ki]).mul_(scale)
             msk = torch.ones((cq, ck), dtype=torch.bool, device=dev)
             if causal:
                 msk &= kpos[None, :] <= qpos[:, None]
             if window is not None:
                 msk &= (qpos[:, None] - kpos[None, :]) < window
             msk = msk[None] & (kpos[None, None, :] < eff_len[:, None, None])
-            s = s.masked_fill_(~msk[:, None, None], -torch.inf)
+            s = _scores(torch.einsum("bqhgd,bkhd->bhgqk", q_r[:, qi],
+                                     k_r[:, ki]), scale, msk[:, None, None])
             m, lse, corr, p = _merge(m, lse, s, v.dtype)
             acc = acc * corr[..., None] \
                 + torch.einsum("bhgqk,bkhe->bhgqe", p, v_r[:, ki]).to(F32)
@@ -345,11 +430,19 @@ def _band_attention(q, k, v, *, chunk, window, scale):
     qi_in = torch.arange(c, device=dev)[:, None]
     ki_in = torch.arange(c, device=dev)[None, :]
     valid_k = torch.arange(sp, device=dev) < s             # kv padding mask
+    # the bands' updates of m, lse and acc: in place when serving, new
+    # tensors (the untouched first blocks and the band's rows) under
+    # autograd, which saves the old rows
+    tracked = _tracked(q, k, v)
+
+    def put(t, band, rows):
+        if tracked:
+            return torch.cat([t[:, :band], rows], dim=1)
+        t[:, band:] = rows
+        return t
 
     for band in range(n_bands):
         nb = n - band
-        sco = torch.einsum("bnqhgd,bnkhd->bnhgqk", q_r[:, band:],
-                           k_r[:, :nb]).mul_(scale)
         offs = band * c + qi_in - ki_in                    # [c,c] q-k
         msk = offs >= 0
         if window is not None:
@@ -357,13 +450,14 @@ def _band_attention(q, k, v, *, chunk, window, scale):
         kmask = valid_k[:nb * c].reshape(nb, c)            # [nb,c]
         full_mask = msk[None, None, None, None] \
             & kmask[None, :, None, None, None, :]
-        sco.masked_fill_(~full_mask, -torch.inf)
+        sco = _scores(torch.einsum("bnqhgd,bnkhd->bnhgqk", q_r[:, band:],
+                                   k_r[:, :nb]), scale, full_mask)
         m_new, lse_new, corr, p = _merge(m[:, band:], lse[:, band:], sco,
                                          v.dtype)
-        lse[:, band:] = lse_new
+        lse = put(lse, band, lse_new)
         o = torch.einsum("bnhgqk,bnkhe->bnhgqe", p, v_r[:, :nb])
-        acc[:, band:] = acc[:, band:] * corr[..., None] + o.to(F32)
-        m[:, band:] = m_new
+        acc = put(acc, band, acc[:, band:] * corr[..., None] + o.to(F32))
+        m = put(m, band, m_new)
         del sco, p, o
 
     out = acc / torch.clamp_min(lse, 1e-30)[..., None]
@@ -554,7 +648,7 @@ def moe_ffn(params: Dict, path: str, x: torch.Tensor, moe, act: str
 
     # the dispatch buffer with the spare row the dropped pairs write
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
-    buf.index_put_((slot,), xf.index_select(0, token_of))
+    buf.index_put_((slot,), gather_rows(xf, token_of))
     buf = buf[:e * cap].reshape(e, cap, d)
 
     g = einsum("ecd,edf->ecf", buf, W(params, f"{path}/experts/wi_gate"))

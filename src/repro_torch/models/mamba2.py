@@ -1,13 +1,17 @@
 """Mamba2 (SSD, state-space duality) LM: attention-free, sub-quadratic.
 
-Port of ``repro/models/mamba2.py``, the serving half (``prefill``,
-``decode_step``, ``cache_spec``; training is a ROADMAP item).  Chunked
+Port of ``repro/models/mamba2.py``: ``loss_fn`` (``forward_train``,
+each block under the transformer's ``_remat``), ``prefill``,
+``decode_step`` and ``cache_spec``.  Chunked
 SSD algorithm (Dao & Gu 2024, arXiv:2405.21060): the within-chunk
 quadratic term (the diagonal blocks of the semiseparable matrix) plus
 the inter-chunk low-rank term carried by a sequential scan over chunk
 states.
 
 Prefill cost O(S * Q), attention-free; decode an O(1) state update.
+Serving writes the SSD's transients and the inter-chunk states in place
+(the long_500k prefill's memory); under autograd ``_ssd_chunked`` runs
+the same operations out of place, so its values are the same bits.
 The decode cache per layer is a conv tail [B, d_conv-1, conv_dim] and an
 SSM state [B, G, R, P, N] (float32), stacked over layers under
 ``"scan/conv"`` / ``"scan/h"``, and ``"pos"``, a 0-d int32 device
@@ -28,7 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.param import Registrar, maybe_scan, subtree
-from repro_torch.models.transformer import _Stacked
+from repro_torch.models.transformer import _remat, _Stacked
 
 F32 = torch.float32
 
@@ -120,8 +124,12 @@ def _ssd_chunked(xdt, dA, b_r, c_r, cfg: ModelConfig, h0=None,
     default as many as keep each float32 [B, chunks, G, R, Q, Q] tensor
     within ``DIAG_BYTES``); every element is the same whatever the
     count.  The inter-chunk scan is a loop over the chunks, writing each
-    chunk's incoming state into one float32 buffer.
+    chunk's incoming state into one float32 buffer.  Where autograd
+    records the inputs, the same operations run out of place: the
+    diagonal slices and the chunk states are new tensors, joined at the
+    end.
     """
+    tracked = L._tracked(xdt, dA, b_r, c_r)
     bsz, s, g, r, p = xdt.shape
     n = b_r.shape[-1]
     q = min(cfg.ssm.chunk_size, s)
@@ -144,7 +152,7 @@ def _ssd_chunked(xdt, dA, b_r, c_r, cfg: ModelConfig, h0=None,
     if diag_chunks is None:
         diag_chunks = max(1, DIAG_BYTES // (4 * bsz * g * r * q * q))
     keep = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev))
-    y_diag = torch.empty_like(xdt)
+    y_diag = [] if tracked else torch.empty_like(xdt)
     for c0 in range(0, nc, diag_chunks):
         cs = slice(c0, c0 + diag_chunks)
         scores = L.einsum("bclgn,bcsgn->bcgls", c_c[:, cs].to(F32),
@@ -153,10 +161,21 @@ def _ssd_chunked(xdt, dA, b_r, c_r, cfg: ModelConfig, h0=None,
         decay = (a[:, :, :, None] - a[:, :, None]).permute(0, 1, 4, 5, 2, 3)
         # [B,c,G,R,Ql,Qs]: exp(decay) on and below the diagonal, else 0,
         # times the scores
-        st = decay.exp_().masked_fill_(~keep, 0.0).mul_(scores[:, :, :, None])
-        y_diag[:, cs] = torch.einsum("bcgrls,bcsgrp->bclgrp",
-                                     st.to(xdt.dtype), xdt[:, cs])
-        del scores, decay, st
+        if tracked:
+            st = torch.exp(decay).masked_fill(~keep, 0.0) \
+                * scores[:, :, :, None]
+        else:
+            st = decay.exp_().masked_fill_(~keep, 0.0).mul_(
+                scores[:, :, :, None])
+        yd = torch.einsum("bcgrls,bcsgrp->bclgrp", st.to(xdt.dtype),
+                          xdt[:, cs])
+        if tracked:
+            y_diag.append(yd)
+        else:
+            y_diag[:, cs] = yd
+        del scores, decay, st, yd
+    if tracked:
+        y_diag = torch.cat(y_diag, dim=1)
 
     # chunk states
     dstate = torch.exp(a_cs[:, :, -1:] - a_cs)        # [B,nc,Q,G,R]
@@ -167,15 +186,24 @@ def _ssd_chunked(xdt, dA, b_r, c_r, cfg: ModelConfig, h0=None,
     # inter-chunk sequential scan: hs[c] is the state entering chunk c
     decay_c = torch.exp(a_cs[:, :, -1]).transpose(0, 1)[..., None, None]
     states = states.transpose(0, 1)                   # [nc,B,G,R,P,N]
-    hs = torch.empty((nc + 1, bsz, g, r, p, n), dtype=F32, device=dev)
-    if h0 is None:
-        hs[0].zero_()
+    if tracked:
+        h = torch.zeros((bsz, g, r, p, n), dtype=F32, device=dev) \
+            if h0 is None else h0.to(F32)
+        hs = [h]
+        for c in range(nc):
+            h = h * decay_c[c] + states[c]
+            hs.append(h)
+        h_last, hs = h, torch.stack(hs)
     else:
-        hs[0].copy_(h0)
-    for c in range(nc):
-        torch.mul(hs[c], decay_c[c], out=hs[c + 1])
-        hs[c + 1].add_(states[c])
-    h_last = hs[nc].clone()     # not a view: the caller keeps it, not hs
+        hs = torch.empty((nc + 1, bsz, g, r, p, n), dtype=F32, device=dev)
+        if h0 is None:
+            hs[0].zero_()
+        else:
+            hs[0].copy_(h0)
+        for c in range(nc):
+            torch.mul(hs[c], decay_c[c], out=hs[c + 1])
+            hs[c + 1].add_(states[c])
+        h_last = hs[nc].clone()  # not a view: the caller keeps it, not hs
     del states
 
     # off-diagonal term, in the reference's contraction order: the states
@@ -278,6 +306,28 @@ def _block_decode(p, cfg: ModelConfig, x, conv_state, h_state):
 def _embed_in(params, cfg: ModelConfig, tokens):
     return L.embed(params, "embed", tokens).to(
         getattr(torch, cfg.activation_dtype))
+
+
+def forward_train(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B,S] -> (logits [B,S,V] float32, a 0-d float32 zero: the
+    family has no aux loss); each block under ``_remat``, in one piece
+    (no prefill segments)."""
+    x = _embed_in(params, cfg, tokens)
+    fn = _remat(lambda pp, xx: _block_seq(pp, cfg, xx)[0], cfg)
+    x, _ = maybe_scan(lambda x, p_l: (fn(p_l, x), None), x,
+                      subtree(params, "layers/"))
+    x = L.rmsnorm(params, "ln_f", x, cfg.norm_eps)
+    logits = L.logits_head(params, x,
+                           None if cfg.tie_embeddings else "head", "embed")
+    return logits, torch.zeros((), dtype=F32, device=x.device)
+
+
+def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    logits, _ = forward_train(params, cfg, batch["tokens"])
+    ce = L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return ce, {"ce": ce}
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor

@@ -59,7 +59,8 @@ def _chunks(path: str, shape: Tuple[int, ...], init: str,
             ) -> Iterator[np.ndarray]:
     """The reference Registrar's float64 draw for one parameter as
     consecutive blocks of at most ``rows`` leading rows (a random draw
-    continues one generator's stream block to block)."""
+    continues one generator's stream block to block; a normal draw's
+    blocks share one array, each valid until the next)."""
     if init in ("zeros", "ones"):
         yield (np.zeros if init == "zeros" else np.ones)(shape)
         return
@@ -74,11 +75,21 @@ def _chunks(path: str, shape: Tuple[int, ...], init: str,
         raise ValueError(init)
     rng = _seed_for(path, seed)
     n = shape[0] if shape else 1
+    buf = None
     for lo in range(0, n, rows):
         size = (min(rows, n - lo), *shape[1:]) if shape else ()
-        yield np.asarray(rng.normal(0.0, scale, size=size)
-                         if init == "normal"
-                         else rng.uniform(-scale, scale, size=size))
+        if init == "uniform":
+            yield np.asarray(rng.uniform(-scale, scale, size=size))
+            continue
+        # Generator.normal(0.0, scale) computes 0.0 + scale * z for each
+        # standard normal z; the same arithmetic in one buffer, reused
+        # block to block, spares the host a fresh GiB of pages a block
+        if buf is None or buf.shape != size:
+            buf = np.empty(size)
+        rng.standard_normal(out=buf)
+        buf *= scale
+        buf += 0.0
+        yield buf
 
 
 def draw(path: str, shape: Sequence[int], init: str, scale: Optional[float],
@@ -163,14 +174,25 @@ def maybe_scan(body: Callable, carry, stacked: Dict[str, Any]):
     ``stacked``: a dict, or a tuple of dicts, of tensors with equal
     leading dims; ``body(carry, slice)`` -> (carry, ys_slice), ys_slice
     a dict of tensors or None.  The ys are stacked along a new leading
-    dim.
+    dim.  Under autograd each stacked tensor is split once
+    (``unbind``: its backward stacks the layers' gradients in one write,
+    where a layer's ``select`` would zero-fill and add a whole stack per
+    layer); serving indexes it, so a layer's in-place writes land in the
+    stacked tensor (a cache).
     """
+    def split(tree):
+        if isinstance(tree, dict):
+            return {k: split(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(split(v) for v in tree)
+        return list(tree.unbind(0)) if tree.requires_grad else tree
+
     def take(tree, i):
         if isinstance(tree, dict):
             return {k: take(v, i) for k, v in tree.items()}
         if isinstance(tree, tuple):
             return tuple(take(v, i) for v in tree)
-        return tree[i]
+        return tree[i]      # a tensor's row, or a split tensor's layer
 
     def first_leaf(tree):
         while isinstance(tree, (dict, tuple)):
@@ -179,6 +201,8 @@ def maybe_scan(body: Callable, carry, stacked: Dict[str, Any]):
         return tree
 
     n = first_leaf(stacked).shape[0]
+    if torch.is_grad_enabled():
+        stacked = split(stacked)
     ys_list = []
     for i in range(n):
         carry, ys = body(carry, take(stacked, i))

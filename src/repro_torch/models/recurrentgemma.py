@@ -1,9 +1,11 @@
 """RecurrentGemma / Griffin: RG-LRU recurrent blocks + local attention, 2:1.
 
-Port of ``repro/models/recurrentgemma.py``, the serving half
-(``prefill``, ``decode_step``, ``cache_spec``; training is a ROADMAP
-item).  Layer pattern (recurrent, recurrent, attention) repeating; each
-layer is a temporal block + GeGLU MLP with pre-norms and residuals.  The
+Port of ``repro/models/recurrentgemma.py``: ``loss_fn``
+(``forward_train``: every superblock layer under the transformer's
+``_remat``, the tail's layers as they are, as the reference's),
+``prefill``, ``decode_step`` and ``cache_spec``.  Layer pattern
+(recurrent, recurrent, attention) repeating; each layer is a temporal
+block + GeGLU MLP with pre-norms and residuals.  The
 whole superblocks are stacked under ``"sb/l{j}/"``, the pattern's
 remainder (``num_layers % 3`` layers) under ``"tail/l{j}/"``: the full
 38 layers are 12 x (r, r, a) + (r, r).
@@ -40,7 +42,7 @@ from repro_torch.models.mamba2 import _causal_conv
 from repro_torch.models.param import (Registrar, associative_scan,
                                       maybe_scan, subtree)
 from repro_torch.models.transformer import (_Prefixed, _Stacked, _Step,
-                                            _gqa_qkv)
+                                            _gqa_qkv, _remat)
 
 F32 = torch.float32
 # a prefill of more than this many tokens (batch x length) runs each layer
@@ -294,6 +296,17 @@ def _mlp_block(p, cfg, x):
 # ---------------------------------------------------------------------------
 
 
+def _layer_train(p_l, cfg, x, kind):
+    """One layer (temporal block + MLP) over the whole sequence, in one
+    piece and emitting no cache (the reference's ``_layer_seq`` with
+    ``emit_cache=False``)."""
+    if kind == "recurrent":
+        x = _recurrent_block_seq(p_l, cfg, x)[0]
+    else:
+        x = _attn_block_seq(p_l, cfg, x)[0]
+    return _mlp_block(p_l, cfg, x)
+
+
 def _layer_seq(p_l, cfg, x, kind):
     """One layer (temporal block + MLP) over the prompt: in one piece, or
     past ``PREFILL_TOKENS`` in segments, each carrying the recurrent
@@ -350,6 +363,37 @@ def _run_seq(params, cfg: ModelConfig, tokens):
         x, c = _layer_seq(subtree(params, f"tail/l{j}/"), cfg, x, kind)
         tail_caches.update({f"tail/l{j}/{ck}": cv for ck, cv in c.items()})
     return x, sb_caches or {}, tail_caches
+
+
+def forward_train(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B,S] -> (logits [B,S,V] float32, a 0-d float32 zero: the
+    family has no aux loss)."""
+    x = _embed_in(params, cfg, tokens)
+    pat, n_super, tail = _pattern_split(cfg)
+    fns = [_remat(lambda pp, xx, kk=kind: _layer_train(pp, cfg, xx, kk), cfg)
+           for kind in pat]
+
+    def body(x, p_sb):
+        for j, fn in enumerate(fns):
+            x = fn(subtree(p_sb, f"l{j}/"), x)
+        return x, None
+
+    if n_super:
+        x, _ = maybe_scan(body, x, subtree(params, "sb/"))
+    for j, kind in enumerate(tail):
+        x = _layer_train(subtree(params, f"tail/l{j}/"), cfg, x, kind)
+    x = L.rmsnorm(params, "ln_f", x, cfg.norm_eps)
+    logits = L.logits_head(params, x,
+                           None if cfg.tie_embeddings else "head", "embed")
+    return logits, torch.zeros((), dtype=F32, device=x.device)
+
+
+def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    logits, _ = forward_train(params, cfg, batch["tokens"])
+    ce = L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return ce, {"ce": ce}
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor

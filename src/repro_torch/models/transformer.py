@@ -8,7 +8,10 @@ are dense blocks ``layer{i}/`` ahead of the stacked ones, each with its
 own cache entries) and deepseek-v2-236b (MLA: multi-head latent
 attention, over MoE blocks).
 
-Two serving entry points:
+Three entry points, as the reference's:
+  - ``loss_fn``     (train_4k) — CE + MoE aux over ``forward_train``:
+                    every layer under ``_remat`` (activation
+                    checkpointing) and autograd for the gradients
   - ``prefill``     — emits the KV cache + last-position logits
   - ``decode_step`` — one token against the cache
 
@@ -35,9 +38,12 @@ kernel of the port runs on it.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -212,9 +218,9 @@ def _mla_latent(p, cfg: ModelConfig, x):
 
 
 def _mla_qkv_full(p, cfg: ModelConfig, x, positions):
-    """Decompressed MLA for prefill: per-head K/V materialized from the
-    latent.  Returns (q, k, v, the latent ckv [B,S,R], the shared rope key
-    k_pe [B,S,Dr]); q and k are Dn + Dr wide, v Dv."""
+    """Decompressed MLA for train and prefill: per-head K/V materialized
+    from the latent.  Returns (q, k, v, the latent ckv [B,S,R], the
+    shared rope key k_pe [B,S,Dr]); q and k are Dn + Dr wide, v Dv."""
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     qh = _mla_q(p, cfg, x)
     q_nope, q_pe = qh[..., :dn], qh[..., dn:]
@@ -230,22 +236,31 @@ def _mla_qkv_full(p, cfg: ModelConfig, x, positions):
     return q, k, v, ckv, k_pe
 
 
-def _attn_prefill(p, cfg: ModelConfig, x):
-    """Returns (out, cache_entry_dict)."""
+def _attn_seq(p, cfg: ModelConfig, x):
+    """Causal self-attention over x [B,S,d] (the reference's
+    ``_attn_train``): (out, what a cache keeps of it: MLA's compressed
+    latent and shared rope key, GQA's k and v)."""
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     if cfg.attention == "mla":
-        # cache the compressed latent and the shared rope key (the whole
-        # point of MLA); the reference computes them twice, the same ops
         q, k, v, ckv, k_pe = _mla_qkv_full(p, cfg, x, positions)
-        o = L.attention(q, k, v, causal=True, impl=cfg.attention_impl,
-                        chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
-        out = L.dense(p, "attn/wo", o, "...hk,hkd->...d")
-        return out, {"ckv": ckv, "kpe": k_pe}
-    q, k, v = _gqa_qkv(p, cfg, x, positions)
+        kept = {"ckv": ckv, "kpe": k_pe}
+    else:
+        q, k, v = _gqa_qkv(p, cfg, x, positions)
+        kept = {"k": k, "v": v}
     o = L.attention(q, k, v, causal=True, impl=cfg.attention_impl,
                     chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
-    out = L.dense(p, "attn/wo", o, "...hk,hkd->...d")
-    return out, {"k": _kv_store(cfg, k), "v": _kv_store(cfg, v)}
+    return L.dense(p, "attn/wo", o, "...hk,hkd->...d"), kept
+
+
+def _attn_prefill(p, cfg: ModelConfig, x):
+    """Returns (out, cache_entry_dict): MLA caches the compressed latent
+    and the shared rope key (the whole point of MLA; the reference
+    computes them twice, the same ops), GQA its K/V on the cache's
+    grid."""
+    out, kept = _attn_seq(p, cfg, x)
+    if cfg.attention != "mla":
+        kept = {n: _kv_store(cfg, t) for n, t in kept.items()}
+    return out, kept
 
 
 def _attn_decode(p, cfg: ModelConfig, x, cache_l, step: _Step,
@@ -308,23 +323,70 @@ def _block_apply(p, cfg: ModelConfig, x, mlp_kind: str, *, mode: str,
                  cache_l=None, step: Optional[_Step] = None,
                  attn_backend: Optional[str] = None):
     """Attention + GLU MLP (dense) or ``moe_ffn`` (decode: on ``h[:,
-    None]``), pre-norm residual; returns (x_out, new_cache_entry).  The
-    MoE aux loss is a training term, and serving drops it."""
+    None]``), pre-norm residual, in ``mode`` "train", "prefill" or
+    "decode"; returns (x_out, the MoE aux loss (None for a dense block,
+    whose reference aux is 0), new_cache_entry (None in "train"))."""
     h = L.rmsnorm(p, "ln_attn", x, cfg.norm_eps)
-    if mode == "prefill":
+    new_cache = None
+    if mode == "train":
+        a = _attn_seq(p, cfg, h)[0]
+    elif mode == "prefill":
         a, new_cache = _attn_prefill(p, cfg, h)
     else:
         a, new_cache = _attn_decode(p, cfg, h, cache_l, step,
                                     attn_backend=attn_backend)
     x = x + a
     h = L.rmsnorm(p, "ln_mlp", x, cfg.norm_eps)
+    aux = None
     if mlp_kind == "dense":
         m = L.glu_mlp(p, "mlp", h, cfg.mlp_act)
     elif mode == "decode":
-        m = L.moe_ffn(p, "moe", h[:, None], cfg.moe, cfg.mlp_act)[0][:, 0]
+        m, aux = L.moe_ffn(p, "moe", h[:, None], cfg.moe, cfg.mlp_act)
+        m = m[:, 0]
     else:
-        m = L.moe_ffn(p, "moe", h, cfg.moe, cfg.mlp_act)[0]
-    return x + m, new_cache
+        m, aux = L.moe_ffn(p, "moe", h, cfg.moe, cfg.mlp_act)
+    return x + m, aux, new_cache
+
+
+# the weight products under the "dots" remat policy: GEMMs with no batch
+# dimension, as JAX's ``checkpoint_dots_with_no_batch_dims`` keeps dots
+# without one.  torch's einsum of an activation with a weight lowers to a
+# ``bmm`` over a batch of 1; the bfloat16 head with a float32 result is
+# ``mm.dtype``.  Batched products (attention's scores and values, the
+# experts' [e, cap, d] GEMMs) are recomputed
+_SAVED_MM = (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    dot = op in _SAVED_MM or (op is torch.ops.aten.bmm.default
+                              and args[0].shape[0] == 1)
+    return (CheckpointPolicy.MUST_SAVE if dot
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``cfg.remat_policy`` on ``fn`` (the reference's ``jax.checkpoint``):
+    "none" runs it as it is; "nothing" saves only its inputs and
+    recomputes the rest in the backward; "dots" saves the outputs of its
+    weight products as well (``_save_dots``).  The values and gradients
+    are the same under all three.  Without autograd (serving) ``fn`` runs
+    as it is.  No RNG state is kept: no forward here draws, and a CUDA
+    graph capture refuses to read the generator's state."""
+    if cfg.remat_policy == "none":
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy != "nothing":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, **kw)
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -342,19 +404,57 @@ def _embed_in(params, cfg: ModelConfig, tokens):
     return x
 
 
+def forward_train(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B,S] -> (logits [B,S,V] float32, the MoE aux loss, a 0-d
+    float32 tensor): every block under ``_remat``."""
+    x = _embed_in(params, cfg, tokens)
+    aux_total = torch.zeros((), dtype=F32, device=x.device)
+
+    def block(mlp_kind):
+        return _remat(lambda pp, xx: _block_apply(
+            pp, cfg, xx, mlp_kind, mode="train")[:2], cfg)
+
+    for i in range(_n_dense_first(cfg)):
+        x, _ = block("dense")(subtree(params, f"layer{i}/"), x)
+    fn = block(_mlp_kind(cfg))
+
+    def body(x, p_l):
+        x, aux = fn(p_l, x)
+        return x, None if aux is None else {"aux": aux}
+
+    x, auxes = maybe_scan(body, x, subtree(params, "layers/"))
+    if auxes is not None:
+        aux_total = aux_total + torch.sum(auxes["aux"])
+    x = L.rmsnorm(params, "ln_f", x, cfg.norm_eps)
+    logits = L.logits_head(params, x,
+                           None if cfg.tie_embeddings else "head", "embed")
+    return logits, aux_total
+
+
+def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch {"tokens", "labels" [B,S] [, "mask"]} -> (CE + MoE aux,
+    {"ce", "moe_aux"})."""
+    logits, aux = forward_train(params, cfg, batch["tokens"])
+    ce = L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return ce + aux, {"ce": ce, "moe_aux": aux}
+
+
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
             ) -> Tuple[Dict, torch.Tensor]:
     """tokens [B,S] -> (cache, last-position logits [B,V] float32)."""
     x = _embed_in(params, cfg, tokens)
     head_caches = []
     for i in range(_n_dense_first(cfg)):
-        x, c = _block_apply(subtree(params, f"layer{i}/"), cfg, x, "dense",
-                            mode="prefill")
+        x, _, c = _block_apply(subtree(params, f"layer{i}/"), cfg, x,
+                               "dense", mode="prefill")
         head_caches.append(c)
     mlp_kind = _mlp_kind(cfg)
 
     def body(x, p_l):
-        return _block_apply(p_l, cfg, x, mlp_kind, mode="prefill")
+        x, _, c = _block_apply(p_l, cfg, x, mlp_kind, mode="prefill")
+        return x, c
 
     x, caches = maybe_scan(body, x, subtree(params, "layers/"))
     x = L.rmsnorm(params, "ln_f", x[:, -1], cfg.norm_eps)
@@ -387,18 +487,18 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     for i in range(_n_dense_first(cfg)):
         cl = {k.split("/", 1)[1]: v for k, v in cache.items()
               if k.startswith(f"layer{i}/")}
-        x, _ = _block_apply(subtree(params, f"layer{i}/"), cfg, x, "dense",
-                            mode="decode", cache_l=cl, step=step,
-                            attn_backend=attn_backend)
+        x, _, _ = _block_apply(subtree(params, f"layer{i}/"), cfg, x,
+                               "dense", mode="decode", cache_l=cl,
+                               step=step, attn_backend=attn_backend)
     mlp_kind = _mlp_kind(cfg)
     scan_cache = {k[len("scan/"):]: v for k, v in cache.items()
                   if k.startswith("scan/")}
 
     def body(x, xs):
         p_l, cl = xs
-        x, _ = _block_apply(p_l, cfg, x, mlp_kind, mode="decode",
-                            cache_l=cl, step=step,
-                            attn_backend=attn_backend)
+        x, _, _ = _block_apply(p_l, cfg, x, mlp_kind, mode="decode",
+                               cache_l=cl, step=step,
+                               attn_backend=attn_backend)
         return x, None
 
     x, _ = maybe_scan(body, x, (subtree(params, "layers/"), scan_cache))

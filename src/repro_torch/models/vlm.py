@@ -1,7 +1,8 @@
 """Llama-3.2-Vision backbone: decoder LM with gated cross-attention layers.
 
-Port of ``repro/models/vlm.py`` (its serving half: ``forward_train`` and
-``loss_fn`` wait for the LM training path, ROADMAP §1).  40 layers;
+Port of ``repro/models/vlm.py``: ``forward_train`` and ``loss_fn``
+(each superblock under the transformer's ``_remat``), ``prefill``,
+``decode_step`` and ``cache_spec``.  40 layers;
 every 5th layer is a gated cross-attention layer attending to
 precomputed image patch embeddings (the vision frontend is a stub, as in
 the reference), stacked as 8 superblocks of [4 self + 1 cross].  The
@@ -28,7 +29,8 @@ from repro_torch.models.encdec import (_init_self_attn, cross_attend,
                                        cross_kv, init_cross_attn,
                                        self_attn_decode, self_attn_prefill)
 from repro_torch.models.param import Registrar, maybe_scan, subtree
-from repro_torch.models.transformer import _Prefixed, _Stacked, _Step
+from repro_torch.models.transformer import (_Prefixed, _Stacked, _Step,
+                                            _remat)
 
 F32 = torch.float32
 
@@ -74,10 +76,13 @@ def init_params(reg: Registrar, cfg: ModelConfig) -> None:
 
 
 def _self_layer(p, cfg, x, mode, cache_l=None, step=None, attn_backend=None):
-    """Returns (x, the prefill's {"k", "v"} or None)."""
+    """Returns (x, the prefill's {"k", "v"}; None in "train" and
+    "decode")."""
     h = L.rmsnorm(p, "ln_attn", x, cfg.norm_eps)
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         a, new_cache = self_attn_prefill(p, cfg, h)
+        if mode == "train":
+            new_cache = None
     else:
         a, new_cache = self_attn_decode(p, cfg, h, cache_l, step,
                                         attn_backend), None
@@ -108,9 +113,10 @@ def _cross_layer(p, cfg, x, img_embeds=None, xkv=None, xlens=None,
 
 def _superblock(p_sb, cfg, x, img_embeds, mode, cache_sb=None, step=None,
                 xlens=None, attn_backend=None):
-    """Four self layers and the cross layer.  Prefill returns the
-    superblock's cache entries; decode writes the self rows in place and
-    returns None."""
+    """Four self layers and the cross layer, in ``mode`` "train",
+    "prefill" or "decode".  Prefill returns the superblock's cache
+    entries; train returns None; decode writes the self rows in place
+    and returns None."""
     per, _ = _layout(cfg)
     caches = {}
     for j in range(per - 1):
@@ -126,6 +132,8 @@ def _superblock(p_sb, cfg, x, img_embeds, mode, cache_sb=None, step=None,
                             xlens=xlens, attn_backend=attn_backend)
         return x, None
     x, c = _cross_layer(p_x, cfg, x, img_embeds=img_embeds)
+    if mode == "train":
+        return x, None
     for ck, cv in c.items():
         caches[f"cross/{ck}"] = cv
     return x, caches
@@ -134,6 +142,32 @@ def _superblock(p_sb, cfg, x, img_embeds, mode, cache_sb=None, step=None,
 # ---------------------------------------------------------------------------
 # Model API
 # ---------------------------------------------------------------------------
+
+
+def forward_train(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  image_embeds: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B,S], image_embeds [B,S_img,d] -> (logits [B,S,V] float32,
+    a 0-d float32 zero: the family has no aux loss)."""
+    act = getattr(torch, cfg.activation_dtype)
+    img = image_embeds.to(tokens.device, act)
+    x = L.embed(params, "embed", tokens).to(act)
+    fn = _remat(lambda pp, xx: _superblock(pp, cfg, xx, img, "train")[0],
+                cfg)
+    x, _ = maybe_scan(lambda x, p_sb: (fn(p_sb, x), None), x,
+                      subtree(params, "sb/"))
+    x = L.rmsnorm(params, "ln_f", x, cfg.norm_eps)
+    logits = L.logits_head(params, x,
+                           None if cfg.tie_embeddings else "head", "embed")
+    return logits, torch.zeros((), dtype=F32, device=x.device)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    logits, _ = forward_train(params, cfg, batch["tokens"],
+                              batch["image_embeds"])
+    ce = L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return ce, {"ce": ce}
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict

@@ -11,7 +11,11 @@ complete step.
 Tensors are written as numpy arrays (read back from their device), and
 :func:`restore` returns numpy arrays: the trainer copies them into its
 own buffers, ``serving.load_quantized`` hands them to
-``qparams_from_numpy``.
+``qparams_from_numpy``.  numpy has no bfloat16: a bfloat16 tensor is
+written as its two bytes a value (dtype ``V2``), the bytes the
+reference's ``np.asarray`` of a JAX bfloat16 array writes, and read back
+as a bfloat16 tensor (the reference's own ``restore`` refuses those
+arrays: ``jnp.asarray`` of ``V2``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 _SEP = "␟"
 _SENTINEL = "COMPLETE"
+_BF16_BYTES = np.dtype("V2")     # a bfloat16 array's bytes in the file
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
@@ -57,8 +62,18 @@ def to_numpy(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True).numpy()
+        t = tree.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16_BYTES)
+        return t.numpy()
     return np.asarray(tree)
+
+
+def _from_file(a: np.ndarray) -> Any:
+    """An array as read from ``state.npz``; bfloat16 bytes as a tensor."""
+    if a.dtype == _BF16_BYTES:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return a
 
 
 def save(ckpt_dir: str, step: int, state: Dict[str, Any],
@@ -102,10 +117,11 @@ def list_steps(ckpt_dir: str) -> list:
 
 
 def restore(ckpt_dir: str, step: int) -> Tuple[Dict[str, Any], Dict]:
-    """(the state tree as numpy arrays, meta) of one step."""
+    """(the state tree as numpy arrays, bfloat16 ones as tensors, meta) of
+    one step."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with np.load(os.path.join(path, "state.npz")) as data:
-        flat = {k: data[k] for k in data.files}
+        flat = {k: _from_file(data[k]) for k in data.files}
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     return _unflatten(flat), meta

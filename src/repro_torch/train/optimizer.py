@@ -54,6 +54,17 @@ def init_state(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def abstract_state(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``init_state``'s shapes and dtypes as ``meta`` tensors (the
+    reference's ``ShapeDtypeStruct``s): float32 moments, an int32 step."""
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    return {"m": {k: meta(v.shape, F32) for k, v in params.items()},
+            "v": {k: meta(v.shape, F32) for k, v in params.items()},
+            "step": meta((), torch.int32)}
+
+
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
     sq = sum(torch.sum(torch.square(v.to(F32))) for v in tree.values())
     return torch.sqrt(sq)

@@ -1,8 +1,9 @@
 """Fault-tolerant training loop.
 
 Port of ``repro/train/trainer.py``, used by the FENIX traffic
-classifiers (``serving.train_quantized``).  Features, as the
-reference's:
+classifiers (``serving.train_quantized``) and by the LM training
+launcher (``launch/train.py``, which drives ``train_step`` itself).
+Features, as the reference's:
 
   - AdamW + cosine schedule (train/optimizer.py)
   - checkpoint/restart: atomic npz, auto-resume from ``ckpt_dir``
@@ -267,6 +268,13 @@ class Trainer:
         self._graph.replay()
         return bufs["metrics"]
 
+    def train_step(self, batches: Iterator, item: Dict) -> Dict[str, float]:
+        """One step on ``item`` (a batch of ``batches``) and its metrics,
+        read back once.  A NaN step leaves the state as it was; the
+        caller decides what to do with its metrics."""
+        values = self._train_step(batches, item).tolist()  # one read
+        return dict(zip(self._names, values))
+
     # -- the loop --------------------------------------------------------
 
     def run(self, batches: Iterator[Dict[str, Any]],
@@ -278,8 +286,7 @@ class Trainer:
         while self.step < target:
             item = next(batches)
             t0 = time.perf_counter()
-            values = self._train_step(batches, item).tolist()  # one read
-            metrics = dict(zip(self._names, values))
+            metrics = self.train_step(batches, item)
             dt = time.perf_counter() - t0
             if not math.isfinite(metrics["loss"]):
                 # failure path: the step left the state as it was; restore
