@@ -143,8 +143,9 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    path), each against its bytes bound, with the split count the wrapper
    picks, the other split counts, GB/s and the share of the bound, and
    the clusters the card holds at once; recurrentgemma's shapes (B 8 and
-   B 1) and the
-   four cross-attention-family shapes each in turns beside SDPA.
+   B 1), qwen2-moe-a2.7b's (B 8, 16 KV heads, G 1, D 128, mid-decode
+   lengths) and the four cross-attention-family shapes each in turns
+   beside SDPA.
 6. LM serving: ``ServingEngine.generate`` on the full-width
    ``llama3.2-1b`` (16 layers, d_model 2048, 32/8 heads, vocab 128256)
    with random bfloat16 weights from ``--seed``, batch 8, a
@@ -229,7 +230,8 @@ Phases, in order; any failure exits non-zero and no phase catches one:
 6g. MLA: ``generate`` on ``deepseek-v2-236b`` at full width (d_model
    5120, 128 heads, q-LoRA 1536, latent 512, rope 64, vocab 102400; 160
    experts top-6 + 2 shared, layer 0 dense with d_ff 12288), cut in depth
-   to ``MLA_LAYERS`` = 4 layers (the full model's 236 B parameters, from
+   to ``MLA_LAYERS`` = 2 layers (layer 0 dense + 1 MoE: its init is
+   host-bound numpy draws; the full model's 236 B parameters, from
    ``init_params(abstract=True)``, printed beside ``analytic_param_count``:
    they do not fit one card), batch 8, the same prompt and new tokens:
    no kernel of the port on its path (the absorbed decode is plain torch
@@ -264,13 +266,29 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    (``repro_torch.launch.train.main``, in this process) on the card for
    6 steps with checkpoints every 3, rerun from its directory to step 10
    (it must resume from step 6).  About 80 s.
-7. Each phase's seconds and the total, the ``kernels`` JSON line
+7. The dry run (``repro_torch.launch.dryrun``, traced on meta tensors
+   along the card's path) and its roofline (``launch.roofline``, the
+   H100's peaks): ``run_cell`` of llama3.2-1b at decode_32k's full shape
+   (batch 128, 32768 keys) with its FLOPs, bytes, peak, ``fits_card``
+   (false: its K/V cache alone is ~137 GB) and roofline terms beside the
+   card's name and power limit.  Then two cells cut to fit, each traced
+   on meta and run on the card with the cuda backends from the same
+   ``build_step``: llama3.2-1b's decode step at batch 32 x 32768 (16
+   ``decode_attention`` launches a step) and its train step at batch 1 x
+   4096.  Each traced peak must lie within 10% of the card's
+   ``max_memory_allocated`` rise over the step (after a warm-up step and
+   ``reset_peak_memory_stats``, the inputs in place); the measured step
+   time is printed beside the roofline's ``step_time_s``.  And
+   ``card_latency_us`` of the full-width FENIX-CNN at 128 windows beside
+   ``EngineModel.infer``'s time on 128 windows (6 ``int8_gemm``
+   launches).
+8. Each phase's seconds and the total, the ``kernels`` JSON line
    (``int8_gemm``'s launches count the CNN's and the RNN's main paths,
-   the trained models' replays and the pipes and farm paths;
-   ``decode_attention``'s the llama, MoE, recurrentgemma (long_500k's
-   included), seamless-m4t and llama-3.2-vision generates (deepseek-v2's
-   and the training's add 0); the ``*_pipes`` rows are the
-   pipe-batched gates of 4f),
+   the trained models' replays, the pipes and farm paths and phase 7's
+   infer; ``decode_attention``'s the llama, MoE, recurrentgemma
+   (long_500k's included), seamless-m4t and llama-3.2-vision generates
+   and phase 7's decode steps (deepseek-v2's and the training's add 0);
+   the ``*_pipes`` rows are the pipe-batched gates of 4f),
    then the last line: ``{"ok": true, "device": {"platform": "gpu",
    ...}}``.
 
@@ -1691,6 +1709,53 @@ def steps_match_counts(prof, units, steps, what):
     return want, len(kept), sum(full - k for k in size)
 
 
+def graph_chunks_match_counts(prof, chunks, what):
+    """The port's kernels in each chunk graph's replay of a graph
+    system's profile equal the launches a chunk makes: the wrappers'
+    counters over the run (set to 0 just before it) over ``chunks``.  As
+    in :func:`steps_match_counts`, the profiler now and then loses the
+    kernel records of a replay (on the H100: the first chunk's, one gate
+    and six GEMMs, after tracing starts); a chunk holding fewer of the
+    port's kernels is set aside, its loss printed, while a graph that
+    lost or doubled a kernel node, or a wrapper that counts what it did
+    not launch, differs in every chunk.  At least half the chunks must
+    be full, and none may hold more.  Returns the port's kernels the
+    profile holds."""
+    from collections import Counter, defaultdict
+
+    from torch.autograd import DeviceType
+
+    c = read_counts()
+    total = {"fused_gate": c["fused_gate"] + c["fused_gate_prng"],
+             "int8_gemm": c["int8_gemm"],
+             "decode_attention": c["decode_attention"]}
+    require(all(n % chunks == 0 for n in total.values()),
+            f"{what}: the counters {total} are not whole chunks")
+    want = {name: n // chunks for name, n in total.items()}
+    units = step_units(prof, True)
+    require(len(units) == chunks, f"{what}: {len(units)} graph replays in "
+            f"the profile for {chunks} chunks")
+    groups = defaultdict(Counter)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.id in units:
+            for name in want:
+                groups[units[e.id]][name] += name in e.name
+    short = []
+    for n in range(chunks):
+        seen = {name: groups[n][name] for name in want}
+        require(all(seen[k] <= want[k] for k in want), f"{what}: chunk {n} "
+                f"holds the port's kernels {seen}, more than the counters' "
+                f"{want} a chunk")
+        short += [n] if seen != want else []
+    require(2 * len(short) <= chunks, f"{what}: only {chunks - len(short)} "
+            f"of {chunks} chunks hold the counters' {want} a chunk")
+    if short:
+        print(f"  {what}: the profiler lost kernel records of chunks "
+              f"{short}; the other {chunks - len(short)} hold the "
+              f"counters' {want} a chunk")
+    return {name: sum(g[name] for g in groups.values()) for name in want}
+
+
 def _dev_us(a):
     return getattr(a, "self_device_time_total",
                    getattr(a, "self_cuda_time_total", 0))
@@ -1728,7 +1793,8 @@ def profile_replay(sys_, stream, chunks, what):
     the top device kernels and the host ops by count.  On a graph system
     the busy time is also read with CUDA events around back-to-back
     replays of its chunk graph, as a cross-check; the profile must hold
-    as many of the port's kernels as the counters count."""
+    as many of the port's kernels as the counters count (a graph
+    system's chunk by chunk: :func:`graph_chunks_match_counts`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1741,7 +1807,10 @@ def profile_replay(sys_, stream, chunks, what):
     avgs = prof.key_averages()
     kern = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
                   key=_dev_us, reverse=True)
-    seen = counts_match_profile(kern, f"profile ({what})")
+    if sys_.step_backend == "graph":
+        seen = graph_chunks_match_counts(prof, chunks, f"profile ({what})")
+    else:
+        seen = counts_match_profile(kern, f"profile ({what})")
     busy = sum(_dev_us(a) for a in kern) / 1e6
     host = sorted((a for a in avgs if a.device_type == DeviceType.CPU),
                   key=lambda a: a.count, reverse=True)
@@ -1761,7 +1830,7 @@ def profile_replay(sys_, stream, chunks, what):
           f"cudaLaunchKernelEx* + cudaGraphLaunch), {n_copy} memcpy calls "
           f"= {n_copy / chunks:.2f} per chunk; {n_ops} aten ops = "
           f"{n_ops / chunks:.1f} per chunk; port kernels in the profile "
-          f"{seen} == the counters")
+          f"{seen}, held to the counters")
     for a in kern[:8] + _port_kernels(kern[8:]):
         print(f"  device {_dev_us(a) / 1e3:9.3f} ms  x{a.count:6d}  "
               f"{a.key[:90]}")
@@ -3013,7 +3082,11 @@ def phase_attention(rng, decode_s):
            "library_ms": lib_ms}
     for rg_b in (8, 1):
         rg_turns(rng, sms, rg_b)
-    cross_turns(rng, sms, decode_s)
+    # qwen2-moe-a2.7b's shape (16 KV heads, G 1, D 128) and the
+    # cross-attention families' four
+    shape_turns(rng, sms, decode_s,
+                [("qwen2-moe self shape", 16, 1, 128, decode_s, None)]
+                + _cross_shapes(rng, decode_s))
     q, k, v, lens_l = long_in
     splits_l = num_splits(32, hkv, long_s, rows, sms)
     bound_l, by_l, byts_l = _attn_bound(q, k, lens_l)
@@ -3109,19 +3182,20 @@ def _cross_shapes(rng, decode_s, b=8):
             ("vision cross shape", 8, 4, 128, VISION_IMG, [VISION_IMG] * b)]
 
 
-def cross_turns(rng, sms, decode_s):
-    """Time the kernel at the four cross-attention-family shapes in turns
-    beside SDPA (``enable_gqa=True``), each over four caches in turn (a
-    decode step reads one a layer), the self shapes at mid-decode lengths
-    (every row ``decode_s - 16`` keys), the cross shapes full; with the
-    bytes bound, the split count the rule picks, GB/s and the share of
-    the bound."""
+def shape_turns(rng, sms, decode_s, shapes):
+    """Time the kernel at ``shapes`` (``_cross_shapes``' tuples: the
+    cross-attention families' four, qwen2-moe-a2.7b's self shape) in
+    turns beside SDPA (``enable_gqa=True``), each over four caches in
+    turn (a decode step reads one a layer), the self shapes at mid-decode
+    lengths (every row ``decode_s - 16`` keys), the cross shapes full;
+    with the bytes bound, the split count the rule picks, GB/s and the
+    share of the bound."""
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention, head_tiles, num_splits, tile_rows)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
     b = 8
-    for name, hkv, g, d, keys, _ in _cross_shapes(rng, decode_s, b):
+    for name, hkv, g, d, keys, _ in shapes:
         n = decode_s - 16 if "self" in name else keys
         sets = [_attn_inputs(rng, b, hkv, g, d, keys, torch.bfloat16,
                              [n] * b) for _ in range(4)]
@@ -4279,7 +4353,8 @@ def phase_vlm(args):
 
 # -- phase 6g: MLA (deepseek-v2-236b) ---------------------------------------
 
-MLA_LAYERS = 4          # the depth served on one card: layer 0 (dense) + 3 MoE
+MLA_LAYERS = 2          # the depth served on one card: layer 0 (dense) + 1
+                        # MoE (each MoE layer adds ~25 s of host-bound init)
 MLA_CUT_LAYERS = 2      # its float32 copy: layer 0 + 1 MoE layer
 MLA_CHECK_LEN = 1024    # the float32 check's prompt (batch 1)
 
@@ -4754,6 +4829,202 @@ def phase_train(args):
           f"card vs CPU {t_small:.1f} s, launcher {lap():.1f} s")
     return launches
 
+# -- phase 7: the dry run on the card --------------------------------------
+
+DRY_ARCH = "llama3.2-1b"
+# decode_32k's batch of 128 cut to 32 (its K/V cache, 34.4 GB, fits
+# beside the weights), train_4k's global batch of 256 cut to 1
+DRY_DECODE = (32, 32768)
+DRY_TRAIN = (1, 4096)
+DRY_PEAK_TOL = 0.10     # traced peak against the card's, relative
+DRY_TIMED = {"decode": 10, "train": 2}   # steps timed a cell
+
+
+def _roofline_line(res):
+    from repro_torch.launch import roofline
+
+    r = roofline.analyse_run(res)
+    return r, (f"compute {r['compute_s'] * 1e3:.3f} ms, memory "
+               f"{r['memory_s'] * 1e3:.3f} ms (fused floor "
+               f"{r['bytes_per_device'] / 1e9:.3f} GB; traced unfused "
+               f"{r['bytes_per_device_raw'] / 1e9:.3f} GB), dominant "
+               f"{r['dominant']}, step_time_s {r['step_time_s']:.6f}, "
+               f"6ND/traced {r['useful_ratio']:.3f}")
+
+
+def _card_args(kind, meta_args, params, seq_len, rng):
+    """The step's arguments on the card: the drawn weights, zero optimizer
+    moments, a zero decode cache at its last position (every key read)
+    and token ids from ``rng``."""
+    def like(t):
+        if t.dtype.is_floating_point:
+            return torch.zeros(t.shape, dtype=t.dtype, device="cuda")
+        return torch.from_numpy(np.asarray(
+            rng.integers(0, 1000, tuple(t.shape)), np.int32)).to(
+                "cuda", t.dtype)
+
+    def tree(x):
+        if isinstance(x, dict):
+            return {k: tree(v) for k, v in x.items()}
+        return like(x)
+
+    rest = [tree(a) for a in meta_args[1:]]
+    if kind == "decode":
+        rest[0]["pos"].fill_(seq_len - 1)
+    require({k: (v.shape, v.dtype) for k, v in meta_args[0].items()}
+            == {k: (v.shape, v.dtype) for k, v in params.items()},
+            "the card's weights are not the traced step's")
+    return (params, *rest)
+
+
+def dry_cell(kind, params, seed):
+    """One cell cut to fit: traced on meta (``run_cell`` and the same
+    ``build_step``), then run on the card; returns (traced peak, card
+    peak, ms a step, roofline step_time_s, decode_attention launches of
+    one step)."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+
+    name = {"decode": "decode_32k", "train": "train_4k"}[kind]
+    b, s = DRY_DECODE if kind == "decode" else DRY_TRAIN
+    t0 = time.perf_counter()
+    res = dryrun.run_cell(DRY_ARCH, name, batch=b, seq_len=s)
+    roof, line = _roofline_line(res)
+    traced = res["memory"]["temp_bytes"]
+    print(f"{DRY_ARCH} {kind} at batch {b} x {s} (meta, {res['trace_s']:.2f}"
+          f" s traced): {res['cost']['flops']:.6e} FLOPs, "
+          f"{res['cost']['bytes_accessed']:.6e} bytes, arguments "
+          f"{res['memory']['argument_bytes'] / 1e9:.3f} GB, peak of the "
+          f"step's own {traced} bytes, fits_card {res['fits_card']}; "
+          f"roofline: {line}")
+    shape = dataclasses.replace(SHAPES[name], global_batch=b, seq_len=s)
+    step, meta_args, _ = dryrun.build_step(get_config(DRY_ARCH), shape)
+    args = _card_args(kind, meta_args, params, s,
+                      np.random.default_rng(seed))
+    del meta_args
+    out = step(*args)                      # warm-up: workspaces, handles
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = step(*args)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    card = torch.cuda.max_memory_allocated() - base
+    del out
+    rel = abs(traced - card) / card
+    print(f"  peak of the step's own allocations: traced {traced} bytes, "
+          f"the card {card} bytes (max_memory_allocated over the step, "
+          f"inputs in place), {rel:.4f} apart")
+    require(rel <= DRY_PEAK_TOL, f"{kind}: traced peak {traced} bytes "
+            f"against the card's {card} ({rel:.4f} > {DRY_PEAK_TOL})")
+    n = DRY_TIMED[kind]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        out = step(*args)
+        del out
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n
+    print(f"  step on the card (eager, {n} steps back to back): {ms:.3f} ms "
+          f"against the roofline's {roof['step_time_s'] * 1e3:.3f} ms: "
+          f"{ms / (roof['step_time_s'] * 1e3):.2f}x; cell "
+          f"{time.perf_counter() - t0:.1f} s")
+    del args
+    return traced, card, ms, roof["step_time_s"], launches
+
+
+def phase_dryrun(args):
+    """7. The dry run and its roofline, held against the card; returns
+    the kernel launches of its main paths (the cut decode step's, the
+    Model Engine's infer)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.fenix_models import fenix_cnn
+    from repro_torch.core.model_engine import serving
+    from repro_torch.core.model_engine.inference import (EngineModel,
+                                                         card_latency_us)
+    from repro_torch.data.synthetic_traffic import make_flows
+    from repro_torch.launch import dryrun
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
+    res = dryrun.run_cell(DRY_ARCH, "decode_32k")
+    _, line = _roofline_line(res)
+    mem = res["memory"]
+    print(f"dry run {DRY_ARCH} x decode_32k (batch {res['global_batch']}, "
+          f"{res['seq_len']} keys; meta, traced in {res['trace_s']:.2f} s"
+          f"): {res['cost']['flops']:.6e} FLOPs, "
+          f"{res['cost']['bytes_accessed']:.6e} bytes accessed, arguments "
+          f"{mem['argument_bytes'] / 1e9:.3f} GB, peak of the step's own "
+          f"{mem['temp_bytes'] / 1e9:.4f} GB, fits_card {res['fits_card']} "
+          f"(card {res['card_bytes'] / 1e9:.2f} GB); roofline: {line} "
+          f"[{smi}]")
+    require(not res["fits_card"] and res["op_bytes"].get(
+        "decode_attention", 0) > 0, "decode_32k: the trace must not fit "
+        "one card and must go through decode_attention")
+    launches = {name: 0 for name in _counts()}
+    params = _init_model(get_config(DRY_ARCH), args.seed)
+    peaks = {}
+    for kind in ("decode", "train"):
+        traced, card, ms, roof_s, got = dry_cell(kind, params, args.seed)
+        peaks[kind] = (traced, card, ms, roof_s)
+        for name, n in got.items():
+            launches[name] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+    layers = get_config(DRY_ARCH).num_layers
+    require(launches["decode_attention"] == layers,
+            f"the decode step launched decode_attention "
+            f"{launches['decode_attention']} times, not {layers}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mcfg = fenix_cnn()
+    flows = make_flows("iscx", 64, seed=args.seed)
+    windows = _calib_windows(flows, 128, mcfg.seq_len)
+    require(windows.shape[0] == 128, "128 windows")
+    model = EngineModel(mcfg, serving.qparams_from_numpy(
+        seeded_qparams(mcfg, args.seed, windows), "cuda"))
+    payload = torch.from_numpy(windows).cuda()
+    zero_counts()
+    model.infer(payload)
+    torch.cuda.synchronize()
+    got = read_counts()
+    launches["int8_gemm"] += got["int8_gemm"]
+    require(got["int8_gemm"] == 6, f"infer launched {got} (6 GEMMs)")
+    lat = card_latency_us(mcfg, 128)
+    eager = host_ms(lambda: model.infer(payload)) * 1e3
+    device = device_ms(lambda: model.infer(payload)) * 1e3
+    print(f"Model Engine, {mcfg.name} on 128 windows: card_latency_us "
+          f"{lat['latency_us']:.4f} us (compute {lat['compute_us']:.4f}, "
+          f"memory {lat['memory_us']:.4f}); EngineModel.infer on the card "
+          f"{device:.2f} us a call on a graph, {eager:.2f} us eager back to "
+          f"back: {device / lat['latency_us']:.1f}x the roofline [{smi}]")
+    print(json.dumps({"dryrun": {
+        "card": smi, "decode_32k": {
+            "flops": res["cost"]["flops"],
+            "bytes_accessed": res["cost"]["bytes_accessed"],
+            "temp_bytes": mem["temp_bytes"], "fits_card": res["fits_card"]},
+        **{kind: {"traced_peak": t, "card_peak": c, "ms": m,
+                  "roofline_ms": r * 1e3}
+           for kind, (t, c, m, r) in peaks.items()},
+        "card_latency_us": lat["latency_us"], "infer_us_graph": device,
+        "infer_us_eager": eager}}))
+    return launches
+
+
 KERNEL_ROWS = (
     ("fused_gate", "src/repro_torch/csrc/fused_gate.cu",
      "src/repro/kernels/rate_gate/kernel.py:191"),
@@ -4832,13 +5103,18 @@ def main():
     mla_attn = phase("6g mla", phase_mla, args)
     train_launches = phase("6h LM training", phase_train, args)
     print(f"kernel launches of the training's main path: {train_launches}")
+    dry = phase("7 dry run", phase_dryrun, args)
+    launches["int8_gemm"] += dry["int8_gemm"]
     launches["decode_attention"] = lm_attn + moe_attn + ssm_attn \
-        + hybrid_attn + encdec_attn + vlm_attn + mla_attn
+        + hybrid_attn + encdec_attn + vlm_attn + mla_attn \
+        + dry["decode_attention"]
     print(f"decode_attention launches on the main paths: llama3.2-1b "
           f"{lm_attn} + qwen2-moe-a2.7b {moe_attn} + mamba2-370m "
           f"{ssm_attn} + recurrentgemma-9b {hybrid_attn} (its long_500k "
           f"included) + seamless-m4t-medium {encdec_attn} + "
-          f"llama-3.2-vision-11b {vlm_attn} + deepseek-v2-236b {mla_attn}")
+          f"llama-3.2-vision-11b {vlm_attn} + deepseek-v2-236b {mla_attn}"
+          f" + the dry run's decode step {dry['decode_attention']}; "
+          f"int8_gemm's include the dry run's infer {dry['int8_gemm']}")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items())
           + f"; total {sum(seconds.values()):.1f} s")

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
@@ -30,6 +31,10 @@ BACKENDS: Dict[str, Tuple[str, ...]] = {
     "step_backend": ("graph", "eager"),
 }
 _KERNEL_BACKENDS = ("cuda", "cuda_prng")
+# the device whose path a ``meta`` tensor takes (``meta_as``): the card's
+# unless a trace asks for the CPU's
+_META_AS: contextvars.ContextVar[str] = contextvars.ContextVar(
+    "meta_as", default="cuda")
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -59,15 +64,38 @@ def validate_backend(name: Optional[str], knob: str) -> Optional[str]:
     return name
 
 
+@contextlib.contextmanager
+def meta_as(device_type: str) -> Iterator[None]:
+    """Within the block, ``meta`` tensors take the branches of
+    ``device_type`` ("cuda" or "cpu"): the dry run traces the card's path
+    on meta tensors (the default) or, to hold a trace against a CPU run,
+    the CPU's."""
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"meta tensors stand for cuda or cpu, not "
+                         f"{device_type!r}")
+    token = _META_AS.set(device_type)
+    try:
+        yield
+    finally:
+        _META_AS.reset(token)
+
+
+def on_card(tensor: torch.Tensor) -> bool:
+    """Whether ``tensor`` takes the card's branches: a CUDA tensor, or a
+    ``meta`` one standing for the card (:func:`meta_as`)."""
+    return tensor.is_cuda or (tensor.is_meta and _META_AS.get() == "cuda")
+
+
 def resolve_backend(name: Optional[str], tensor: torch.Tensor,
                     knob: str) -> str:
-    """The backend one call runs: ``name``, else ``"cuda"`` for a CUDA
-    tensor and ``"ref"`` for a CPU tensor.  A kernel backend (``"cuda"``,
+    """The backend one call runs: ``name``, else ``"cuda"`` for a tensor
+    on the card (:func:`on_card`: a ``meta`` tensor traces the card's
+    path) and ``"ref"`` for a CPU tensor.  A kernel backend (``"cuda"``,
     ``"cuda_prng"``) with a CPU tensor raises."""
     validate_backend(name, knob)
     if name is None:
-        return "cuda" if tensor.is_cuda else "ref"
-    if name in _KERNEL_BACKENDS and not tensor.is_cuda:
+        return "cuda" if on_card(tensor) else "ref"
+    if name in _KERNEL_BACKENDS and not on_card(tensor):
         raise ValueError(f"{knob}={name!r} runs a Hopper kernel and "
                          f"needs CUDA tensors; got a {tensor.device} "
                          "tensor")

@@ -7,8 +7,9 @@ Port of ``EngineModel``, ``ByLenModel``, ``macs_per_inference`` and
 ``.to(device)`` moves the whole model; every GEMM it runs goes through
 ``kernels/int8_matmul`` on its ``backend``.  ``infer_engines`` serves a
 stack of lane batches (the pipes' or the engines' of one step) in one
-pass: one GEMM a layer over all of them.  The reference's
-``tpu_latency_us`` (a TPU roofline, not a path) is not ported.
+pass: one GEMM a layer over all of them.  ``card_latency_us`` is the
+counterpart of the reference's ``tpu_latency_us``: the same roofline on
+one H100.
 """
 
 from __future__ import annotations
@@ -164,3 +165,26 @@ class CycleModel:
         macs = macs_per_inference(cfg)
         issue_us = macs / (self.array_width ** 2) / self.f_clk_hz * 1e6
         return self.latency_us(cfg) + (per_engine - 1) * issue_us
+
+
+# NVIDIA H100 SXM, dense (data sheet): int8 tensor-core operations/s and
+# HBM3 bytes/s
+CARD_INT8_OPS_PER_S = 1979e12
+CARD_HBM_BYTES_PER_S = 3.35e12
+
+
+def card_latency_us(cfg: TrafficModelConfig, batch: int = 128) -> Dict:
+    """Roofline latency of a window batch on one H100: the reference's
+    ``tpu_latency_us`` formula at the card's rates.
+
+    compute = MACs*2 / 1979 T int8 ops/s; memory = weight (~1 byte a
+    unique MAC weight) + activation bytes / 3.35 TB/s.
+    """
+    macs = macs_per_inference(cfg) * batch
+    flops = 2.0 * macs
+    w_bytes = macs_per_inference(cfg)
+    t_compute = flops / CARD_INT8_OPS_PER_S * 1e6
+    t_memory = (w_bytes + batch * cfg.seq_len * 2 * 4) \
+        / CARD_HBM_BYTES_PER_S * 1e6
+    return {"compute_us": t_compute, "memory_us": t_memory,
+            "latency_us": max(t_compute, t_memory)}

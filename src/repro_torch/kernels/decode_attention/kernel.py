@@ -12,6 +12,13 @@ loop never reads ``lengths`` back.  It takes any GQA group, as the TPU
 kernel does: a CTA computes a tile of at most ``GROUP_TILE`` query heads
 of one KV head, so a KV head's rows are read once a tile
 (:func:`head_tiles`: twice at recurrentgemma-9b's group of 16).
+
+The launch is the custom op ``torch.ops.repro_torch.decode_attention``
+(CUDA only).  Its fake implementation gives a ``meta`` call the
+kernel's output, and its FLOP formula tells
+``torch.utils.flop_counter.FlopCounterMode`` the kernel's work, so the
+dry run (``launch/dryrun.py``) traces a decode step through the kernel
+on meta tensors.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -115,9 +123,10 @@ def max_active_clusters(b: int, hkv: int, g: int, d: int, q_dtype,
 
 
 class _DecodeAttention:
-    """Callable kernel wrapper; ``launches`` counts kernel launches (a
-    CUDA-graph replay adds the launches recorded at its capture:
-    ``_graph.Graph.replay``)."""
+    """Callable kernel wrapper: checks the arguments and calls the custom
+    op.  ``launches`` counts kernel launches, added where the op's CUDA
+    implementation launches (a CUDA-graph replay adds the launches
+    recorded at its capture: ``_graph.Graph.replay``)."""
 
     def __init__(self):
         self.launches = 0
@@ -128,7 +137,8 @@ class _DecodeAttention:
         """q [B,Hq,D] contiguous, Hq any multiple of Hkv; k, v
         [B,S,Hkv,D] read in place (any batch and sequence strides; each
         row of one head contiguous and 16-byte aligned); lengths [B]
-        int32; all on one CUDA device.
+        int32; all on one CUDA device (or all ``meta``: the op's fake
+        output, nothing launched).
         q and k/v of one dtype (float32 or bfloat16), or a float32 q with
         bfloat16 k/v.  ``splits`` (1, 2, 4 or 8, at most the tiles of S)
         overrides :func:`num_splits`, for measurement.  Returns
@@ -163,9 +173,10 @@ class _DecodeAttention:
         if lengths.dtype != torch.int32:
             raise ValueError("decode_attention: lengths must be int32")
         tensors = (q, k, v, lengths)
-        if any(not x.is_cuda or x.device != q.device for x in tensors):
+        if any(not (x.is_cuda or x.is_meta) or x.device != q.device
+               for x in tensors):
             raise ValueError("decode_attention runs on CUDA tensors of one "
-                             "device")
+                             "device (or meta tensors, traced)")
         if not q.is_contiguous() or not lengths.is_contiguous():
             raise ValueError("decode_attention takes contiguous q and "
                              "lengths")
@@ -177,29 +188,58 @@ class _DecodeAttention:
                 raise ValueError(f"decode_attention: {name} rows must be "
                                  "contiguous [Hkv, D] blocks at 16-byte "
                                  f"aligned offsets; strides {x.stride()}")
-        rows = tile_rows(d, k.element_size(), tensor_cores(q.dtype,
-                                                             k.dtype))
-        tiles = -(-s // rows)
-        if splits is None:
-            splits = num_splits(b, hkv * head_tiles(g), s, rows,
-                                sm_count(q.device))
-        elif splits not in SPLITS or splits > max(tiles, 1):
-            raise ValueError(f"decode_attention: splits {splits} not in "
-                             f"{SPLITS} or above the {tiles} tiles of S")
-        fn = _lib()
-        out = torch.empty((b, hq, d), device=q.device, dtype=v.dtype)
-        if b == 0:
-            return out
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    lengths.data_ptr(), out.data_ptr(), b, s, hkv,
-                    g, d, k.stride(0), k.stride(1), v.stride(0),
-                    v.stride(1), math.log2(math.e) * d ** -0.5,
-                    int(q.dtype == torch.bfloat16),
-                    int(k.dtype == torch.bfloat16), splits, stream)
-        _build.check(status, "decode_attention")
-        self.launches += 1
-        return out
+        if splits is not None:
+            tiles = -(-s // tile_rows(d, k.element_size(),
+                                      tensor_cores(q.dtype, k.dtype)))
+            if splits not in SPLITS or splits > max(tiles, 1):
+                raise ValueError(f"decode_attention: splits {splits} not "
+                                 f"in {SPLITS} or above the {tiles} tiles "
+                                 "of S")
+        return torch.ops.repro_torch.decode_attention(q, k, v, lengths,
+                                                      splits or 0)
 
 
 decode_attention = _DecodeAttention()
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=(),
+                         device_types="cuda")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            lengths: torch.Tensor, splits: int) -> torch.Tensor:
+    """One kernel launch on arguments :class:`_DecodeAttention` checked;
+    ``splits`` 0 takes :func:`num_splits`'s."""
+    b, hq, d = q.shape
+    _, s, hkv, _ = k.shape
+    g = hq // hkv
+    if not splits:
+        rows = tile_rows(d, k.element_size(), tensor_cores(q.dtype,
+                                                           k.dtype))
+        splits = num_splits(b, hkv * head_tiles(g), s, rows,
+                            sm_count(q.device))
+    fn = _lib()
+    out = torch.empty((b, hq, d), device=q.device, dtype=v.dtype)
+    if b == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), b, s, hkv,
+                g, d, k.stride(0), k.stride(1), v.stride(0),
+                v.stride(1), math.log2(math.e) * d ** -0.5,
+                int(q.dtype == torch.bfloat16),
+                int(k.dtype == torch.bfloat16), splits, stream)
+    _build.check(status, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+@_launch.register_fake
+def _(q, k, v, lengths, splits):
+    return q.new_empty(q.shape, dtype=v.dtype)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs):
+    """The kernel's products, every row of the cache (a trace does not
+    read ``lengths``): 2 * B * Hq * S * (Dk + Dv)."""
+    b, hq, dk = q_shape
+    return 2 * b * hq * k_shape[1] * (dk + v_shape[3])

@@ -15,44 +15,15 @@ them.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
-from typing import Dict
 
 import numpy as np
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.launch.dryrun import apply_overrides
 from repro_torch.models import api
 from repro_torch.serve.engine import ServeConfig, ServingEngine
-
-
-def apply_overrides(cfg, overrides: Dict[str, str]):
-    """``--set key=value`` config overrides (``moe.top_k=2`` reaches a
-    sub-config): the port's copy of the reference's
-    ``launch/dryrun.py::apply_overrides``."""
-    for key, val in overrides.items():
-        parts = key.split(".")
-
-        def parse(v):
-            for cast in (int, float):
-                try:
-                    return cast(v)
-                except ValueError:
-                    pass
-            if v in ("true", "false", "True", "False"):
-                return v.lower() == "true"
-            return v
-        v = parse(val)
-        if len(parts) == 1:
-            cfg = dataclasses.replace(cfg, **{parts[0]: v})
-        elif len(parts) == 2:
-            sub = getattr(cfg, parts[0])
-            cfg = dataclasses.replace(
-                cfg, **{parts[0]: dataclasses.replace(sub, **{parts[1]: v})})
-        else:
-            raise ValueError(key)
-    return cfg
 
 
 def main(argv=None):

@@ -39,7 +39,7 @@ import numpy as np
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.launch.serve import apply_overrides
+from repro_torch.launch.dryrun import apply_overrides
 from repro_torch.models import api
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optimizer as opt_lib

@@ -44,7 +44,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch._device import resolve_backend
+from repro_torch._device import on_card, resolve_backend
 from repro_torch.kernels.decode_attention.kernel import decode_attention \
     as attn_kernel
 from repro_torch.models.param import Registrar, shard
@@ -184,8 +184,9 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     and summed in float32 (JAX's ``preferred_element_type=F32``).  On the
     card bfloat16 operands go to a GEMM with float32 output, so a large
     weight is not copied to float32 first (``_MatmulF32``: its backward
-    is the cast path's); elsewhere they are cast."""
-    if a.is_cuda and a.dtype == b.dtype == BF16:
+    is the cast path's; a ``meta`` trace of the card's path takes it
+    too); elsewhere they are cast."""
+    if on_card(a) and a.dtype == b.dtype == BF16:
         out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*a.shape[:-1], b.shape[-1])
     return torch.matmul(a.to(F32), b.to(F32))

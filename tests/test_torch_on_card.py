@@ -1729,3 +1729,72 @@ def test_mamba2_serving_prefill_allocates_as_before(cuda_device):
     graded, (_, l3) = peak(lambda: api.prefill(leaves, cfg,
                                                {"tokens": tokens}))
     assert torch.equal(l3.detach(), l1) and graded > served
+
+
+def test_decode_attention_op_on_card_and_meta(cuda_device):
+    """Kernel 4 through its custom op: one launch counted a call on the
+    card, the same output as a call with explicit splits' default, and a
+    meta call of the same shapes gives the kernel's output shape and
+    dtype with no launch."""
+    rng = np.random.default_rng(3)
+    b, hkv, g, d, s = 4, 2, 4, 128, 777
+    q = torch.from_numpy(rng.standard_normal((b, hkv * g, d), np.float32)) \
+        .to(cuda_device, torch.bfloat16)
+    k = torch.from_numpy(rng.standard_normal((b, s, hkv, d), np.float32)) \
+        .to(cuda_device, torch.bfloat16)
+    v = torch.from_numpy(rng.standard_normal((b, s, hkv, d), np.float32)) \
+        .to(cuda_device, torch.bfloat16)
+    lens = torch.tensor([1, 100, 777, 400], dtype=torch.int32,
+                        device=cuda_device)
+    before = decode_attention_kernel.launches
+    out = torch.ops.repro_torch.decode_attention(q, k, v, lens, 0)
+    again = decode_attention_kernel(q, k, v, lens)
+    assert decode_attention_kernel.launches == before + 2
+    assert torch.equal(out, again)
+    meta = decode_attention_kernel(*(x.to("meta") for x in (q, k, v, lens)))
+    assert meta.is_meta and meta.shape == out.shape \
+        and meta.dtype == out.dtype
+    assert decode_attention_kernel.launches == before + 2
+
+
+@pytest.mark.parametrize("arch,kind", [("llama3.2-1b", "decode"),
+                                       ("llama3.2-1b", "train"),
+                                       ("qwen2-moe-a2.7b", "prefill")])
+def test_dry_run_peak_matches_card(arch, kind, cuda_device):
+    """A reduced step traced on meta along the card's path and run on the
+    card from the same ``build_step``: the traced peak of the step's own
+    allocations within 10% of ``max_memory_allocated``'s rise (after a
+    warm-up step, the inputs in place)."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+
+    name = {"decode": "decode_32k", "train": "train_4k",
+            "prefill": "prefill_32k"}[kind]
+    shape = dataclasses.replace(SHAPES[name], global_batch=4, seq_len=512)
+    cfg = get_config(arch, reduced=True)
+    step, args, _ = dryrun.build_step(cfg, shape)
+    _, counts = dryrun.trace(step, args)
+    gen = torch.Generator().manual_seed(0)
+
+    def real(x):
+        if isinstance(x, dict):
+            return {k: real(v) for k, v in x.items()}
+        if x.dtype.is_floating_point:
+            return (torch.randn(x.shape, generator=gen) * 0.02).to(
+                cuda_device, x.dtype)
+        return torch.zeros(x.shape, dtype=x.dtype, device=cuda_device)
+
+    card = tuple(real(a) for a in args)
+    out = step(*card)
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(*card)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    assert abs(counts["temp_bytes"] - peak) <= 0.10 * peak, \
+        (counts["temp_bytes"], peak)
