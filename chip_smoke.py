@@ -281,7 +281,15 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    time is printed beside the roofline's ``step_time_s``.  And
    ``card_latency_us`` of the full-width FENIX-CNN at 128 windows beside
    ``EngineModel.infer``'s time on 128 windows (6 ``int8_gemm``
-   launches).
+   launches).  Then the reference's call forms on the card
+   (``surface_checks``): ``from repro_torch import get_config``;
+   ``ops.decode_attention(q, k, v, lengths, 256)`` (``ck`` in the
+   reference's position) at llama3.2-1b's decode shape, bit for bit the
+   call without ``ck`` (2 kernel launches, printed there and not in the
+   ``kernels`` line); ``window_reset(state, cfg, now)``,
+   ``window_reset_pipes`` and ``control_plane_update_pipes(state, cfg,
+   P)`` on a stacked P=4 state on the card, equal to the same calls on a
+   CPU copy; the checks' seconds printed.
 8. Each phase's seconds and the total, the ``kernels`` JSON line
    (``int8_gemm``'s launches count the CNN's and the RNN's main paths,
    the trained models' replays, the pipes and farm paths and phase 7's
@@ -5022,7 +5030,79 @@ def phase_dryrun(args):
            for kind, (t, c, m, r) in peaks.items()},
         "card_latency_us": lat["latency_us"], "infer_us_graph": device,
         "infer_us_eager": eager}}))
+    surface_checks(np.random.default_rng(args.seed), smi)
     return launches
+
+
+def surface_checks(rng, smi):
+    """The reference's call forms on the card: the package re-export,
+    decode attention's positional ``ck`` (bit for bit the call without
+    it) and the data plane's window rollovers in the reference's
+    signatures (the card == a CPU copy).  The ``ck`` calls' launches are
+    printed here and kept out of the ``kernels`` line: they check a call
+    form, they are not a run of a main path."""
+    from repro_torch import get_config
+    from repro_torch.core.data_engine import flow_tracker as ft
+    from repro_torch.core.data_engine import rate_limiter as rl
+    from repro_torch.core.data_engine import state as st
+    from repro_torch.kernels.decode_attention import ops
+
+    t0 = time.perf_counter()
+    cfg = get_config(DRY_ARCH)
+    b, s = 8, 4128
+    q, k, v, lens = _attn_inputs(
+        rng, b, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+        cfg.head_dim, s, torch.bfloat16,
+        rng.integers(1, s + 1, b))
+    want = ops.decode_attention(q, k, v, lens)
+    zero_counts()
+    got = ops.decode_attention(q, k, v, lens, 256)
+    torch.cuda.synchronize()
+    n_attn = read_counts()["decode_attention"]
+    require(n_attn == 1 and torch.equal(got, want),
+            f"decode_attention with ck=256: {n_attn} launches, equal "
+            f"{torch.equal(got, want)}")
+    try:
+        ops.decode_attention(q, k, v, lens, 0)
+    except ValueError:
+        pass
+    else:
+        require(False, "decode_attention took ck=0")
+    zero_counts()
+    again = ops.decode_attention(q, k, v, lens, ck=s + 1, backend="cuda")
+    torch.cuda.synchronize()
+    n_attn += read_counts()["decode_attention"]
+    require(n_attn == 2 and torch.equal(again, want),
+            f"decode_attention with ck={s + 1} differs")
+
+    p = 4
+    lcfg = st.local_engine_config(st.EngineConfig(), p)
+    card = st.init_pipes_state(lcfg, p, device="cuda")
+    card["flow_cnt"] = torch.from_numpy(
+        rng.integers(0, 5000, p).astype(np.int32)).cuda()
+    card["win_pkt_cnt"] = torch.from_numpy(
+        rng.integers(0, 10**6, p).astype(np.int32)).cuda()
+    card["t_last"] = torch.from_numpy(
+        rng.integers(10**6, 10**8, p).astype(np.int32)).cuda()
+    host = {key: t.cpu() for key, t in card.items()}
+    now = card["t_last"].max()
+    pairs = {
+        "window_reset": (ft.window_reset(card, lcfg, now),
+                         ft.window_reset(host, lcfg, now.cpu())),
+        "window_reset_pipes": (ft.window_reset_pipes(card, lcfg),
+                               ft.window_reset_pipes(host, lcfg)),
+        "control_plane_update_pipes": (
+            rl.control_plane_update_pipes(card, lcfg, p),
+            rl.control_plane_update_pipes(host, lcfg, p))}
+    for name, (on_card, on_cpu) in pairs.items():
+        for key, t in on_card.items():
+            require(t.is_cuda and torch.equal(t.cpu(), on_cpu[key]),
+                    f"{name}: {key} on the card differs from the CPU's")
+    print(f"the reference's call forms on the card: get_config from the "
+          f"package, decode_attention(q, k, v, lengths, 256) at {b} x {s} "
+          f"== the call without ck ({n_attn} launches), window_reset / "
+          f"window_reset_pipes / control_plane_update_pipes(state, cfg, "
+          f"{p}) card == CPU; {time.perf_counter() - t0:.3f} s [{smi}]")
 
 
 KERNEL_ROWS = (

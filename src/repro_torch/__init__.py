@@ -8,4 +8,6 @@ never JAX and never ``repro``.  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; on a host without CUDA they raise.
 """
 
+from repro_torch.configs import SHAPES, get_config, list_archs  # noqa: F401
+
 __version__ = "0.1.0"

@@ -12,3 +12,8 @@ from repro_torch.configs.base import (  # noqa: F401
     register,
     shape_applicable,
 )
+from repro_torch.configs.fenix_models import (  # noqa: F401
+    TrafficModelConfig,
+    fenix_cnn,
+    fenix_rnn,
+)

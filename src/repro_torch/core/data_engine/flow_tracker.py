@@ -2,7 +2,8 @@
 and verdict write-back.
 
 Port of ``repro/core/data_engine/flow_tracker.py``: ``lookup``,
-``on_packet``, ``window_reset`` and ``apply_inference_result``.  The
+``on_packet``, ``window_reset`` (``window_reset_pipes`` for a stacked
+state) and ``apply_inference_result``.  The
 per-packet pair works on 0-d tensors and writes the table out of place
 (``state.set_at``), as the reference's ``.at[slot].set`` does.
 Collision policy: a packet whose slot holds a different hash evicts the
@@ -56,14 +57,24 @@ def on_packet(state: Dict, cfg: EngineConfig, slot, h, is_new, collision,
     return s
 
 
-def window_reset(state: Dict, now: torch.Tensor) -> Dict:
+def window_reset(state: Dict, cfg: EngineConfig, now: torch.Tensor
+                 ) -> Dict:
     """Control-plane T_w rollover: the flow and packet counters restart
-    and the new window anchors at ``now``."""
+    and the new window anchors at ``now`` (a tensor on the state's
+    device; no host read).  ``cfg`` is the reference's parameter and sets
+    nothing here.  The counters keep their shape: on a stacked [P] state
+    they stay [P] zeros, where the reference writes 0-d ones."""
     s = dict(state)
     s["flow_cnt"] = torch.zeros_like(state["flow_cnt"])
     s["win_pkt_cnt"] = torch.zeros_like(state["win_pkt_cnt"])
     s["win_start"] = now.to(I32)
     return s
+
+
+def window_reset_pipes(state: Dict, cfg: EngineConfig) -> Dict:
+    """T_w rollover of a stacked [P, ...] state: each pipe's counters
+    restart and its window anchors at that pipe's own clock ``t_last``."""
+    return window_reset(state, cfg, state["t_last"])
 
 
 def apply_inference_result(state: Dict, slot: torch.Tensor,

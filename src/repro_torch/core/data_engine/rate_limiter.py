@@ -89,14 +89,16 @@ def control_plane_update(state: Dict, cfg: EngineConfig) -> Dict:
     s["lut"] = build_lut_torch(state["flow_cnt"], state["win_pkt_cnt"],
                                window_us=cfg.window_us,
                                v=cfg.token_rate_per_us, cfg=cfg.lut)
-    return ft.window_reset(s, state["t_last"])
+    return ft.window_reset(s, cfg, state["t_last"])
 
 
-def control_plane_update_pipes(state: Dict, local_cfg: EngineConfig
-                               ) -> Dict:
+def control_plane_update_pipes(state: Dict, local_cfg: EngineConfig,
+                               num_pipes: int = 0) -> Dict:
     """The T_w rollover of every pipe of a stacked [P, ...] state: each
     pipe's LUT from its own window counters and its own rate share
     (``local_cfg``), each window anchored at the pipe's own clock — the
     reference's vmap of :func:`control_plane_update`, as one batched
-    rebuild (element for element the same float32 ops)."""
+    rebuild (element for element the same float32 ops).  ``num_pipes``
+    is the reference's parameter, kept for its callers: the stacked
+    leading dimension is authoritative."""
     return control_plane_update(state, local_cfg)

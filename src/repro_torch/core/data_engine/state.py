@@ -210,3 +210,18 @@ def set_at(table: torch.Tensor, index: Index, value: torch.Tensor
     idx = index if isinstance(index, tuple) else (index,)
     return table.index_put(tuple(i.reshape(1).long() for i in idx),
                            value.to(table.dtype).unsqueeze(0))
+
+
+def make_packets(rng: np.random.Generator, n: int) -> Dict[str, np.ndarray]:
+    """Random packet batch skeleton (tests): numpy arrays, drawn from
+    ``rng`` in the reference's order and dtypes, so equal generator
+    states give the reference's batch bit for bit."""
+    return {
+        "src_ip": rng.integers(0, 2**31, n, dtype=np.int64).astype(np.uint32),
+        "dst_ip": rng.integers(0, 2**31, n, dtype=np.int64).astype(np.uint32),
+        "src_port": rng.integers(0, 65536, n).astype(np.uint32),
+        "dst_port": rng.integers(0, 65536, n).astype(np.uint32),
+        "proto": rng.integers(6, 18, n).astype(np.uint32),
+        "ts_us": np.sort(rng.integers(0, 1_000_000, n)).astype(np.int32),
+        "pkt_len": rng.integers(40, 1500, n).astype(np.int32),
+    }

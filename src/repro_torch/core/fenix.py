@@ -163,9 +163,6 @@ class FenixConfig:
     model_dir: Optional[str] = None
     # int8-GEMM backend of the serving model: "cuda" | "ref"
     matmul_backend: Optional[str] = None
-    # how the device, pipes and farm drivers run their chunk step: "graph"
-    # (CUDA graphs, the default on CUDA) | "eager" (the default on the CPU)
-    step_backend: Optional[str] = None
     # ---- deprecated spellings (pre-driver= API) ---------------------------
     # None means "not passed".  Any explicit value is mapped onto
     # driver=/exact= in __post_init__ with a single DeprecationWarning per
@@ -174,6 +171,10 @@ class FenixConfig:
     device_path: Optional[bool] = None       # deprecated: use driver=
     pipes_path: Optional[bool] = None        # deprecated: use driver="pipes"
     farm_path: Optional[bool] = None         # deprecated: use driver="farm"
+    # how the device, pipes and farm drivers run their chunk step: "graph"
+    # (CUDA graphs, the default on CUDA) | "eager" (the default on the CPU);
+    # last, so the reference's fields keep their positions
+    step_backend: Optional[str] = None
 
     def __post_init__(self):
         self._resolve_legacy()
@@ -546,9 +547,9 @@ class FenixSystem:
     """
 
     def __init__(self, cfg: FenixConfig, model=None,
-                 tree: Optional[Dict] = None, tree_depth: int = 4, *,
-                 device=None, oracle_windows=None, n_est: float = 1000.0,
-                 q_est_pps: float = 1e6):
+                 tree: Optional[Dict] = None, tree_depth: int = 4,
+                 oracle_windows=None, n_est: float = 1000.0,
+                 q_est_pps: float = 1e6, *, device=None):
         self.device = resolve_device(device)
         if cfg.gate_backend is not None:
             cfg = dataclasses.replace(

@@ -12,6 +12,7 @@ itself, so nothing is copied or padded here.
 
 from __future__ import annotations
 
+import numbers
 from typing import Optional
 
 import torch
@@ -23,11 +24,21 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor,
+                     lengths: torch.Tensor, ck: int = 1024,
                      backend: Optional[str] = None) -> torch.Tensor:
     """q [B,Hq,D]; k,v [B,S,Hkv,D]; lengths [B] -> [B,Hq,D] in V's dtype.
     An empty row gives NaN with ``"ref"`` (as the reference's oracle)
-    and 0 with ``"cuda"`` (as the TPU kernel)."""
+    and 0 with ``"cuda"`` (as the TPU kernel).
+
+    ``ck`` is the reference's K/V block length (its TPU kernel's grid
+    step), taken in its position so that a call written for the
+    reference binds the same; it must be a positive int.  The Hopper
+    kernel sets its own split of S (``kernel.num_splits``, from the
+    shapes and the SM count) and the plain version has none, so the
+    result does not depend on ``ck``, bit for bit."""
+    if isinstance(ck, bool) or not isinstance(ck, numbers.Integral) \
+            or ck <= 0:
+        raise ValueError(f"ck must be a positive int, got {ck!r}")
     if resolve_backend(backend, q, "attn_backend") == "ref":
         return decode_attention_ref(q, k, v, lengths)
     return _kernel(q, k, v, lengths.to(torch.int32))

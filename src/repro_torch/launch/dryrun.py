@@ -49,6 +49,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch._device import meta_as
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.configs.base import shape_applicable
+from repro_torch.launch.mesh import check_card_mesh
 from repro_torch.models import api
 from repro_torch.train import optimizer as opt_lib
 
@@ -314,21 +315,16 @@ def card_bytes() -> int:
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str = "card",
              overrides: Optional[Dict[str, str]] = None,
-             rules: Optional[Dict[str, Any]] = None, *,
+             rule_overrides: Optional[Dict[str, Any]] = None, *,
              reduced: bool = False, batch: Optional[int] = None,
              seq_len: Optional[int] = None) -> Dict[str, Any]:
     """Trace one cell on meta tensors: the reference's keys (``trace_s``
     in place of ``lower_s`` / ``compile_s``) with ``chips`` 1 and
     ``mesh`` "card", and ``fits_card``.  ``reduced`` takes the config's
     ``reduced()`` widths; ``batch`` / ``seq_len`` cut the shape (recorded
-    as ``global_batch`` / ``seq_len``)."""
-    if mesh_kind != "card":
-        raise ValueError(f"mesh {mesh_kind!r}: the TPU pod meshes (16x16, "
-                         "2x16x16) have no one-card counterpart; the dry "
-                         "run traces one card (mesh 'card')")
-    if rules:
-        raise ValueError("sharding rules map logical axes onto a TPU mesh; "
-                         "one card has no mesh to map them onto")
+    as ``global_batch`` / ``seq_len``).  A ``mesh_kind`` other than
+    "card", or any ``rule_overrides``, raises (``mesh.check_card_mesh``)."""
+    check_card_mesh(mesh_kind, rule_overrides)
     overrides = dict(overrides or {})
     cfg = apply_overrides(get_config(arch, reduced=reduced), overrides)
     shape = SHAPES[shape_name]
@@ -384,12 +380,10 @@ def main(argv=None):
     ap.add_argument("--save-hlo", default=None,
                     help="not in the port: eager PyTorch emits no HLO")
     args = ap.parse_args(argv)
-    if args.mesh != "card":
-        ap.error(f"--mesh {args.mesh}: the TPU pod meshes (16x16, "
-                 "2x16x16) have no one-card counterpart; use --mesh card")
-    if args.rule:
-        ap.error("--rule: sharding rules map logical axes onto a TPU mesh; "
-                 "one card has no mesh")
+    try:
+        check_card_mesh(args.mesh, args.rule)
+    except ValueError as err:
+        ap.error(str(err))
     if args.save_hlo:
         ap.error("--save-hlo: the port runs eager PyTorch and emits no HLO")
     overrides = dict(s.split("=", 1) for s in args.set)

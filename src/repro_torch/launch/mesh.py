@@ -8,12 +8,13 @@ gives the reference's own answer on one device, ``None`` (run unsharded,
 as ``launch/train.py`` does), and ``data_axes(None)`` the batch axes of
 that, none.  As ``pipe_mesh`` and ``farm_mesh`` in the data plane
 (``core/data_engine/state.py``, ``core/model_engine/engine_farm.py``),
-the mesh builders raise.
+the mesh builders raise, and ``check_card_mesh`` refuses a dry run's
+mesh or sharding rules other than the card's.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Iterable, Optional, Tuple
 
 NO_MESH = ("the TPU pod meshes (16x16, 2x16x16) and the meshes of elastic "
            "rescaling have no one-card counterpart: the port runs "
@@ -44,3 +45,17 @@ def smoke_mesh() -> None:
     """The mesh of a local run: ``None``, the reference's answer on one
     device (steps run unsharded)."""
     return None
+
+
+def check_card_mesh(mesh_kind: str, rules: Optional[Iterable[Any]] = None
+                    ) -> None:
+    """The dry runs' refusal (``dryrun.run_cell``, ``run_all_dryruns``):
+    ``ValueError`` unless the mesh is ``"card"`` and there are no sharding
+    rules (a dict of them, or the CLI's ``--rule`` strings)."""
+    if mesh_kind != "card":
+        raise ValueError(f"mesh {mesh_kind!r}: the TPU pod meshes (16x16, "
+                         "2x16x16) have no one-card counterpart; the dry "
+                         "run traces one card (mesh 'card')")
+    if rules:
+        raise ValueError("sharding rules map logical axes onto a TPU mesh; "
+                         "one card has no mesh to map them onto")

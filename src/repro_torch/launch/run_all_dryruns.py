@@ -20,8 +20,13 @@ reads them.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.run_all_dryruns \\
-      [--only arch[,arch]] [--shapes s1,s2] [--skip-existing] \\
-      [--tag baseline] [--set k=v ...] [--reduced] [--out-dir DIR]
+      [--only arch[,arch]] [--shapes s1,s2] [--meshes card] \\
+      [--skip-existing] [--tag baseline] [--set k=v ...] [--reduced] \\
+      [--out-dir DIR]
+
+``--meshes`` other than ``card`` and any ``--rule`` are refused, as the
+port's ``launch/dryrun.py`` refuses ``--mesh`` and ``--rule``: the TPU
+pod meshes and their sharding rules have no one-card counterpart.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Dict, List, Tuple
 
 from repro_torch.configs import SHAPES, get_config, list_archs
 from repro_torch.configs.base import shape_applicable
+from repro_torch.launch.mesh import check_card_mesh
 
 RESULTS_DIR = os.path.normpath(os.path.join(os.path.dirname(__file__),
                                             "../../../dryrun_results"))
@@ -75,10 +81,15 @@ def cost_points_of(cfg) -> Tuple[List[Dict[str, str]], List[float], float]:
     raise ValueError(cfg.family)
 
 
-def run_dryrun(arch: str, shape: str, sets: Dict[str, str], out: str,
-               reduced: bool = False, timeout: int = 3600) -> Dict:
+def run_dryrun(arch: str, shape: str, mesh: str, sets: Dict[str, str],
+               rules: List[str], out: str, timeout: int = 3600, *,
+               reduced: bool = False) -> Dict:
+    """One dry run (``launch/dryrun.py``) in a subprocess, in the
+    reference's order.  ``mesh`` must be "card" and ``rules`` empty
+    (``mesh.check_card_mesh``): checked before anything starts."""
+    check_card_mesh(mesh, rules)
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-           "--arch", arch, "--shape", shape, "--out", out]
+           "--arch", arch, "--shape", shape, "--mesh", mesh, "--out", out]
     for k, v in sets.items():
         cmd += ["--set", f"{k}={v}"]
     if reduced:
@@ -91,10 +102,10 @@ def run_dryrun(arch: str, shape: str, sets: Dict[str, str], out: str,
                            timeout=timeout, env=env)
     except subprocess.TimeoutExpired:
         return {"status": "timeout", "arch": arch, "shape": shape,
-                "mesh": "card"}
+                "mesh": mesh}
     if p.returncode != 0:
         return {"status": "error", "arch": arch, "shape": shape,
-                "mesh": "card", "stderr": p.stderr[-4000:],
+                "mesh": mesh, "stderr": p.stderr[-4000:],
                 "wall_s": round(time.time() - t0, 1)}
     with open(out) as f:
         return json.load(f)
@@ -143,15 +154,24 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=None)
     ap.add_argument("--shapes", default=None)
+    ap.add_argument("--meshes", default="card",
+                    help="card (the TPU pod meshes have no counterpart)")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--no-proof", action="store_true")
     ap.add_argument("--no-cost", action="store_true")
     ap.add_argument("--tag", default="baseline")
     ap.add_argument("--set", action="append", default=[])
+    ap.add_argument("--rule", action="append", default=[],
+                    help="not on one card: no mesh to shard over")
     ap.add_argument("--reduced", action="store_true",
                     help="the configs' reduced() widths")
     ap.add_argument("--out-dir", default=RESULTS_DIR)
     args = ap.parse_args(argv)
+    try:
+        for mesh in args.meshes.split(","):
+            check_card_mesh(mesh, args.rule)
+    except ValueError as err:
+        ap.error(str(err))
 
     archs = args.only.split(",") if args.only else list(list_archs())
     shapes = args.shapes.split(",") if args.shapes else list(SHAPES)
@@ -175,8 +195,8 @@ def main(argv=None):
                 out = os.path.join(tagdir, f"proof_{arch}_{shape}_card.json")
                 if not (args.skip_existing and os.path.exists(out)):
                     t0 = time.time()
-                    res = run_dryrun(arch, shape, dict(extra_sets), out,
-                                     args.reduced)
+                    res = run_dryrun(arch, shape, "card", dict(extra_sets),
+                                     [], out, reduced=args.reduced)
                     with open(out, "w") as f:
                         json.dump(res, f, indent=1, default=str)
                     print(f"[proof] {arch} x {shape} x card: "
@@ -195,7 +215,8 @@ def main(argv=None):
                     pth = os.path.join(tagdir,
                                        f".pt{i}_{arch}_{shape}.json")
                     t0 = time.time()
-                    res = run_dryrun(arch, shape, sets, pth, args.reduced)
+                    res = run_dryrun(arch, shape, "card", sets, [], pth,
+                                     reduced=args.reduced)
                     results.append(res)
                     print(f"[cost{i}] {arch} x {shape}: "
                           f"{res.get('status')} ({time.time()-t0:.0f}s)",

@@ -512,6 +512,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def init_dense(reg: Registrar, path: str, shape, axes, bias: bool = False,
+               bias_axes=None, scale: Optional[float] = None) -> None:
+    """Register ``{path}/w`` (``"normal"`` at ``scale``) and, with
+    ``bias``, ``{path}/b`` (``"zeros"``): the trailing dims of ``shape``
+    that ``bias_axes`` names, else the last one."""
+    reg.param(f"{path}/w", shape, axes, init="normal", scale=scale)
+    if bias:
+        bshape = (tuple(shape[len(shape) - len(bias_axes):]) if bias_axes
+                  else (shape[-1],))
+        reg.param(f"{path}/b", bshape, bias_axes or (axes[-1],),
+                  init="zeros")
+
+
 def dense(params: Dict, path: str, x: torch.Tensor, eq: str) -> torch.Tensor:
     y = einsum(eq, x, W(params, f"{path}/w"))
     b = params.get(f"{path}/b")

@@ -167,9 +167,12 @@ def subtree(params: Dict[str, Any], prefix: str) -> Dict[str, Any]:
             if k.startswith(prefix)}
 
 
-def maybe_scan(body: Callable, carry, stacked: Dict[str, Any]):
+def maybe_scan(body: Callable, carry, stacked: Dict[str, Any],
+               use_scan: bool = True):
     """The reference's ``lax.scan`` over layers as a Python loop (eager
-    PyTorch has no scan to choose).
+    PyTorch has no scan to choose: ``use_scan``, the reference's choice
+    between its scan and its unrolled loop, runs the same loop for both
+    values, with the same bits).
 
     ``stacked``: a dict, or a tuple of dicts, of tensors with equal
     leading dims; ``body(carry, slice)`` -> (carry, ys_slice), ys_slice

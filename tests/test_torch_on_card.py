@@ -1757,6 +1757,49 @@ def test_decode_attention_op_on_card_and_meta(cuda_device):
     assert decode_attention_kernel.launches == before + 2
 
 
+def test_reference_call_forms_on_card_match_cpu(cuda_device):
+    """The reference's call forms on the card: ``decode_attention``'s
+    positional ``ck`` launches the kernel once and changes no bit; the
+    window rollovers in the reference's signatures give, on a stacked
+    state on the card, what they give on a CPU copy."""
+    from repro_torch.core.data_engine import flow_tracker as ft
+    from repro_torch.core.data_engine import rate_limiter as rl
+    from repro_torch.core.data_engine import state as st
+
+    rng = np.random.default_rng(5)
+    b, hkv, g, d, s = 4, 2, 4, 64, 1500
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(cuda_device, torch.bfloat16)
+               for shape in ((b, hkv * g, d), (b, s, hkv, d),
+                             (b, s, hkv, d)))
+    lens = torch.tensor([1, 700, 1500, 1024], dtype=torch.int32,
+                        device=cuda_device)
+    want = attn_ops.decode_attention(q, k, v, lens)
+    before = decode_attention_kernel.launches
+    for ck in (1, 256, s + 1):
+        assert torch.equal(attn_ops.decode_attention(q, k, v, lens, ck),
+                           want)
+    assert decode_attention_kernel.launches == before + 3
+    with pytest.raises(ValueError, match="ck"):
+        attn_ops.decode_attention(q, k, v, lens, 0)
+
+    p = 4
+    lcfg = st.local_engine_config(st.EngineConfig(n_slots_log2=8), p)
+    card = st.init_pipes_state(lcfg, p, device=cuda_device)
+    for key, hi in (("flow_cnt", 500), ("win_pkt_cnt", 50_000),
+                    ("t_last", 10**7)):
+        card[key] = torch.from_numpy(
+            rng.integers(0, hi, p).astype(np.int32)).to(cuda_device)
+    host = {key: t.cpu() for key, t in card.items()}
+    now = card["t_last"][2]
+    assert_same(ft.window_reset(host, lcfg, now.cpu()),
+                ft.window_reset(card, lcfg, now))
+    assert_same(ft.window_reset_pipes(host, lcfg),
+                ft.window_reset_pipes(card, lcfg))
+    assert_same(rl.control_plane_update_pipes(host, lcfg, p),
+                rl.control_plane_update_pipes(card, lcfg, p))
+
+
 @pytest.mark.parametrize("arch,kind", [("llama3.2-1b", "decode"),
                                        ("llama3.2-1b", "train"),
                                        ("qwen2-moe-a2.7b", "prefill")])
