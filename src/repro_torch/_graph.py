@@ -13,11 +13,12 @@ every kernel's once-per-process attributes and the libraries' lazy state
 outside the capture.  It runs on ``bufs`` themselves, except at the key
 paths named ``scratch``, which it reads and writes on copies: the state
 that the warm-up must not advance (a system's threefry key, bucket,
-queues and delay line; a decode step's position and recurrent
-states).  Its kernel launches
-are not counted, and neither are those recorded during capture; each
-replay counts the launches recorded at capture in the kernel wrappers'
-``launches``, so a replayed path reads the same counts as the eager one.
+queues and delay line; a decode step's position and recurrent states);
+its telemetry probes, if any, write the scratch record.  Its kernel
+launches are not counted, and neither are those recorded during
+capture; each replay counts the launches recorded at capture in the
+kernel wrappers' ``launches``, so a replayed path reads the same counts
+as the eager one.
 
 A graph holds raw addresses.  The tensors the step reads outside
 ``bufs`` (model weights, tables) are named by ``reads``, a function that
@@ -36,6 +37,7 @@ from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 import torch
 from torch import nn
 
+from repro_torch import _telemetry
 from repro_torch._device import no_host_sync
 
 Bufs = Dict[str, object]
@@ -138,7 +140,8 @@ def capture(fn: Callable[[Bufs], None], bufs: Bufs, device: torch.device,
     t0 = time.perf_counter()
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side), no_host_sync(device):
+    with torch.cuda.stream(side), no_host_sync(device), \
+            _telemetry.aside():
         fn(with_scratch(bufs, scratch))
     torch.cuda.current_stream(device).wait_stream(side)
     for k, n in zip(counters, before):

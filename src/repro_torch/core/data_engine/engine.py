@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import _telemetry as tm
 from repro_torch._device import resolve_backend
 from repro_torch.core import prng
 from repro_torch.core.data_engine import buffer_manager as bm
@@ -153,7 +154,13 @@ def process_pipes_fast(states: Dict, packets: Dict, local_cfg: EngineConfig
     lane (p, i) addresses global slot ``p * n_slots + slot`` (its pipe's
     own table, whatever its hash), so no slot is shared across pipes and
     the first/last-lane and running-count passes see each pipe's lanes in
-    the pipe's own order.  Returns (states', outputs [P, n, ...])."""
+    the pipe's own order.  Returns (states', outputs [P, n, ...]).
+
+    Under telemetry (``_telemetry``) its stages end at the marks
+    ``flow`` (the hash, slots, first occurrences, running counts and
+    backlog gathers), ``draw`` (the threefry split and draws; the split
+    alone under ``cuda_prng``), ``gate`` and ``table`` (features, the
+    ring gather and the flow-table writes)."""
     cfg = local_cfg
     pipes, n = packets["ts_us"].shape
     ls = cfg.n_slots
@@ -180,16 +187,20 @@ def process_pipes_fast(states: Dict, packets: Dict, local_cfg: EngineConfig
                 else _running_count(gslot))
     t_i = torch.clamp_min(ts - lanes(table("bklog_t")[gslot]), 0)
     c_i = torch.clamp_min(lanes(table("bklog_n")[gslot]), 0) + run
+    tm.mark("flow", ts)
     keys = prng.split(states["rng_key"])
     key, sub = keys[:, 0], keys[:, 1].contiguous()
     if resolve_backend(cfg.gate_backend, ts, "gate_backend") == "cuda_prng":
         # the kernel draws randint(sub, (n,), ...) itself, pipe by pipe
+        tm.mark("draw", ts)
         granted, bucket_new = rl.admit_batch(states, cfg, t_i, c_i, ts,
                                              key=sub)
     else:
         rand = prng.randint(sub, n, 0, 1 << cfg.lut.prob_bits)
+        tm.mark("draw", ts)
         granted, bucket_new = rl.admit_batch(states, cfg, t_i, c_i, ts,
                                              rand16=rand)
+    tm.mark("gate", ts)
     s = dict(states)
     s["rng_key"] = key
     s["bucket"] = bucket_new
@@ -235,4 +246,5 @@ def process_pipes_fast(states: Dict, packets: Dict, local_cfg: EngineConfig
     out = {"granted": granted, "slot": slot.to(I32), "hash": h,
            "payload": lanes(payload),
            "verdict": torch.where(cls >= 0, cls, -1), "is_new": is_new}
+    tm.mark("table", ts)
     return s, out

@@ -88,6 +88,13 @@ Port of ``repro/core/fenix.py``, single pipe, with its two drivers:
 
 A capture path or a ``TraceSpec`` is loaded whole on the pipes and farm
 drivers, as the reference does: they route globally.
+
+Under the replay telemetry (``repro_torch._telemetry``, off by default)
+each driver records its spans (reset, staging, the buffers' load, the
+chunk loop, the finish) and counters, and
+the device, pipes and farm drivers time each chunk's stages on the card
+with probes that the chunk graphs captured with telemetry on hold; those
+graphs are kept apart from the ones replayed with telemetry off.
 """
 
 from __future__ import annotations
@@ -103,6 +110,7 @@ import numpy as np
 import torch
 
 from repro_torch import _graph
+from repro_torch import _telemetry as tm
 from repro_torch._device import (no_host_sync, resolve_device,
                                  resolve_step_backend, validate_backend)
 from repro_torch.core.data_engine import engine as de
@@ -269,6 +277,7 @@ def _make_pipe_local(ecfg: EngineConfig, iocfg: vio.IOConfig,
         ts = chunk["ts_us"]
         now = ts[..., -1]
         state, dline = dl.deliver(state, dline, now, ecfg.n_slots)
+        tm.mark("deliver", ts)
         fast = (de.process_pipes_fast if ts.dim() == 2
                 else de.process_batch_fast)
         state, out = fast(state, chunk, ecfg)
@@ -286,6 +295,7 @@ def _make_pipe_local(ecfg: EngineConfig, iocfg: vio.IOConfig,
                "granted": out["granted"].sum(-1, dtype=I32),
                "classified": (verdict >= 0).sum(-1, dtype=I32),
                "n_tree": n_tree}
+        tm.mark("enqueue_ring", ts)
         return state, queues, dline, aux
 
     return de_local
@@ -306,11 +316,15 @@ def _make_single_step(ecfg: EngineConfig, iocfg: vio.IOConfig,
         budget = vio.step_budget(aux["ts_first"], aux["now"],
                                  ecfg.token_rate_per_us, iocfg.queue_len)
         queues, s2, h2, f2, cnt = vio.dequeue_device(queues, iocfg, budget)
+        tm.mark("dequeue", cnt)
         cls = model.infer(f2)
+        tm.mark("infer", cnt)
         dline = dl.push(dline, aux["now"] + loop_latency_us, s2, h2, cls,
                         cnt)
+        tm.mark("push", cnt)
         if cp:
             state = rl.control_plane_update(state, ecfg)
+            tm.mark("control_plane", cnt)
         stats = torch.stack([aux["granted"], cnt, aux["classified"],
                              aux["n_tree"]])
         return (state, queues, dline), aux["verdict"], stats
@@ -345,11 +359,15 @@ def _make_pipes_step(cfg: "FenixConfig", lcfg: EngineConfig, model,
                                  pipes * iocfg.queue_len)
         shares = vio.pipe_shares(occ, budget)
         queues, s2, h2, f2, cnt = vio.dequeue_pipes(queues, iocfg, shares)
+        tm.mark("dequeue", cnt)
         cls = model.infer_engines(f2)
+        tm.mark("infer", cnt)
         dline = dl.push_pipes(dline, aux["now"] + cfg.loop_latency_us, s2,
                               h2, cls, cnt)
+        tm.mark("push", cnt)
         if cp:
             state = rl.control_plane_update_pipes(state, lcfg)
+            tm.mark("control_plane", cnt)
         stats = torch.stack([aux["granted"], cnt, aux["classified"],
                              aux["n_tree"]])
         if active is not None:
@@ -427,6 +445,7 @@ def _make_chunk_step(step_fn):
         new, verdict, stats = step_fn(carry, _unpack(packed, payload), cp)
         _store(carry, new)
         bufs["stats"] += stats
+        tm.mark("store", stats)
         return verdict
 
     return chunk_step
@@ -454,6 +473,7 @@ def _make_pipes_chunk_step(step_fn, with_engines: bool):
         if engines:
             bufs["served"] += engines[0]
             bufs["depth"].copy_(engines[1])
+        tm.mark("store", stats)
         return verdict
 
     return chunk_step
@@ -593,16 +613,18 @@ class FenixSystem:
                 tree_depth))
         # the device (or pipes / farm) driver's carry, chunk and verdict
         # buffers (allocated at its first run), its chunk graphs by the cp
-        # flag, whether they
-        # read the oracle-payload buffer, and their memory pool; the
-        # streaming driver's stager; capture seconds of the last run_trace
+        # flag (those captured with telemetry on, whose probes time the
+        # step's stages, apart), whether they read the oracle-payload
+        # buffer, and their memory pool; the streaming driver's stager;
+        # capture seconds of the last run_trace
         self._bufs: Optional[Dict] = None
         self._graphs: Dict[bool, _graph.Graph] = {}
+        self._traced_graphs: Dict[bool, _graph.Graph] = {}
         self._graphs_payload = False
         self._pool = None
         self._stager: Optional[_Stager] = None
         self.capture_s = 0.0
-        self.reset()
+        self._reset()
 
     def _pipes_steps(self):
         """(the in-place uniform step, the tail step) of the pipes or farm
@@ -634,6 +656,10 @@ class FenixSystem:
 
     def reset(self) -> None:
         """Fresh run state (tables, queues, delay line, stats)."""
+        with tm.span("reset", self.device):
+            self._reset()
+
+    def _reset(self) -> None:
         cfg = self.cfg
         self.state = init_state(cfg.engine, n_est=self.n_est,
                                 q_est_pps=self.q_est_pps,
@@ -823,13 +849,15 @@ class FenixSystem:
                                     limit)
         if isinstance(trace, TraceSpec) and self.cfg.driver == "device" \
                 and self.oracle is None:
-            return self._run_trace_device_stream(trace)
-        stream = trace if isinstance(trace, dict) else trace.load()
-        if self._use_pipes:
-            return self._run_trace_pipes(stream)
-        if self.cfg.driver == "host":
-            return self._run_trace_host(stream)
-        return self._run_trace_device(stream)
+            with tm.replay(self.device, "stream"):
+                return self._run_trace_device_stream(trace)
+        with tm.replay(self.device, self.cfg.driver):
+            stream = trace if isinstance(trace, dict) else trace.load()
+            if self._use_pipes:
+                return self._run_trace_pipes(stream)
+            if self.cfg.driver == "host":
+                return self._run_trace_host(stream)
+            return self._run_trace_device(stream)
 
     @staticmethod
     def _resolve_trace(trace, stream, labels_by_flow, source, adapter,
@@ -887,14 +915,19 @@ class FenixSystem:
         n = len(stream["ts_us"])
         full = _pack_block(stream, n_chunks, B,
                            np.empty((n_chunks, len(PKT_KEYS), B), np.int64))
-        chunks = torch.from_numpy(full).to(self.device)
-        tail = (torch.from_numpy(_pack(stream, n_chunks * B, n))
-                .to(self.device) if n > n_chunks * B else None)
-        if self.oracle is None or "flow_idx" not in stream:
+        rest = _pack(stream, n_chunks * B, n) if n > n_chunks * B else None
+        pay = None
+        if self.oracle is not None and "flow_idx" in stream:
+            pay = oracle_payloads(self.oracle, stream["flow_idx"],
+                                  stream["flow_pos"], self.cfg.io.feat_len)
+        dev = self.device
+        tm.open_device(dev)
+        chunks = torch.from_numpy(full).to(dev)
+        tail = None if rest is None else torch.from_numpy(rest).to(dev)
+        pay = None if pay is None else torch.from_numpy(pay).to(dev)
+        tm.close_device("stage", dev)
+        if pay is None:
             return chunks, tail, None, None
-        pay = torch.from_numpy(oracle_payloads(
-            self.oracle, stream["flow_idx"], stream["flow_pos"],
-            self.cfg.io.feat_len)).to(self.device)
         return (chunks, tail,
                 pay[:n_chunks * B].view(n_chunks, B, *pay.shape[1:]),
                 pay[n_chunks * B:] if tail is not None else None)
@@ -928,27 +961,33 @@ class FenixSystem:
         return bufs
 
     def _ensure_graphs(self, bufs: Dict, chunk: torch.Tensor,
-                       payload: Optional[torch.Tensor], flags) -> None:
+                       payload: Optional[torch.Tensor], flags,
+                       traced: bool = False) -> None:
         """Capture the chunk step for each cp flag in ``flags`` not yet
         captured (the warm-up reads ``chunk`` and ``payload``, on copies
         of the carry and the stats); adds the seconds to ``capture_s``.
         The graphs read the payload buffer when ``payload`` is given.
         They are captured again once the model's or the tree's tensors
         have moved, or when the payload source changes (an oracle
-        system's trace without ``flow_idx`` enqueues the ring's)."""
+        system's trace without ``flow_idx`` enqueues the ring's).
+        ``traced``: the graphs that hold the telemetry's stage probes,
+        kept apart from the others (each set is captured once)."""
         with_pay = payload is not None
+        both = (self._graphs, self._traced_graphs)
         if with_pay != self._graphs_payload or any(
-                g.stale() for g in self._graphs.values()):
-            self._graphs.clear()
+                g.stale() for gs in both for g in gs.values()):
+            for gs in both:
+                gs.clear()
             self._pool = None     # a pool outlives no graph of its own
         self._graphs_payload = with_pay
+        graphs = self._traced_graphs if traced else self._graphs
         model, tree = self.model, self.tree
 
         def reads():    # what the step reads, without a cycle to ``self``
             return _graph.tensors_of(model, tree)
 
         for cp in flags:
-            if cp in self._graphs:
+            if cp in graphs:
                 continue
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
@@ -960,22 +999,28 @@ class FenixSystem:
                 b["verdict"].copy_(self._chunk_step(
                     b, b["chunk"], cp, b["payload"] if with_pay else None))
 
-            self._graphs[cp] = _graph.capture(
-                body, bufs, self.device, pool=self._pool,
-                scratch=[(k,) for k in _CARRY_SCRATCH if k in bufs],
-                reads=reads)
-            self.capture_s += self._graphs[cp].seconds
+            # with telemetry on, the step's marks are recorded into the
+            # graph
+            with tm.capturing():
+                graphs[cp] = _graph.capture(
+                    body, bufs, self.device, pool=self._pool,
+                    scratch=[(k,) for k in _CARRY_SCRATCH if k in bufs],
+                    reads=reads)
+            tm.count("graph_captures")
+            self.capture_s += graphs[cp].seconds
 
     def _replay(self, bufs: Dict, chunk: torch.Tensor, cp: bool,
-                payload: Optional[torch.Tensor], out: torch.Tensor) -> None:
+                payload: Optional[torch.Tensor], out: torch.Tensor,
+                traced: bool = False) -> None:
         """One full chunk on the step backend, its verdicts into ``out``:
-        a copy into the chunk (and payload) buffer and a graph launch, or
-        the step body run eagerly."""
+        a copy into the chunk (and payload) buffer and a graph launch (of
+        the graphs with the telemetry's probes when ``traced``), or the
+        step body run eagerly."""
         if self.step_backend == "graph":
             bufs["chunk"].copy_(chunk)
             if payload is not None:
                 bufs["payload"].copy_(payload)
-            self._graphs[cp].replay()
+            (self._traced_graphs if traced else self._graphs)[cp].replay()
             out.copy_(bufs["verdict"])
         else:
             out.copy_(self._chunk_step(bufs, chunk, cp, payload))
@@ -984,8 +1029,11 @@ class FenixSystem:
                 parts: List[torch.Tensor]) -> Dict[str, np.ndarray]:
         """End a device run: the carry back into the system (copies, so a
         later replay moves nothing), the stats read once, the verdicts."""
+        tm.open_device(self.device)
         self.state, self.queues, self._dl = (
             _graph.clone(bufs[k]) for k in ("state", "queues", "dl"))
+        verdict = torch.cat(parts) if parts else None
+        tm.close_device("finish", self.device)
         self._dl_dirty = True
         stat = bufs["stats"].cpu().numpy()
         self.stats["packets"] += n
@@ -997,9 +1045,9 @@ class FenixSystem:
         self.stats["dropped_inflight"] = int(self._dl["dropped"])
         self.stats["served_per_engine"][0] += int(stat[1])
         self.stats["engine_q_depth_hist"][0][0] += n_batches
-        if not parts:
+        if verdict is None:
             return {"verdict": np.full(0, -1, np.int32)}
-        return {"verdict": torch.cat(parts).cpu().numpy().astype(np.int32)}
+        return {"verdict": verdict.cpu().numpy().astype(np.int32)}
 
     def _run_trace_device(self, stream: Dict[str, np.ndarray]
                           ) -> Dict[str, np.ndarray]:
@@ -1008,26 +1056,40 @@ class FenixSystem:
         B, cpe = cfg.batch_size, cfg.control_plane_every
         n_chunks = n // B
         n_batches = n_chunks + (1 if n_chunks * B < n else 0)
-        chunks, tail, pay, pay_tail = self._stage(stream, n_chunks)
+        dev, traced = self.device, tm.active()
+        with tm.span("stage"):
+            chunks, tail, pay, pay_tail = self._stage(stream, n_chunks)
         self._sync_inflight_to_device()
-        bufs = self._load_bufs()
+        with tm.span("load_bufs", dev):
+            bufs = self._load_bufs()
         cps = [(i + 1) % cpe == 0 for i in range(n_chunks)]
         self.capture_s = 0.0
         if self.step_backend == "graph" and n_chunks:
             self._ensure_graphs(bufs, chunks[0],
                                 None if pay is None else pay[0],
-                                sorted(set(cps)))
-        verd = torch.empty((n_chunks, B), dtype=I32, device=self.device)
+                                sorted(set(cps)), traced)
+        verd = torch.empty((n_chunks, B), dtype=I32, device=dev)
         parts = [verd.reshape(-1)]
-        with no_host_sync(self.device):
-            for i, cp in enumerate(cps):
-                self._replay(bufs, chunks[i], cp,
-                             None if pay is None else pay[i], verd[i])
+        tm.count("chunks", n_chunks)
+        with no_host_sync(dev):
+            with tm.span("enqueue"):
+                for i, cp in enumerate(cps):
+                    tm.open_device(dev)
+                    self._replay(bufs, chunks[i], cp,
+                                 None if pay is None else pay[i], verd[i],
+                                 traced)
+                    tm.close_device("store", dev)
             if tail is not None:
+                tm.count("tail_steps")
+                tm.open_device(dev)
                 parts.append(self._chunk_step(bufs, tail,
                                               n_batches % cpe == 0,
                                               pay_tail))
-        return self._finish(bufs, n, n_batches, parts)
+                tm.close_device("store", dev)
+        with tm.span("finish"):
+            out = self._finish(bufs, n, n_batches, parts)
+            tm.collect(dev)
+        return out
 
     # -- the pipes and farm drivers ----------------------------------------
     def _route_pipes(self, stream: Dict[str, np.ndarray]
@@ -1101,66 +1163,49 @@ class FenixSystem:
         cfg = self.cfg
         pipes, B, cpe = cfg.num_pipes, cfg.batch_size, \
             cfg.control_plane_every
-        dev = self.device
+        dev, traced = self.device, tm.active()
         n = len(stream["ts_us"])
         order, starts, counts = self._route_pipes(stream)
         chunks_p = counts // B                                 # [P]
         n_chunks = int(chunks_p.max())
-        t_idx = np.minimum(np.arange(n_chunks)[None, :],
-                           np.maximum(chunks_p[:, None] - 1, 0))   # [P, C]
-        idx = order[np.minimum(
-            starts[:, None, None] + (t_idx * B)[:, :, None]
-            + np.arange(B)[None, None, :], n - 1)]              # [P, C, B]
-        idx = np.transpose(idx, (1, 0, 2))                      # [C, P, B]
-        active = torch.from_numpy(
-            (np.arange(n_chunks)[None, :] < chunks_p[:, None]).T.copy()
-        ).to(dev)                                               # [C, P]
-        packed = np.empty((n_chunks, len(PKT_KEYS), pipes, B), np.int64)
-        for j, k in enumerate(PKT_KEYS):
-            packed[:, j] = np.asarray(stream[k]).astype(_PKT_DTYPES[k])[idx]
-        chunks = torch.from_numpy(packed).to(dev)
-        pay = None
-        if self.oracle is not None and "flow_idx" in stream:
-            pay = oracle_payloads(self.oracle, stream["flow_idx"],
-                                  stream["flow_pos"], cfg.io.feat_len)
-        # each pipe's tail (< B packets), staged before the loop
-        tails = {}
-        for p in range(pipes):
-            lo, hi = starts[p] + chunks_p[p] * B, starts[p] + counts[p]
-            if hi > lo:
-                sel = order[lo:hi]
-                tails[p] = (torch.from_numpy(_pack({k: np.asarray(stream[k])
-                                                    [sel] for k in PKT_KEYS},
-                                                   0, hi - lo)).to(dev),
-                            None if pay is None else
-                            torch.from_numpy(pay[sel]).to(dev))
-        pay_dev = None if pay is None else torch.from_numpy(pay[idx]).to(dev)
-        bufs = self._load_pipe_bufs()
+        with tm.span("stage"):
+            chunks, active, tails, pay_dev = self._stage_pipes(
+                stream, order, starts, counts, n_chunks)
+        with tm.span("load_bufs", dev):
+            bufs = self._load_pipe_bufs()
         cps = [(i + 1) % cpe == 0 for i in range(n_chunks)]
         self.capture_s = 0.0
         if self.step_backend == "graph" and n_chunks:
             bufs["active"].copy_(active[0])
             self._ensure_graphs(bufs, chunks[0],
                                 None if pay_dev is None else pay_dev[0],
-                                sorted(set(cps)))
+                                sorted(set(cps)), traced)
         verd = torch.empty((n_chunks, pipes, B), dtype=I32, device=dev)
         n_batches = n_chunks + (1 if tails else 0)
         depth = (torch.empty((n_batches, cfg.num_engines), dtype=I32,
                              device=dev) if self._use_farm else None)
         tail_verd = {}
+        tm.count("chunks", n_chunks)
         with no_host_sync(dev):
-            for i, cp in enumerate(cps):
-                bufs["active"].copy_(active[i])
-                self._replay(bufs, chunks[i], cp,
-                             None if pay_dev is None else pay_dev[i],
-                             verd[i])
-                if depth is not None:
-                    depth[i].copy_(bufs["depth"])
+            with tm.span("enqueue"):
+                for i, cp in enumerate(cps):
+                    tm.open_device(dev)
+                    bufs["active"].copy_(active[i])
+                    self._replay(bufs, chunks[i], cp,
+                                 None if pay_dev is None else pay_dev[i],
+                                 verd[i], traced)
+                    if depth is not None:
+                        depth[i].copy_(bufs["depth"])
+                    tm.close_device("store", dev)
             for p, (chunk, pay_p) in tails.items():
+                tm.count("tail_steps")
+                tm.open_device(dev)
                 tail_verd[p] = self._run_tail(bufs, p, chunk, pay_p)
+                tm.close_device("store", dev)
             if tails:
                 # one depth sample for the tail round; the window rolls
                 # after ALL tails, not inside the tail step
+                tm.open_device(dev)
                 if depth is not None:
                     eq = bufs["eq"]
                     depth[n_chunks].copy_(eq["tail"] - eq["head"])
@@ -1168,8 +1213,54 @@ class FenixSystem:
                     carry = (bufs["state"],)
                     _store(carry, (rl.control_plane_update_pipes(
                         bufs["state"], self.lcfg),))
-        return self._finish_pipes(bufs, n, n_batches, verd, tail_verd,
-                                  depth, order, starts, counts, chunks_p)
+                tm.close_device("control_plane", dev)
+        with tm.span("finish"):
+            out = self._finish_pipes(bufs, n, n_batches, verd, tail_verd,
+                                     depth, order, starts, counts, chunks_p)
+            tm.collect(dev)
+        return out
+
+    def _stage_pipes(self, stream: Dict[str, np.ndarray], order: np.ndarray,
+                     starts: np.ndarray, counts: np.ndarray, n_chunks: int):
+        """The routed trace on the device: the lockstep chunks [C, F, P,
+        B] int64 (a pipe whose stream ran out repeats its last full
+        batch), the pipes still streaming [C, P], each pipe's tail (< B
+        packets) by pipe and, with oracle payloads, theirs."""
+        cfg, dev = self.cfg, self.device
+        pipes, B, n = cfg.num_pipes, cfg.batch_size, len(stream["ts_us"])
+        chunks_p = counts // B
+        t_idx = np.minimum(np.arange(n_chunks)[None, :],
+                           np.maximum(chunks_p[:, None] - 1, 0))   # [P, C]
+        idx = order[np.minimum(
+            starts[:, None, None] + (t_idx * B)[:, :, None]
+            + np.arange(B)[None, None, :], n - 1)]              # [P, C, B]
+        idx = np.transpose(idx, (1, 0, 2))                      # [C, P, B]
+        active = (np.arange(n_chunks)[None, :]
+                  < chunks_p[:, None]).T.copy()                 # [C, P]
+        packed = np.empty((n_chunks, len(PKT_KEYS), pipes, B), np.int64)
+        for j, k in enumerate(PKT_KEYS):
+            packed[:, j] = np.asarray(stream[k]).astype(_PKT_DTYPES[k])[idx]
+        pay = None
+        if self.oracle is not None and "flow_idx" in stream:
+            pay = oracle_payloads(self.oracle, stream["flow_idx"],
+                                  stream["flow_pos"], cfg.io.feat_len)
+        rests = {}
+        for p in range(pipes):
+            lo, hi = starts[p] + chunks_p[p] * B, starts[p] + counts[p]
+            if hi > lo:
+                sel = order[lo:hi]
+                rests[p] = (_pack({k: np.asarray(stream[k])[sel]
+                                   for k in PKT_KEYS}, 0, hi - lo),
+                            None if pay is None else pay[sel])
+        tm.open_device(dev)
+        active = torch.from_numpy(active).to(dev)
+        chunks = torch.from_numpy(packed).to(dev)
+        tails = {p: (torch.from_numpy(c).to(dev),
+                     None if a is None else torch.from_numpy(a).to(dev))
+                 for p, (c, a) in rests.items()}
+        pay = None if pay is None else torch.from_numpy(pay[idx]).to(dev)
+        tm.close_device("stage", dev)
+        return chunks, active, tails, pay
 
     def _run_tail(self, bufs: Dict, p: int, packed: torch.Tensor,
                   payload: Optional[torch.Tensor]) -> torch.Tensor:
@@ -1184,6 +1275,7 @@ class FenixSystem:
         bufs["stats"] += stats
         if assign is not None:
             bufs["served"] += assign
+        tm.mark("store", stats)
         return verdict
 
     def _finish_pipes(self, bufs: Dict, n: int, n_batches: int,
@@ -1195,8 +1287,13 @@ class FenixSystem:
         the device sums and verdicts read once, the verdicts put back in
         arrival order (a frozen pipe's dummy rows dropped), the stats and
         the farm's depth histogram."""
+        dev = self.device
+        tm.open_device(dev)
         self.pstate, self.pqueues, self.pdl = (
             _graph.clone(bufs[k]) for k in ("state", "queues", "dl"))
+        if self._use_farm:
+            self.eq = _graph.clone(bufs["eq"])
+        tm.close_device("finish", dev)
         stat = bufs["stats"].cpu().numpy()
         vd = verd.cpu().numpy()
         verdicts = np.full(n, -1, np.int32)
@@ -1218,7 +1315,6 @@ class FenixSystem:
             st["served_per_engine"][0] += int(stat[1])
             st["engine_q_depth_hist"][0][0] += n_batches
             return {"verdict": verdicts}
-        self.eq = _graph.clone(bufs["eq"])
         served = bufs["served"].cpu().numpy()
         st["served_per_engine"] = [a + int(b) for a, b in
                                    zip(st["served_per_engine"], served)]

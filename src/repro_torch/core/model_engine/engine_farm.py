@@ -32,6 +32,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from repro_torch import _telemetry as tm
 from repro_torch.core.data_engine import rate_limiter as rl
 from repro_torch.core.model_engine import delay_line as dl
 from repro_torch.core.model_engine import vector_io as vio
@@ -186,7 +187,9 @@ def make_farm_step(num_pipes: int, num_engines: int, iocfg: vio.IOConfig,
         # each engine's service
         eq, es, eh, ef, ep, srv = vio.dequeue_engine(eq, iocfg, num_pipes,
                                                      ebudget)
+        tm.mark("dequeue", srv)
         ecls = model.infer_engines(ef)
+        tm.mark("infer", srv)
         depth = eq["tail"] - eq["head"]
         # results return through the owning pipe's delay line
         eng = torch.arange(num_engines, dtype=I32, device=dev)[:, None] \
@@ -198,8 +201,10 @@ def make_farm_step(num_pipes: int, num_engines: int, iocfg: vio.IOConfig,
                                                             aux["now"], hi)
         pdl = dl.push_pipes(pdl, now + loop_latency_us, sel_s, sel_h, sel_c,
                             my_cnt, engines=sel_e)
+        tm.mark("push", srv)
         if cp:
             pstate = rl.control_plane_update_pipes(pstate, local_cfg)
+            tm.mark("control_plane", srv)
         pstats = torch.stack([aux["granted"], aux["classified"],
                               aux["n_tree"]])
         if active is not None:
@@ -236,9 +241,12 @@ def make_farm_tail(num_pipes: int, num_engines: int, iocfg: vio.IOConfig,
             torch.arange(s2.shape[0], dtype=I32, device=s2.device),
             right=True)
         tags = torch.clamp_max(tags, num_engines - 1).to(I32)
+        tm.mark("dequeue", cnt)
         cls = model.infer(f2)
+        tm.mark("infer", cnt)
         dline = dl.push(dline, aux["now"] + loop_latency_us, s2, h2, cls,
                         cnt, engines=tags)
+        tm.mark("push", cnt)
         stats = torch.stack([aux["granted"], cnt, aux["classified"],
                              aux["n_tree"]])
         return (state, queues, dline), aux["verdict"], stats, assign
