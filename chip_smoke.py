@@ -22,15 +22,19 @@ Phases, in order; any failure exits non-zero and no phase catches one:
    forced, and batches on which the bucket binds across CTAs and tiles),
    with the runtime calls of one ``fused_admission`` call (one kernel
    launch), the time at n = 1 (the floor of one launch) and GB/s at 2^20;
-   the selection-only gate on given and on seeded draws (``rate_gate``,
-   ``rate_gate_prng``); and the INT8 GEMM on a K-major B (as the serving
-   weights are held) at the CNN path's six shapes and the RNN's three
-   (M = 1024: [32, 128] with bias, [128, 128] without, the [128, 7]
-   head; raw int32 out), each timed, plus ragged ones (K of the tiny
-   models, M = 1), with and without bias, shift in {None, 0, 7},
-   beside ``torch._int_mm`` on a row-major and on a K-major B (the faster
-   is the yardstick), with a sweep of every tile shape; a row-major B must
-   be refused. The tolerance is exact equality (max |diff| = 0): every
+   the chunk step's threefry split and draws (``threefry_draw``, one
+   launch for P pipes) against ``prng.split`` + ``prng.randint`` for P in
+   {1, 4, 8}, up to 3 x 8192 + 5 lanes, spans 2^1, 2^16 and 2^31, keys
+   with the words 0 and 2^32 - 1, timed at [1, 4096] and [4, 4096]
+   beside the plain chain; the selection-only gate on given and on seeded
+   draws (``rate_gate``, ``rate_gate_prng``); and the INT8 GEMM on a
+   K-major B (as the serving weights are held) at the CNN path's six
+   shapes and the RNN's three (M = 1024: [32, 128] with bias, [128, 128]
+   without, the [128, 7] head; raw int32 out), each timed, plus ragged
+   ones (K of the tiny models, M = 1), with and without bias, shift in
+   {None, 0, 7}, beside ``torch._int_mm`` on a row-major and on a K-major
+   B (the faster is the yardstick), with a sweep of every tile shape; a
+   row-major B must be refused. The tolerance is exact equality (max |diff| = 0): every
    output is an integer.
 3. The selection-only gate's path: a kernel sweep through the public op
    ``rate_gate`` over LUTs built for a range of flow counts and rates,
@@ -930,6 +934,67 @@ def phase_pipe_gate(rng):
     return rows
 
 
+# the chunk step's threefry draws: pipes, lanes (0: the split alone) and
+# spans; the edge keys hold the words 0 and 2^32 - 1 and the cells' own
+THREEFRY_PIPES = (1, 4, 8)
+THREEFRY_SIZES = (0, 1, 1000, 4096, 3 * 8192 + 5)
+THREEFRY_BITS = (1, 16, 31)
+THREEFRY_EDGE_KEYS = ((0, 0), (0, 1), (0, 2), (0, 3), (0, 2**32 - 1),
+                      (2**32 - 1, 0), (2**32 - 1, 2**32 - 1))
+
+
+def _threefry_bound(pipes, n):
+    """(bound in ms, what bounds it) of one threefry_draw launch: P x (n
+    + 3) threefry2x32 calls (the lanes', the split's two, the draw
+    key's) at the 32-bit rate; P x (16 + 32) key bytes and 4 a lane."""
+    return _bound_ms(pipes * (48 + 4 * n),
+                     RATE["threefry_ops"] * pipes * (n + 3))
+
+
+def phase_threefry(rng):
+    """The chunk step's threefry split and draws (``threefry_draw``, one
+    launch for every pipe) against the plain prng.split + prng.randint
+    on the card, then timed at the cells' [1, 4096] and the pipes
+    driver's [4, 4096] beside the plain chain (graphed and eager), its
+    bound and the split alone ([P, 0], the floor of one launch).
+    Returns the kernels-line row at [1, 4096]."""
+    from repro_torch.kernels.rate_gate import ref
+    from repro_torch.kernels.rate_gate.kernel import threefry_draw
+
+    worst = 0
+    for pipes in THREEFRY_PIPES:
+        for n in THREEFRY_SIZES:
+            for bits in THREEFRY_BITS:
+                keys = np.array(THREEFRY_EDGE_KEYS + tuple(map(tuple, (
+                    rng.integers(0, 2**32, (pipes, 2))))), np.int64)
+                for lo in range(0, len(keys) - pipes + 1, pipes):
+                    key = torch.from_numpy(keys[lo:lo + pipes]).cuda()
+                    got = threefry_draw(key, n, bits)
+                    want = ref.threefry_draw_ref(key, n, bits)
+                    worst = max([worst] + [max_abs_diff(a, b) for a, b in
+                                           zip(want, got)])
+        print(f"threefry_draw P={pipes}, n in {THREEFRY_SIZES}, prob_bits "
+              f"in {THREEFRY_BITS}: max|diff| {worst} (key', sub, rand16)")
+    require(worst == 0, f"threefry_draw vs plain max|diff| {worst}")
+
+    rows = {}
+    for pipes in (1, 4):
+        key = torch.from_numpy(rng.integers(0, 2**32, (pipes, 2),
+                                            dtype=np.int64)).cuda()
+        n = 4096
+        bound, by = _threefry_bound(pipes, n)
+        rows[pipes] = _timed(
+            f"threefry_draw [{pipes}, {n}]", n,
+            lambda: threefry_draw(key, n, 16),
+            lambda: ref.threefry_draw_ref(key, n, 16), bound, by, worst,
+            lambda: threefry_draw.launches)
+        split_ms = device_ms(lambda: threefry_draw(key, 0, 16))
+        print(f"threefry_draw [{pipes}, 0] (the split alone, one launch): "
+              f"{split_ms:.5f} ms; [{pipes}, {n}] at "
+              f"{bound / rows[pipes]['ms']:.5f} of its bound")
+    return {"threefry_draw": rows[1]}
+
+
 def phase_select(rng):
     """Both selection-only kernels against their plain versions; returns
     {"rate_gate": row, "rate_gate_prng": row} at n=4096."""
@@ -1299,10 +1364,12 @@ def _counts():
     from repro_torch.kernels.decode_attention.kernel import decode_attention
     from repro_torch.kernels.int8_matmul.kernel import int8_gemm
     from repro_torch.kernels.rate_gate.kernel import (fused_gate,
-                                                      fused_gate_prng)
+                                                      fused_gate_prng,
+                                                      threefry_draw)
 
     return {"fused_gate": fused_gate, "fused_gate_prng": fused_gate_prng,
-            "int8_gemm": int8_gemm, "decode_attention": decode_attention}
+            "threefry_draw": threefry_draw, "int8_gemm": int8_gemm,
+            "decode_attention": decode_attention}
 
 
 def zero_counts():
@@ -1397,9 +1464,11 @@ def drive_model(model, mcfg, stream, batch, cpe):
 
     # the main path: the graph replays, each kernel count at 0 before it
     want = {"cuda": {"fused_gate": chunks, "fused_gate_prng": 0,
-                     "int8_gemm": per * chunks, "decode_attention": 0},
+                     "threefry_draw": chunks, "int8_gemm": per * chunks,
+                     "decode_attention": 0},
             "cuda_prng": {"fused_gate": 0, "fused_gate_prng": chunks,
-                          "int8_gemm": per * chunks, "decode_attention": 0}}
+                          "threefry_draw": chunks, "int8_gemm": per * chunks,
+                          "decode_attention": 0}}
     res, counted = {}, {}
     for gate in gates:
         for step in ("graph", "eager"):
@@ -1419,6 +1488,7 @@ def drive_model(model, mcfg, stream, batch, cpe):
     launches = {"fused_gate": counted[("cuda", "graph")]["fused_gate"],
                 "fused_gate_prng":
                     counted[("cuda_prng", "graph")]["fused_gate_prng"],
+                "threefry_draw": counted[("cuda", "graph")]["threefry_draw"],
                 "int8_gemm": counted[("cuda", "graph")]["int8_gemm"]}
     v_r, _, launches_r = counted_run(plain, stream)
     require(not any(launches_r.values()),
@@ -2075,7 +2145,8 @@ def phase_capture(ctx):
         mem = types.SimpleNamespace(state=sys_.state, queues=sys_.queues,
                                     _dl=sys_._dl, stats=dict(sys_.stats))
         want = {"fused_gate": chunks, "fused_gate_prng": 0,
-                "int8_gemm": per * chunks, "decode_attention": 0}
+                "threefry_draw": chunks, "int8_gemm": per * chunks,
+                "decode_attention": 0}
         traces = {"overlap on": ti.TraceSpec(path),
                   "overlap off": ti.TraceSpec(path, overlap=False),
                   "in memory": source, "path string": str(path)}
@@ -2563,7 +2634,8 @@ def replay_trained(name, model, ctx, tree, oracle):
         run(g, warm)                                       # capture
         want = {"fused_gate": chunks if gate == "cuda" else 0,
                 "fused_gate_prng": chunks if gate == "cuda_prng" else 0,
-                "int8_gemm": per * chunks, "decode_attention": 0}
+                "threefry_draw": chunks, "int8_gemm": per * chunks,
+                "decode_attention": 0}
         runs = {}
         for step, sys_ in (("graph", g), ("eager", e)):
             v, sec, counts = counted_run(sys_, stream)
@@ -2697,9 +2769,11 @@ def drive_pipes(model, stream, batch, cpe, driver, num_pipes, num_engines):
         print(f"{what} capture (gate {gate}): both step graphs in "
               f"{g.capture_s:.4f} s, outside every timed replay")
     want = {"cuda": {"fused_gate": steps + tails, "fused_gate_prng": 0,
+                     "threefry_draw": steps + tails,
                      "int8_gemm": per * (steps + tails),
                      "decode_attention": 0},
             "cuda_prng": {"fused_gate": 0, "fused_gate_prng": steps + tails,
+                          "threefry_draw": steps + tails,
                           "int8_gemm": per * (steps + tails),
                           "decode_attention": 0}}
     res, counted = {}, {}
@@ -3410,7 +3484,7 @@ def phase_lm(args):
     launches = read_counts()
     steps = n_new - 1
     require(launches == {"fused_gate": 0, "fused_gate_prng": 0,
-                         "int8_gemm": 0,
+                         "threefry_draw": 0, "int8_gemm": 0,
                          "decode_attention": cfg.num_layers * steps},
             f"generate launches {launches}, want decode_attention = "
             f"{cfg.num_layers} layers x {steps} steps")
@@ -3641,7 +3715,7 @@ def phase_moe(args):
     launches = read_counts()
     steps = n_new - 1
     require(launches == {"fused_gate": 0, "fused_gate_prng": 0,
-                         "int8_gemm": 0,
+                         "threefry_draw": 0, "int8_gemm": 0,
                          "decode_attention": cfg.num_layers * steps},
             f"MoE generate launches {launches}, want decode_attention = "
             f"{cfg.num_layers} layers x {steps} steps")
@@ -3803,7 +3877,7 @@ def serve_family(cfg, params, prompt, n_new, attn_layers, bound_ms,
     launches = read_counts()
     steps = n_new - 1
     require(launches == {"fused_gate": 0, "fused_gate_prng": 0,
-                         "int8_gemm": 0,
+                         "threefry_draw": 0, "int8_gemm": 0,
                          "decode_attention": attn_layers * steps},
             f"{cfg.name} generate launches {launches}, want "
             f"decode_attention = {attn_layers} a step x {steps} steps")
@@ -3995,7 +4069,8 @@ def serve_long_500k(cfg, params, rng, per_step, note):
     out_l = eng_l.generate({"tokens": prompt_l})
     launches = read_counts()
     require(launches == {"fused_gate": 0, "fused_gate_prng": 0,
-                         "int8_gemm": 0, "decode_attention": per_step * 8},
+                         "threefry_draw": 0, "int8_gemm": 0,
+                         "decode_attention": per_step * 8},
             f"long_500k ({cfg.name}) launches {launches}, want "
             f"decode_attention = {per_step} a step x 8 steps")
     peak_l = torch.cuda.max_memory_allocated() / 1e9
@@ -5124,6 +5199,9 @@ KERNEL_ROWS = (
      "src/repro/kernels/rate_gate/kernel.py:191"),
     ("fused_gate_prng_pipes", "src/repro_torch/csrc/fused_gate.cu",
      "src/repro/kernels/rate_gate/kernel.py:171"),
+    # replaces no TPU kernel: the reference's jax.random threefry, which
+    # XLA fuses; launched once a chunk step on the main paths
+    ("threefry_draw", "src/repro_torch/csrc/threefry_draw.cu", None),
 )
 
 
@@ -5148,6 +5226,7 @@ def main():
     rng = np.random.default_rng(args.seed)
     rows = {**phase("2 gate", phase_gate, rng),
             **phase("2 gate pipes", phase_pipe_gate, rng),
+            **phase("2 threefry", phase_threefry, rng),
             **phase("2 select", phase_select, rng),
             "int8_gemm": phase("2 gemm", phase_gemm, rng)}
     launches = phase("3 select sweep", phase_select_sweep, rng)

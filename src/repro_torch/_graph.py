@@ -50,10 +50,11 @@ def _counters() -> List:
     from repro_torch.kernels.rate_gate.kernel import (fused_gate,
                                                       fused_gate_prng,
                                                       rate_gate,
-                                                      rate_gate_prng)
+                                                      rate_gate_prng,
+                                                      threefry_draw)
 
     return [fused_gate, fused_gate_prng, rate_gate, rate_gate_prng,
-            int8_gemm, decode_attention]
+            threefry_draw, int8_gemm, decode_attention]
 
 
 def clone(bufs):

@@ -27,13 +27,13 @@ import torch
 
 from repro_torch import _telemetry as tm
 from repro_torch._device import resolve_backend
-from repro_torch.core import prng
 from repro_torch.core.data_engine import buffer_manager as bm
 from repro_torch.core.data_engine import flow_tracker as ft
 from repro_torch.core.data_engine import rate_limiter as rl
 from repro_torch.core.data_engine.decision_tree import predict
 from repro_torch.core.data_engine.state import (EngineConfig, get_at,
                                                 hash_five_tuple)
+from repro_torch.kernels.rate_gate import ops as gate_ops
 
 I32 = torch.int32
 
@@ -158,9 +158,10 @@ def process_pipes_fast(states: Dict, packets: Dict, local_cfg: EngineConfig
 
     Under telemetry (``_telemetry``) its stages end at the marks
     ``flow`` (the hash, slots, first occurrences, running counts and
-    backlog gathers), ``draw`` (the threefry split and draws; the split
-    alone under ``cuda_prng``), ``gate`` and ``table`` (features, the
-    ring gather and the flow-table writes)."""
+    backlog gathers), ``draw`` (the threefry split and draws, on the card
+    the one ``threefry_draw`` launch; the split alone under
+    ``cuda_prng``), ``gate`` and ``table`` (features, the ring gather and
+    the flow-table writes)."""
     cfg = local_cfg
     pipes, n = packets["ts_us"].shape
     ls = cfg.n_slots
@@ -188,18 +189,16 @@ def process_pipes_fast(states: Dict, packets: Dict, local_cfg: EngineConfig
     t_i = torch.clamp_min(ts - lanes(table("bklog_t")[gslot]), 0)
     c_i = torch.clamp_min(lanes(table("bklog_n")[gslot]), 0) + run
     tm.mark("flow", ts)
-    keys = prng.split(states["rng_key"])
-    key, sub = keys[:, 0], keys[:, 1].contiguous()
-    if resolve_backend(cfg.gate_backend, ts, "gate_backend") == "cuda_prng":
-        # the kernel draws randint(sub, (n,), ...) itself, pipe by pipe
-        tm.mark("draw", ts)
-        granted, bucket_new = rl.admit_batch(states, cfg, t_i, c_i, ts,
-                                             key=sub)
-    else:
-        rand = prng.randint(sub, n, 0, 1 << cfg.lut.prob_bits)
-        tm.mark("draw", ts)
-        granted, bucket_new = rl.admit_batch(states, cfg, t_i, c_i, ts,
-                                             rand16=rand)
+    # the cuda_prng gate draws randint(sub, (n,), ...) itself: there the
+    # kernel gives the split alone
+    backend = resolve_backend(cfg.gate_backend, ts, "gate_backend")
+    key, sub, rand = gate_ops.threefry_draw(
+        states["rng_key"], 0 if backend == "cuda_prng" else n,
+        cfg.lut.prob_bits, backend=backend)
+    tm.mark("draw", ts)
+    granted, bucket_new = rl.admit_batch(
+        states, cfg, t_i, c_i, ts,
+        **(dict(key=sub) if backend == "cuda_prng" else dict(rand16=rand)))
     tm.mark("gate", ts)
     s = dict(states)
     s["rng_key"] = key

@@ -91,9 +91,13 @@ def randint_multiplier(span: int) -> int:
 def randint(key: torch.Tensor, n: int, minval: int, maxval: int
             ) -> torch.Tensor:
     """``jax.random.randint(key, (n,), minval, maxval, jnp.int32)`` for
-    static int32 bounds -> [n] int32 ([..., n] for keys [..., 2])."""
-    if not (-2**31 <= minval < 2**31 and -2**31 <= maxval < 2**31):
-        raise ValueError("randint bounds must be int32")
+    static int32 bounds -> [n] int32 ([..., n] for keys [..., 2]).
+    maxval may also be 2^31, as JAX takes it with 64-bit integers on: the
+    span [0, 2^31) of a 31-bit draw."""
+    if not (-2**31 <= minval < 2**31 and -2**31 <= maxval <= 2**31
+            and maxval - minval < 2**32):
+        raise ValueError("randint bounds must be int32 (maxval up to "
+                         "2^31), spanning less than 2^32")
     span = (maxval - minval) & M32 if maxval > minval else 1
     multiplier = randint_multiplier(span)
     keys = split(key)

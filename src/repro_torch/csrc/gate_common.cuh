@@ -1,6 +1,6 @@
 // Device helpers shared by the Rate-Limiter gate kernels (fused_gate.cu,
-// rate_gate.cu): the switch's LUT lookup and the threefry draw of the
-// gate's uniform bits.
+// rate_gate.cu) and the chunk step's draws (threefry_draw.cu): the
+// switch's LUT lookup and the threefry draw of the gate's uniform bits.
 //
 // The draw reproduces jax.random.randint(key, (n,), 0, 2^prob_bits) with
 // partitionable threefry (JAX 0.9's default) lane for lane, in uint32
@@ -54,14 +54,20 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   x0 += k2; x1 += k0 + 5u;
 }
 
-// The key of randint's lower bits from a threefry key held as two int64
-// words of uint32 values (the port's key layout): split(key)[1].
-__device__ __forceinline__ void draw_key(const int64_t* key, uint32_t& d0,
-                                         uint32_t& d1) {
+// split(key)[1] of a key (k0, k1): the key of randint's lower bits.
+__device__ __forceinline__ void draw_key(uint32_t k0, uint32_t k1,
+                                         uint32_t& d0, uint32_t& d1) {
   d0 = 0u;
   d1 = 1u;
-  threefry2x32(static_cast<uint32_t>(key[0]), static_cast<uint32_t>(key[1]),
-               d0, d1);
+  threefry2x32(k0, k1, d0, d1);
+}
+
+// The same of a threefry key held as two int64 words of uint32 values
+// (the port's key layout).
+__device__ __forceinline__ void draw_key(const int64_t* key, uint32_t& d0,
+                                         uint32_t& d1) {
+  draw_key(static_cast<uint32_t>(key[0]), static_cast<uint32_t>(key[1]), d0,
+           d1);
 }
 
 // Lane `lane`'s draw in [0, mask]: randint's value for a span of mask + 1.

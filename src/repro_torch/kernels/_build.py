@@ -26,7 +26,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("fused_gate.cu", "rate_gate.cu", "int8_gemm.cu",
-           "decode_attention.cu", "telemetry.cu")
+           "decode_attention.cu", "telemetry.cu", "threefry_draw.cu")
 HEADERS = ("gate_common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")

@@ -18,6 +18,11 @@ The fused pair also admits the batches of P pipes in one launch (the
 multi-pipe driver's step): lanes [P, n], LUTs [P, TB, CB], registers [P]
 and keys [P, 2] give granted [P, n] and bucket' [P].  The 1-D form is
 the P = 1 case of the same launch.
+
+:data:`threefry_draw` (``csrc/threefry_draw.cu``) replaces no TPU kernel:
+it is the chunk step's threefry split and the gate's draws, every pipe's
+in one launch, in place of the plain version's ~510 elementwise kernels
+(``ref.threefry_draw_ref``, which the CPU runs).
 """
 
 from __future__ import annotations
@@ -229,6 +234,42 @@ class _RateGatePrng(_GateKernel):
         return out
 
 
+class _ThreefryDraw(_GateKernel):
+    """The chunk step's threefry split and the gate's draws on the card,
+    every pipe's in one launch."""
+
+    name, symbol = "threefry_draw", "threefry_draw_launch"
+    argtypes = (_VP,) * 4 + (_I,) * 3 + (_VP,)
+
+    def __call__(self, key: torch.Tensor, n: int, prob_bits: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """key [P, 2] int64 (each pipe's threefry key, uint32 words) ->
+        (key' [P, 2], sub [P, 2], rand16 [P, n] int32): ``split(key)[:,
+        0]``, ``split(key)[:, 1]`` and ``randint(sub, n, 0,
+        2^prob_bits)``, as ``ref.threefry_draw_ref`` gives them.  n = 0
+        gives the split alone.  Out of place; nothing is read back."""
+        if not key.is_cuda:
+            raise ValueError(f"{self.name} runs on CUDA tensors")
+        if key.dtype != torch.int64 or key.dim() != 2 \
+                or key.shape[1] != 2 or not 1 <= key.shape[0] <= 65535 \
+                or not key.is_contiguous():
+            raise ValueError(f"{self.name}: key must be a contiguous [P, "
+                             "2] int64 tensor of threefry keys (uint32 "
+                             f"words), 1 <= P <= 65535; got {key.dtype} "
+                             f"{tuple(key.shape)}")
+        if not 0 <= n < 2**31:
+            raise ValueError(f"{self.name}: n must be in [0, 2^31), got "
+                             f"{n}")
+        _check_prob_bits(prob_bits, self.name)
+        pipes = key.shape[0]
+        key_new, sub = torch.empty_like(key), torch.empty_like(key)
+        rand16 = torch.empty((pipes, n), dtype=torch.int32,
+                             device=key.device)
+        self._launch(key.data_ptr(), key_new.data_ptr(), sub.data_ptr(),
+                     rand16.data_ptr(), pipes, n, prob_bits, _stream(key))
+        return key_new, sub, rand16
+
+
 @functools.lru_cache(maxsize=64)
 def _scratch_words(n: int, draw: bool) -> int:
     """The int64 words of look-back scratch a batch of ``n`` lanes needs:
@@ -266,3 +307,4 @@ fused_gate = _FusedGate()
 fused_gate_prng = _FusedGatePrng()
 rate_gate = _RateGate()
 rate_gate_prng = _RateGatePrng()
+threefry_draw = _ThreefryDraw()

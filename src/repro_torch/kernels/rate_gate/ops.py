@@ -23,7 +23,8 @@ from repro_torch.core import prng
 from repro_torch.kernels.rate_gate import kernel as k
 from repro_torch.kernels.rate_gate.ref import (draw_rand16,
                                                fused_admission_ref,
-                                               rate_gate_ref)
+                                               rate_gate_ref,
+                                               threefry_draw_ref)
 
 I32 = torch.int32
 GATE_BACKENDS = _device.BACKENDS["gate_backend"]
@@ -117,3 +118,17 @@ def fused_admission(t_i: torch.Tensor, c_i: torch.Tensor, ts: torch.Tensor,
                                    t_ref, t_shift, c_shift, cost_us,
                                    bucket_cap_us)
     return k.fused_gate(t_i, c_i, ts, rand16, lut, bucket, t_last, **kw)
+
+
+def threefry_draw(key: torch.Tensor, n: int, prob_bits: int = 16,
+                  backend: Optional[str] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The chunk step's threefry split and the gate's draws: keys [P, 2]
+    -> (key' [P, 2], sub [P, 2], rand16 [P, n] int32), ``split(key)``
+    and ``randint(sub, (n,), 0, 2^prob_bits)`` pipe by pipe.  Both card
+    backends run the one-launch kernel (n = 0 gives the split alone, all
+    ``"cuda_prng"`` needs); ``"ref"`` runs the plain ``prng`` chain."""
+    backend = _device.resolve_backend(backend, key, "gate_backend")
+    if backend == "ref":
+        return threefry_draw_ref(key, n, prob_bits)
+    return k.threefry_draw(key, n, prob_bits)

@@ -8,8 +8,9 @@ check and the bucket-level update in the reference's integer op order;
 (``kernel.rate_gate``).  The ``*_prng_ref`` pair are the plain versions
 of the kernels that draw their own bits (``kernel.fused_gate_prng``,
 ``kernel.rate_gate_prng``): the same functions fed
-``prng.randint(key, n, 0, 2^prob_bits)``.  All run on any device; the
-CPU tests and ``chip_smoke.py``'s comparison use them.
+``prng.randint(key, n, 0, 2^prob_bits)``, and ``threefry_draw_ref`` is
+that of the chunk step's draws (``kernel.threefry_draw``).  All run on
+any device; the CPU tests and ``chip_smoke.py``'s comparison use them.
 
 The fused pair also takes a stack of pipes' batches, as the reference's
 ``vmap`` over pipes gives them: lanes [P, n], LUTs [P, TB, CB], bucket
@@ -71,6 +72,17 @@ def draw_rand16(key: torch.Tensor, n: int, prob_bits: int) -> torch.Tensor:
     """The gate's [n] int32 uniform draws in [0, 2^prob_bits) from a
     threefry key: ``jax.random.randint(key, (n,), 0, 2^prob_bits)``."""
     return prng.randint(key, n, 0, 1 << prob_bits)
+
+
+def threefry_draw_ref(key: torch.Tensor, n: int, prob_bits: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The chunk step's threefry split and the gate's draws (plain
+    version of ``kernel.threefry_draw``): keys [P, 2] -> (key' [P, 2],
+    sub [P, 2], rand16 [P, n] int32), ``split(key)`` and ``randint(sub,
+    (n,), 0, 2^prob_bits)`` pipe by pipe."""
+    keys = prng.split(key)
+    sub = keys[:, 1].contiguous()
+    return keys[:, 0], sub, draw_rand16(sub, n, prob_bits)
 
 
 def rate_gate_prng_ref(t_i, c_i, lut, key, t_shift: int, c_shift: int,

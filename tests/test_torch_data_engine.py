@@ -113,6 +113,70 @@ def test_process_batch_fast_matches_jax(fpga_hz, n_flows, n):
         assert denied > 0
 
 
+def _plain_draw_case(pipes, n=48, seed=5):
+    """The reference's and the port's stacked state of P pipes and one
+    batch [P, n] (n_est 500, q_est 1e6: the LUT's probabilities lie
+    below 1, so the draws decide grants)."""
+    cfg, tcfg = (jstate.EngineConfig(n_slots_log2=6, fpga_hz=2e5),
+                 tstate.EngineConfig(n_slots_log2=6, fpga_hz=2e5))
+    pk = tstate.make_packets(np.random.default_rng(seed), pipes * n)
+    pk = {k: v.reshape(pipes, n) for k, v in pk.items()}
+    pk["ts_us"] = np.sort(pk["ts_us"], axis=-1)
+    est = dict(n_est=500, q_est_pps=1e6)
+    return ((jstate.local_engine_config(cfg, pipes),
+             jstate.init_pipes_state(cfg, pipes, **est), pk),
+            (tstate.local_engine_config(tcfg, pipes),
+             tstate.init_pipes_state(tcfg, pipes, device="cpu", **est),
+             {k: _t(v) for k, v in pk.items()}))
+
+
+@pytest.mark.parametrize("gate_backend", ["ref", None])
+@pytest.mark.parametrize("pipes", [1, 4])
+def test_cpu_step_draws_with_the_plain_threefry(pipes, gate_backend,
+                                                monkeypatch):
+    """On CPU tensors ("ref", or None, which resolves to it) each step of
+    process_pipes_fast draws with one prng.split and one prng.randint and
+    never calls the threefry_draw kernel; over three steps its grants,
+    rng_key' and bucket' are the reference's process_pipes_fast's."""
+    from repro_torch.kernels.rate_gate import kernel as gate_kernel
+
+    (jcfg, js, pk), (cfg, state, tpk) = _plain_draw_case(pipes)
+    cfg = dataclasses.replace(cfg, gate_backend=gate_backend)
+    calls, depth = [], [0]
+
+    def spy(name, fn):              # records the step's own calls only
+        def call(*a, **kw):
+            depth[0] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+                if not depth[0]:
+                    calls.append(name)
+        return call
+
+    def kernel(*a, **kw):
+        raise AssertionError("the threefry_draw kernel ran on the CPU")
+
+    monkeypatch.setattr(prng, "split", spy("split", prng.split))
+    monkeypatch.setattr(prng, "randint", spy("randint", prng.randint))
+    monkeypatch.setattr(gate_kernel, "threefry_draw", kernel)
+    granted = 0
+    for step in range(3):
+        calls.clear()
+        js, jout = jde.process_pipes_fast(
+            js, {k: jnp.asarray(v) for k, v in pk.items()}, jcfg)
+        state, out = de.process_pipes_fast(state, tpk, cfg)
+        assert calls == ["split", "randint"], calls
+        assert_same(jout["granted"], out["granted"], f"granted {step}")
+        for k in ("rng_key", "bucket"):
+            assert_same(js[k], state[k], f"{k} {step}")
+        granted += int(out["granted"].sum())
+        pk["ts_us"] = pk["ts_us"] + 200
+        tpk["ts_us"] = tpk["ts_us"] + 200
+    assert 0 < granted < 3 * 48 * pipes
+
+
 def _ring_values(rng, n, feat_len=9):
     return dict(slots=rng.integers(0, 100, n).astype(np.int32),
                 hashes=rng.integers(1, 2**32, n, dtype=np.int64

@@ -29,7 +29,7 @@ from repro_torch.core import prng  # noqa: E402
 from repro_torch.kernels.rate_gate import ref as gate_ref  # noqa: E402
 from repro_torch.kernels.rate_gate.kernel import (  # noqa: E402
     fused_gate, fused_gate_prng, rate_gate as rate_gate_kernel,
-    rate_gate_prng)
+    rate_gate_prng, threefry_draw)
 from repro_torch.kernels.rate_gate.ops import (  # noqa: E402
     fused_admission, rate_gate)
 from repro_torch.kernels.decode_attention import ops as attn_ops  # noqa: E402
@@ -373,6 +373,148 @@ def test_pipes_and_farm_graph_eager_plain_and_cpu(driver, gate,
             assert_same(getattr(runs["cpu"][1], carry),
                         getattr(runs[name][1], carry), f"{name} {carry}")
     assert runs["cpu"][1].stats["inferences"] > 0
+
+
+# -- the chunk step's threefry draws: one launch for every pipe -------------
+
+# carry keys: words 0 and 2^32 - 1, the cells' own (PRNGKey(0) of the
+# device driver, PRNGKey(p) of a pipe) and a high word past 2^31
+DRAW_KEYS = [[0, 0], [0, 1], [0, 2], [0, 3], [0, 2**32 - 1],
+             [2**32 - 1, 0], [2**32 - 1, 2**32 - 1], [2**31, 2**31 - 1]]
+
+
+@pytest.mark.parametrize("prob_bits", [1, 16, 31])
+@pytest.mark.parametrize("n", [0, 1, 1000, 4096, 3 * 8192 + 5])
+@pytest.mark.parametrize("pipes", [1, 4, 8])
+def test_threefry_draw_matches_plain(pipes, n, prob_bits, cuda_device):
+    """key', sub and the draws of one launch equal prng.split and
+    prng.randint bit for bit, pipe by pipe, on the edge keys and random
+    ones; the key is not written."""
+    rng = np.random.default_rng(97 * pipes + n + prob_bits)
+    keys = torch.tensor(DRAW_KEYS + rng.integers(0, 2**32, (8, 2)).tolist(),
+                        dtype=torch.int64, device=cuda_device)
+    before = threefry_draw.launches
+    for lo in range(0, keys.shape[0], pipes):
+        key = keys[lo:lo + pipes].contiguous()
+        kept = key.clone()
+        got = threefry_draw(key, n, prob_bits)
+        want = gate_ref.threefry_draw_ref(key, n, prob_bits)
+        torch.cuda.synchronize()
+        assert_same(list(want), list(got), f"keys {kept.tolist()}")
+        assert got[2].shape == (pipes, n) and got[2].dtype == torch.int32
+        assert torch.equal(key, kept)
+    assert threefry_draw.launches == before + keys.shape[0] // pipes
+
+
+def test_threefry_draw_carries_the_pipes_key_chain(cuda_device):
+    """64 steps of the pipes' carry chain from PRNGKey(p): each step's
+    key' feeds the next, as in a replay, and stays the plain chain's."""
+    key = torch.tensor([[0, p] for p in range(4)], dtype=torch.int64,
+                       device=cuda_device)
+    plain = key.clone()
+    for step in range(64):
+        key, _, rand = threefry_draw(key, 4096, 16)
+        plain, _, want = gate_ref.threefry_draw_ref(plain, 4096, 16)
+        assert torch.equal(rand, want), step
+    assert torch.equal(key, plain)
+
+
+def test_threefry_draw_refuses_what_it_cannot_take(cuda_device):
+    key = torch.zeros((4, 2), dtype=torch.int64, device=cuda_device)
+    for bad in (key.int(), key[0], torch.zeros((4, 3), dtype=torch.int64,
+                                               device=cuda_device),
+                torch.zeros((4, 4), dtype=torch.int64,
+                            device=cuda_device)[:, :2],
+                torch.zeros((0, 2), dtype=torch.int64, device=cuda_device)):
+        with pytest.raises(ValueError, match="key"):
+            threefry_draw(bad, 16, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        threefry_draw(key.cpu(), 16, 16)
+    for bits in (0, 32):
+        with pytest.raises(ValueError, match="prob_bits"):
+            threefry_draw(key, 16, bits)
+    with pytest.raises(ValueError, match="n must"):
+        threefry_draw(key, -1, 16)
+
+
+def _draw_step_case(pipes, dev, n=48, seed=5):
+    """A fresh stacked state of P pipes and a batch [P, n] on ``dev``,
+    on LUT probabilities below 1, so the draws decide grants."""
+    from repro_torch.core.data_engine import state as tstate
+
+    cfg = tstate.EngineConfig(n_slots_log2=6, fpga_hz=2e5)
+    state = tstate.init_pipes_state(cfg, pipes, n_est=500, q_est_pps=1e6,
+                                    device=dev)
+    pk = tstate.make_packets(np.random.default_rng(seed), pipes * n)
+    pk = {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.uint32
+                              else v).reshape(pipes, n).to(dev)
+          for k, v in pk.items()}
+    pk["ts_us"] = torch.sort(pk["ts_us"], dim=-1).values
+    return tstate.local_engine_config(cfg, pipes), state, pk
+
+
+@pytest.mark.parametrize("gate", ["cuda", "cuda_prng"])
+@pytest.mark.parametrize("pipes", [1, 4])
+def test_card_step_draws_without_the_plain_threefry(pipes, gate,
+                                                    cuda_device,
+                                                    monkeypatch):
+    """process_pipes_fast under the kernel gates calls neither prng.split
+    nor prng.randint, launches one threefry_draw a step, and gives the
+    plain backend's state and outputs over three steps."""
+    import dataclasses
+
+    from repro_torch.core.data_engine import engine as de
+
+    runs = {}
+    for backend in ("ref", gate):
+        if backend != "ref":
+            def plain(*a, **kw):
+                raise AssertionError("the plain threefry ran on a kernel "
+                                     "gate's path")
+            monkeypatch.setattr(prng, "split", plain)
+            monkeypatch.setattr(prng, "randint", plain)
+        cfg, state, pk = _draw_step_case(pipes, cuda_device)
+        cfg = dataclasses.replace(cfg, gate_backend=backend)
+        before, outs = threefry_draw.launches, []
+        for step in range(3):
+            state, out = de.process_pipes_fast(state, pk, cfg)
+            outs.append(out)
+            pk["ts_us"] = pk["ts_us"] + 200
+        torch.cuda.synchronize()
+        runs[backend] = (state, outs, threefry_draw.launches - before)
+    assert runs["ref"][2] == 0 and runs[gate][2] == 3
+    assert_same(runs["ref"][0], runs[gate][0], "state")
+    assert_same(runs["ref"][1], runs[gate][1], "outputs")
+    assert 0 < sum(int(o["granted"].sum()) for o in runs[gate][1]) \
+        < 3 * 48 * pipes
+
+
+@pytest.mark.parametrize("gate", ["cuda", "cuda_prng"])
+@pytest.mark.parametrize("driver", ["device", "pipes", "farm"])
+def test_chunk_steps_launch_one_threefry_draw_each(driver, gate,
+                                                   cuda_device):
+    """Every step of every driver (P = 1, 4 and 4 x 4), captured chunk
+    steps and eager tails alike, launches one threefry_draw: as many as
+    the gate kernel launches; the plain gate none, with the same
+    verdicts."""
+    stream = packet_stream(make_flows("iscx", 40, seed=7), limit=1800)
+    kw = dict(batch_size=256, control_plane_every=3, driver=driver)
+    if driver != "device":
+        kw.update(num_pipes=4, num_engines=4 if driver == "farm" else 1)
+    runs = {}
+    for backend in ("ref", gate):
+        sys_ = FenixSystem(FenixConfig(gate_backend=backend, **kw),
+                           _tiny_model(), device=cuda_device)
+        assert sys_.step_backend == "graph"
+        draws = threefry_draw.launches
+        gates = fused_gate.launches + fused_gate_prng.launches
+        verdict = sys_.run_trace(dict(stream))["verdict"]
+        runs[backend] = (verdict, threefry_draw.launches - draws,
+                         fused_gate.launches + fused_gate_prng.launches
+                         - gates)
+    assert runs["ref"][1:] == (0, 0)
+    assert runs[gate][1] == runs[gate][2] > 0, runs[gate]
+    assert np.array_equal(runs["ref"][0], runs[gate][0])
 
 
 @pytest.mark.parametrize("n", [1, 255, 1000, 4096, 100_000])

@@ -58,6 +58,26 @@ def test_randint_bounds_match_jax(lo, hi):
         assert_same(ref, prng.randint(tk, 333, lo, hi), f"seed={seed}")
 
 
+@pytest.mark.parametrize("lo,hi", [(0, 2**31), (7, 2**31),
+                                   (-2**31 + 1, 2**31)])
+def test_randint_maxval_2_31_matches_jax(lo, hi):
+    """maxval 2^31 (which JAX takes with 64-bit integers on): [0, 2^31)
+    is the gate's draw at prob_bits 31."""
+    for seed in range(8):
+        with jax.enable_x64(True):
+            ref = jax.random.randint(jax.random.PRNGKey(seed), (333,), lo,
+                                     hi, jnp.int32)
+        assert_same(ref, prng.randint(prng.PRNGKey(seed), 333, lo, hi),
+                    f"seed={seed}")
+
+
+@pytest.mark.parametrize("lo,hi", [(-2**31, 2**31), (0, 2**31 + 1),
+                                   (-2**31 - 1, 0)])
+def test_randint_refuses_bounds_past_its_range(lo, hi):
+    with pytest.raises(ValueError, match="randint bounds"):
+        prng.randint(prng.PRNGKey(0), 4, lo, hi)
+
+
 def test_mul_u32_wraps_like_uint32():
     rng = np.random.default_rng(0)
     a = rng.integers(0, 2**32, 10000, dtype=np.uint64).astype(np.uint32)
