@@ -170,8 +170,8 @@ def main(argv: Optional[List[str]], t_start: float) -> int:
     print(f"portbench: {cell.name} seed {args.seed}: set-up "
           f"{ctx.setup_s:.3f} s ("
           + ", ".join(f"{k} {v:.3f}" for k, v in ctx.setup_parts.items())
-          + f"), window {ctx.window_s:.3f} s of "
-          f"{ctx.attempted} replays, reference {ctx.reference_s:.3f} s",
+          + f"), window {ctx.window_s:.3f} s, {ctx.attempted} "
+          f"attempted, reference {ctx.reference_s:.3f} s",
           file=sys.stderr)
     for k, c in line["checks"].items():
         print(f"check {k}: {c['value']} (limit {c['limit']})",

@@ -1,14 +1,17 @@
 """A cell's inputs, made from ``--seed``: the captures its traffic mix
-describes and the model's int8 weights.
+describes and the model's int8 weights, or for a training mix the
+labelled windows and the float model's initial weights.
 
-Captures come from one general flow generator driven by a mix file's
-parameters (flows, packets, duration, and per class its share, packet
-length and inter-packet delay distributions, burstiness and flow
-length), drawn in bulk with numpy.  Weights are random int8 drawn on the
-device in one call from a ``torch.Generator`` seeded with ``--seed``;
-each layer's requantization shift and bias are then picked on a
-calibration batch of the first capture's windows, in plain PyTorch, so
-activations neither vanish nor saturate.
+Captures and training sets come from one general flow generator driven
+by a mix file's parameters (flows, packets, duration, and per class its
+share, packet length and inter-packet delay distributions, burstiness
+and flow length), drawn in bulk with numpy.  Weights are random, drawn
+on the device in one call a kind from a ``torch.Generator`` seeded with
+``--seed``.  For the int8 models each layer's requantization shift and
+bias are then picked on a calibration batch of the first capture's
+windows, in plain PyTorch, so activations neither vanish nor saturate;
+the float models start as the paper's training does (normal weights at
+fan-in scale, zero biases).
 """
 
 from __future__ import annotations
@@ -26,16 +29,15 @@ _PROFILE = ("ratio", "len_mean", "len_std", "len_bimodal", "ipd_log_mu",
             "ipd_log_sigma", "burstiness", "flow_len_mean")
 
 
-def make_capture(mix: Dict, rng: np.random.Generator
-                 ) -> Dict[str, np.ndarray]:
-    """One capture: ``mix["flows"]`` flows of the mix's classes, their
-    packets interleaved by time, cut to the first ``mix["packets"]``.
-    Returns the packet stream (five-tuple uint32, ts_us and pkt_len
-    int32) and, under ``"windows"``, the first flows' feature windows
-    for calibration."""
+def _draw_flows(mix: Dict, rng: np.random.Generator) -> Dict:
+    """``mix["flows"]`` flows of the mix's classes: each flow's class
+    (``label``) and packet count (``n``), and every packet's length and
+    delay to its flow's previous packet (0 for a flow's first), flow by
+    flow (``f`` the flow of each packet, ``first`` each flow's first
+    packet)."""
     cls = mix["classes"]
     prof = {k: np.asarray([c[k] for c in cls], np.float64) for k in _PROFILE}
-    n_flows, want = int(mix["flows"]), int(mix["packets"])
+    n_flows = int(mix["flows"])
     lab = rng.choice(len(cls), size=n_flows, p=prof["ratio"]
                      / prof["ratio"].sum())
     p = {k: v[lab] for k, v in prof.items()}
@@ -54,6 +56,21 @@ def make_capture(mix: Dict, rng: np.random.Generator
     ipd = np.clip(ipd.astype(np.int64), 10, 5_000_000)
     first = np.concatenate([[0], np.cumsum(n)[:-1]])
     ipd[first] = 0
+    feats = np.stack([lens.astype(np.int32), ipd.astype(np.int32)], -1)
+    return {"label": lab, "n": n, "f": f, "first": first, "lens": lens,
+            "ipd": ipd, "feats": feats}
+
+
+def make_capture(mix: Dict, rng: np.random.Generator
+                 ) -> Dict[str, np.ndarray]:
+    """One capture: ``mix["flows"]`` flows of the mix's classes, their
+    packets interleaved by time, cut to the first ``mix["packets"]``.
+    Returns the packet stream (five-tuple uint32, ts_us and pkt_len
+    int32) and, under ``"windows"``, the first flows' feature windows
+    for calibration."""
+    fl = _draw_flows(mix, rng)
+    n, f, first, ipd = fl["n"], fl["f"], fl["first"], fl["ipd"]
+    n_flows, want, total = len(n), int(mix["packets"]), len(f)
     start = rng.uniform(0, float(mix["duration_s"]) * 1e6 * 0.5,
                         n_flows).astype(np.int64)
     cum = np.cumsum(ipd)
@@ -70,22 +87,36 @@ def make_capture(mix: Dict, rng: np.random.Generator
     fo = f[order]
     out = {k: v[fo].astype(np.uint32) for k, v in tup.items()}
     out["ts_us"] = (ts[order] % (2**31 - 1)).astype(np.int32)
-    out["pkt_len"] = lens[order].astype(np.int32)
-    feats = np.stack([lens.astype(np.int32), ipd.astype(np.int32)], -1)
-    out["windows"] = _windows(feats, first, n, int(mix.get("calib", 512)))
+    out["pkt_len"] = fl["lens"][order].astype(np.int32)
+    out["windows"] = fl["feats"][_window_rows(first, n)[1][
+        :int(mix.get("calib", 512))]]
     return out
 
 
-def _windows(feats, first, n, count, win=9, stride=7) -> np.ndarray:
-    """Up to ``count`` feature windows of ``win`` packets, every
-    ``stride`` packets of each flow in turn."""
-    out: List[np.ndarray] = []
-    for lo, ln in zip(first, n):
-        for e in range(win - 1, int(ln), stride):
-            out.append(feats[lo + e + 1 - win:lo + e + 1])
-            if len(out) == count:
-                return np.stack(out)
-    return np.stack(out)
+def _window_rows(first, n, win=9, stride=7):
+    """Feature windows of ``win`` packets, every ``stride`` packets of
+    each flow in turn: (the flow of each window, its packets' rows
+    [windows, win])."""
+    ends = [np.arange(lo + win - 1, lo + ln, stride)
+            for lo, ln in zip(first, n)]
+    flow = np.repeat(np.arange(len(n)), [len(e) for e in ends])
+    ends = np.concatenate(ends)
+    return flow, ends[:, None] + np.arange(1 - win, 1)
+
+
+def make_training_windows(mix: Dict, seed: int, win: int = 9):
+    """A training set from the mix's flows: every ``win``-packet window
+    of each flow (stride 7, as the calibration windows), its flow's
+    class, and the inverse-frequency class weights of the paper's §6
+    (as ``data/synthetic_traffic.class_weights``).  Returns (windows
+    [N, win, 2] int32, labels [N] int64, weights [N] float32)."""
+    fl = _draw_flows(mix, np.random.default_rng(seed & SEED_MASK))
+    flow, rows = _window_rows(fl["first"], fl["n"], win)
+    y = fl["label"][flow].astype(np.int64)
+    k = len(mix["classes"])
+    cnt = np.bincount(y, minlength=k).astype(np.float64)
+    w = np.where(cnt > 0, len(y) / (k * np.maximum(cnt, 1)), 0.0)
+    return fl["feats"][rows], y, w[y].astype(np.float32)
 
 
 def make_captures(mix: Dict, seed: int) -> List[Dict[str, np.ndarray]]:
@@ -97,6 +128,52 @@ def make_captures(mix: Dict, seed: int) -> List[Dict[str, np.ndarray]]:
 def stream_of(capture: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """The packet stream a replay takes (no calibration windows)."""
     return {k: v for k, v in capture.items() if k != "windows"}
+
+
+def float_shapes(cfg: Dict) -> Dict[str, tuple]:
+    """The float model's leaves by name, as the program names them, and
+    their shapes."""
+    e, k = cfg["embed_dim"], cfg["num_classes"]
+    shapes = {"embed_len/table": (cfg["len_buckets"], e),
+              "embed_ipd/table": (cfg["ipd_buckets"], e)}
+    c = 2 * e
+    if cfg["kind"] == "cnn":
+        for i, ch in enumerate(cfg["conv_filters"]):
+            shapes[f"conv{i}/w"] = (cfg["conv_kernel"], c, ch)
+            shapes[f"conv{i}/b"] = (ch,)
+            c = ch
+        for i, fc in enumerate(cfg["fc_dims"]):
+            shapes[f"fc{i}/w"] = (c, fc)
+            shapes[f"fc{i}/b"] = (fc,)
+            c = fc
+    else:
+        u = cfg["rnn_units"]
+        shapes.update({"cell/wx": (c, u), "cell/wh": (u, u),
+                       "cell/b": (u,)})
+        c = u
+    shapes.update({"head/w": (c, k), "head/b": (k,)})
+    return shapes
+
+
+def make_float_params(cfg: Dict, seed: int, dev) -> Dict[str, torch.Tensor]:
+    """Seeded float32 initial weights of the configuration on ``dev``:
+    every matrix normal at 1/sqrt(fan-in) (fan-in the product of all but
+    the last dimension), the embedding tables normal at 0.5, biases
+    zero; the normals drawn in one call."""
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed & SEED_MASK)
+    shapes = float_shapes(cfg)
+    mats = {k: s for k, s in shapes.items() if len(s) > 1}
+    sizes = [math.prod(s) for s in mats.values()]
+    flat = torch.randn((sum(sizes),), generator=g, device=dev,
+                       dtype=torch.float32)
+    out = {}
+    for (k, s), v in zip(mats.items(), torch.split(flat, sizes)):
+        scale = 0.5 if k.startswith("embed") else math.prod(s[:-1]) ** -0.5
+        out[k] = (v * scale).view(s)
+    return {k: out[k] if k in out else torch.zeros(s, device=dev)
+            for k, s in shapes.items()}
 
 
 def _shift_to(q: float, target: float, ceil: bool) -> int:

@@ -44,6 +44,20 @@ def tiny_cell(name: str, packets: int = 3000, flows: int = 40,
     return cell
 
 
+def tiny_train_cell(config: str = "fenix-cnn", **mix_kw) -> harness.Cell:
+    """The ``train-iscx`` cell on configuration ``config`` cut to a CPU
+    test's size: the tiny model of its kind, 40 flows, batch 16, jobs of
+    8 eager steps."""
+    cell = harness.resolve("fenix-cnn.train-iscx")
+    cell.config = json.loads((ROOT / "portbench" / "configs"
+                              / f"{config}.json").read_text())
+    cell.config.update(TINY_MODELS[cell.config["kind"]])
+    cell.mix.update(flows=40, batch=16, job_steps=8, warmup_steps=2,
+                    trace_steps=2, step_backend=None)
+    cell.mix.update(mix_kw)
+    return cell
+
+
 @pytest.fixture
 def gpu():
     """The CUDA device; skips the test where there is none."""

@@ -29,11 +29,13 @@ import time
 sys.path.insert(0, %r)
 import portbench.run, portbench.control
 from portbench import harness
-from conftest import tiny_cell
+from conftest import tiny_cell, tiny_train_cell
 for m in harness.load_bench()["end_to_end"] + \\
         harness.load_bench()["per_layer"]:
     harness.reader(m["name"])
 harness.run_cell(tiny_cell("fenix-cnn.device.iscx"), 3, 0.1, False, "cpu",
+                 time.perf_counter())
+harness.run_cell(tiny_train_cell(), 3, 0.1, False, "cpu",
                  time.perf_counter())
 """ % str(ROOT / "portbench" / "tests"))
     assert "repro_torch" in top
@@ -42,8 +44,8 @@ harness.run_cell(tiny_cell("fenix-cnn.device.iscx"), 3, 0.1, False, "cpu",
 
 def test_the_reference_loads_nothing_of_the_program():
     top = _modules_after("""
-from portbench.reference import fenix_ref, model_ref
-from portbench import check
+from portbench.reference import fenix_ref, model_ref, train_ref
+from portbench import check, check_train
 """)
     assert not top & {"jax", "jaxlib", "flax", "repro", "repro_torch"}
     for path in (ROOT / "portbench" / "reference").glob("*.py"):

@@ -3,7 +3,8 @@ model's multiply-accumulates, the INT8 GEMMs a step needs and the fused
 gate's bytes, each turned into the least time the card could take.
 
 Peaks are NVIDIA's published figures for one H100 SXM (dense, at its
-700 W limit): 3.35 TB/s of HBM3 and 1,979 TOP/s of int8.  A share is
+700 W limit): 3.35 TB/s of HBM3, 1,979 TOP/s of int8 and 67 TFLOP/s of
+float32 on the CUDA cores (TF32 off).  A share is
 stated against them with the card's power limit beside it.
 """
 
@@ -13,6 +14,7 @@ from typing import Dict, List, Tuple
 
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+FP32_FLOPS_PER_S = 67e12
 # the admission LUT: t_bins x c_bins int32; registers bucket and t_last
 LUT_BYTES = 64 * 32 * 4
 GATE_REG_BYTES = 2 * 4 + 4
@@ -35,6 +37,14 @@ def macs_per_inference(cfg: Dict) -> int:
         total += c * fc
         c = fc
     return total + c * cfg["num_classes"]
+
+
+def train_flops_per_window(cfg: Dict) -> int:
+    """Float operations one window costs in a train step: 2 x the
+    multiply-accumulates of the forward pass, and twice that for the
+    backward pass (the gradients of the activations and of the
+    weights)."""
+    return 3 * 2 * macs_per_inference(cfg)
 
 
 def gemm_shapes(cfg: Dict, lanes: int) -> List[Tuple[int, int, int, bool,
